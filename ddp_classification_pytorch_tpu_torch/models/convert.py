@@ -1,0 +1,93 @@
+"""Weights carried across from the JAX package: its flax TResNet variables
+→ the port's TResNet `state_dict` (timm's key layout, models/tresnet.py).
+
+The inverse direction of the JAX package's
+`models/import_torch.py::convert_tresnet_state_dict`, taking the flax trees
+as nested dicts of numpy arrays (`jax.device_get` of `params` and
+`batch_stats`), so this module needs neither jax nor flax:
+
+- conv kernel HWIO → weight OIHW;
+- Dense kernel (I, O) → Linear weight (O, I);
+- SE Dense kernel (I, O) → 1×1 conv weight (O, I, 1, 1);
+- flax `scale`/`bias` params and `mean`/`var` batch stats →
+  `weight`/`bias`/`running_mean`/`running_var`;
+- the anti-alias blur's fixed filter has no flax tensor (the JAX model builds
+  it as a constant): its persistent `.filt` buffer is filled with the same
+  binomial filter, so the result loads with `strict=True` like a timm
+  checkpoint.
+
+The tensors come back in f32 as stored; the served model casts its conv
+weights to the compute dtype once, after loading.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from .tresnet import blur_filter
+
+_BN_LEAVES = (("scale", "params", "weight"), ("bias", "params", "bias"),
+              ("mean", "batch_stats", "running_mean"),
+              ("var", "batch_stats", "running_var"))
+
+
+def _t(a: Any) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+
+
+def _conv(kernel: Any) -> torch.Tensor:
+    return _t(np.asarray(kernel).transpose(3, 2, 0, 1))  # HWIO → OIHW
+
+
+def tresnet_from_jax(params: Mapping[str, Any],
+                     batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax TResNet `params` + `batch_stats` (or a ClassifierModel's, with
+    the single `backbone` level) → the port TResNet's `state_dict`."""
+    if set(params) == {"backbone"}:
+        params, batch_stats = params["backbone"], batch_stats["backbone"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def bn(prefix: str, p: Mapping, s: Mapping) -> None:
+        for leaf, coll, name in _BN_LEAVES:
+            sd[f"{prefix}.{name}"] = _t((p if coll == "params" else s)[leaf])
+
+    def conv_bn(prefix: str, kernel: Any, p: Mapping, s: Mapping,
+                aa: bool) -> None:
+        inner = f"{prefix}.0" if aa else prefix
+        sd[f"{inner}.0.weight"] = _conv(kernel)
+        bn(f"{inner}.1", p, s)
+        if aa:
+            sd[f"{prefix}.1.filt"] = blur_filter(int(np.shape(kernel)[-1]))
+
+    conv_bn("body.conv1", params["stem_conv"]["kernel"], params["stem_abn"],
+            batch_stats["stem_abn"], aa=False)
+    blocks = sorted(
+        (tuple(int(g) for g in m.groups()), name) for name in params
+        if (m := re.fullmatch(r"stage(\d+)_block(\d+)", name)))
+    for (layer, b), name in blocks:
+        p, s = params[name], batch_stats[name]
+        pre = f"body.layer{layer}.{b}"
+        aa = layer >= 2 and b == 0  # the stride-2 block of stages 2-4
+        if layer <= 2:  # TBasicBlock: conv1+ABN (blurred), conv2+BN
+            conv_bn(f"{pre}.conv1", p["conv1"]["kernel"], p["abn1"], s["abn1"], aa)
+            conv_bn(f"{pre}.conv2", p["conv2"]["kernel"], p["bn2"], s["bn2"], False)
+        else:  # TBottleneck: conv1+ABN, conv2+ABN (blurred), conv3+BN
+            conv_bn(f"{pre}.conv1", p["conv1"]["kernel"], p["abn1"], s["abn1"], False)
+            conv_bn(f"{pre}.conv2", p["conv2"]["kernel"], p["abn2"], s["abn2"], aa)
+            conv_bn(f"{pre}.conv3", p["conv3"]["kernel"], p["bn3"], s["bn3"], False)
+        if "se" in p:
+            for fc in ("fc1", "fc2"):
+                k = np.asarray(p["se"][fc]["kernel"])
+                sd[f"{pre}.se.{fc}.weight"] = _t(k.T[:, :, None, None])
+                sd[f"{pre}.se.{fc}.bias"] = _t(p["se"][fc]["bias"])
+        if "downsample" in p:
+            sd[f"{pre}.downsample.1.0.weight"] = _conv(p["downsample"]["kernel"])
+            bn(f"{pre}.downsample.1.1", p["bn_down"], s["bn_down"])
+    if "fc" in params:
+        sd["head.fc.weight"] = _t(np.asarray(params["fc"]["kernel"]).T)
+        sd["head.fc.bias"] = _t(params["fc"]["bias"])
+    return sd

@@ -1,0 +1,47 @@
+"""Backbone/model construction from ModelConfig — the counterpart of the JAX
+package's `models/factory.py`, for the archs and heads ported so far."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from ..config import ModelConfig
+from .tresnet import tresnet_m
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(f"unknown compute dtype {name!r}; one of "
+                         f"{sorted(_DTYPES)}") from None
+
+
+def build_backbone(cfg: ModelConfig, num_classes: int = 0) -> nn.Module:
+    """Backbone emitting features (num_classes=0) or logits."""
+    if cfg.arch in ("tresnet_m", "timm"):
+        # reference `--model timm` → tresnet_m_miil_in21k (BASELINE/main.py:141-144)
+        return tresnet_m(num_classes=num_classes, dtype=compute_dtype(cfg.dtype))
+    raise ValueError(f"arch {cfg.arch!r} not yet ported to the torch package "
+                     "(ported: tresnet_m, timm)")
+
+
+class ClassifierModel(nn.Module):
+    """backbone → logits (BASELINE/CDR shape)."""
+
+    def __init__(self, backbone: nn.Module):
+        super().__init__()
+        self.backbone = backbone
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.backbone(x)
+
+
+def build_model(cfg: ModelConfig, num_classes: int) -> nn.Module:
+    if cfg.head == "fc":
+        return ClassifierModel(build_backbone(cfg, num_classes))
+    raise ValueError(f"head {cfg.head!r} not yet ported to the torch package "
+                     "(ported: fc)")

@@ -1,0 +1,293 @@
+"""Prometheus-style metrics registry — counters, gauges, bounded-window
+histograms; text exposition + JSON snapshot; atomic file export.
+
+Dependency-free by design (stdlib only): this is the substrate serve's
+`/metrics`, the trainer's `$OUT/metrics.prom` scrape file, and the fleet/
+watcher/sentinel instruments all share. Three rules keep it honest:
+
+- **host-side only** — an instrument update is a lock + int/float math;
+  nothing here ever touches a device value (callers convert first, at
+  their existing sync points), so instruments can never add a host sync
+  to a hot path;
+- **bounded memory** — histograms keep a fixed-size observation window
+  (recent-window quantiles are the operationally useful ones; monotonic
+  `_sum`/`_count` still cover all-time rates), so a long-lived server
+  cannot grow with request count;
+- **get-or-create** — re-registering the same (name, labels) returns the
+  SAME instrument, so two subsystems naming one metric share it instead
+  of fighting, and re-construction in tests is idempotent.
+
+Exposition follows the Prometheus text format (`text/plain; version=0.0.4`):
+`# HELP` / `# TYPE` per family, one sample line per instrument, histograms
+rendered as summaries (`{quantile="0.5"}` … plus `_sum`/`_count`).
+`write_prom()` is an atomic tmp-write + `os.replace`, so a scraper reading
+the file mid-rewrite sees either the old snapshot or the new one — never a
+torn mix (pinned by tests/test_obs.py).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import threading
+from collections import deque
+from typing import Dict, List, Optional, Tuple
+
+_NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
+
+# nearest-rank quantiles every histogram exposes (matches the p50/p95/p99
+# surface ServeMetrics always reported)
+QUANTILES = (0.5, 0.95, 0.99)
+
+
+def quantile(sorted_values, q: float) -> float:
+    """Nearest-rank quantile of an ascending sequence (0 when empty) —
+    the same estimator serve/metrics.py::percentile always used, so the
+    registry's p50/p95/p99 are bit-identical to the legacy snapshot."""
+    if not sorted_values:
+        return 0.0
+    i = int(round(q * (len(sorted_values) - 1)))
+    return float(sorted_values[i])
+
+
+def _escape(value: str) -> str:
+    return value.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _fmt_labels(labels: Tuple[Tuple[str, str], ...], extra: str = "") -> str:
+    parts = [f'{k}="{_escape(v)}"' for k, v in labels]
+    if extra:
+        parts.append(extra)
+    return "{" + ",".join(parts) + "}" if parts else ""
+
+
+def _fmt_value(v: float) -> str:
+    # integers render bare (counter conventions); floats keep repr precision
+    f = float(v)
+    return str(int(f)) if f == int(f) and abs(f) < 1e15 else repr(f)
+
+
+class _Instrument:
+    """Shared shell: (name, help, labels) + the registry's lock."""
+
+    kind = "untyped"
+
+    def __init__(self, name: str, help_text: str,
+                 labels: Tuple[Tuple[str, str], ...], lock: threading.Lock):
+        self.name = name
+        self.help = help_text
+        self.labels = labels
+        self._lock = lock
+
+
+class Counter(_Instrument):
+    """Monotonic counter. `inc(n)` with n >= 0; exposed as `counter`."""
+
+    kind = "counter"
+
+    def __init__(self, name, help_text, labels, lock):
+        super().__init__(name, help_text, labels, lock)
+        self._value = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        if n < 0:
+            raise ValueError(f"counter {self.name} cannot decrease (inc {n})")
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    def _samples(self) -> List[Tuple[str, float]]:
+        return [(self.name + _fmt_labels(self.labels), self._value)]
+
+
+class Gauge(_Instrument):
+    """Point-in-time value. `set`/`inc`/`dec`; exposed as `gauge`."""
+
+    kind = "gauge"
+
+    def __init__(self, name, help_text, labels, lock):
+        super().__init__(name, help_text, labels, lock)
+        self._value = 0.0
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._value = float(v)
+
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
+    def dec(self, n: float = 1.0) -> None:
+        self.inc(-n)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    def _samples(self) -> List[Tuple[str, float]]:
+        return [(self.name + _fmt_labels(self.labels), self._value)]
+
+
+class Histogram(_Instrument):
+    """Bounded-window observations + monotonic totals.
+
+    The window (a deque, default 2048) feeds the recent-window quantiles;
+    `_sum`/`_count` are all-time and monotonic (rate()-able). Exposed in
+    the Prometheus summary shape: `name{quantile="0.5"} v` lines plus
+    `name_sum` / `name_count`.
+    """
+
+    kind = "summary"
+
+    def __init__(self, name, help_text, labels, lock, window: int = 2048):
+        super().__init__(name, help_text, labels, lock)
+        self._window: deque = deque(maxlen=max(int(window), 1))
+        self._sum = 0.0
+        self._count = 0
+
+    def observe(self, v: float) -> None:
+        v = float(v)
+        with self._lock:
+            self._window.append(v)
+            self._sum += v
+            self._count += 1
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
+    def values(self) -> List[float]:
+        """Copy of the bounded observation window (oldest first)."""
+        with self._lock:
+            return list(self._window)
+
+    def quantile(self, q: float) -> float:
+        """Nearest-rank quantile over the current window; q in [0, 1]."""
+        with self._lock:
+            window = sorted(self._window)
+        return quantile(window, q)
+
+    def _samples(self) -> List[Tuple[str, float]]:
+        with self._lock:
+            window = sorted(self._window)
+            total, count = self._sum, self._count
+        out = [(self.name + _fmt_labels(self.labels, f'quantile="{q}"'),
+                quantile(window, q)) for q in QUANTILES]
+        out.append((self.name + "_sum" + _fmt_labels(self.labels), total))
+        out.append((self.name + "_count" + _fmt_labels(self.labels),
+                    float(count)))
+        return out
+
+
+class Registry:
+    """Instrument namespace: get-or-create by (name, labels), exposition,
+    snapshot, atomic file export. One per owning process surface (the
+    serve metrics bridge, the trainer) — NOT a process-global singleton,
+    so tests and multi-engine processes never cross-talk."""
+
+    def __init__(self):
+        self._lock = threading.Lock()  # shared with every instrument
+        self._instruments: Dict[Tuple[str, Tuple[Tuple[str, str], ...]],
+                                _Instrument] = {}
+        # family metadata (help/kind) keyed by bare name — one HELP/TYPE
+        # block per family even when label sets multiply the instruments
+        self._families: Dict[str, Tuple[str, str]] = {}
+
+    # ------------------------------------------------------------ create --
+    def _get_or_create(self, cls, name: str, help_text: str,
+                       labels: Optional[Dict[str, str]], **kw) -> _Instrument:
+        if not _NAME_RE.match(name):
+            raise ValueError(f"invalid metric name {name!r}")
+        label_items = tuple(sorted((labels or {}).items()))
+        for k, _ in label_items:
+            if not _LABEL_RE.match(k):
+                raise ValueError(f"invalid label name {k!r} on {name}")
+        key = (name, label_items)
+        with self._lock:
+            inst = self._instruments.get(key)
+            if inst is not None:
+                if not isinstance(inst, cls):
+                    raise ValueError(
+                        f"metric {name!r} already registered as {inst.kind}")
+                return inst
+            inst = cls(name, help_text, label_items, self._lock, **kw)
+            self._instruments[key] = inst
+            self._families.setdefault(name, (help_text, inst.kind))
+            return inst
+
+    def counter(self, name: str, help_text: str = "",
+                labels: Optional[Dict[str, str]] = None) -> Counter:
+        return self._get_or_create(Counter, name, help_text, labels)
+
+    def gauge(self, name: str, help_text: str = "",
+              labels: Optional[Dict[str, str]] = None) -> Gauge:
+        return self._get_or_create(Gauge, name, help_text, labels)
+
+    def histogram(self, name: str, help_text: str = "",
+                  labels: Optional[Dict[str, str]] = None,
+                  window: int = 2048) -> Histogram:
+        return self._get_or_create(Histogram, name, help_text, labels,
+                                   window=window)
+
+    # ------------------------------------------------------------ export --
+    def _ordered(self) -> List[_Instrument]:
+        with self._lock:
+            return [self._instruments[k]
+                    for k in sorted(self._instruments,
+                                    key=lambda k: (k[0], k[1]))]
+
+    def expose(self) -> str:
+        """Prometheus text exposition (`text/plain; version=0.0.4`):
+        HELP/TYPE once per family, samples sorted by (name, labels) so
+        the output is deterministic (golden-testable)."""
+        lines: List[str] = []
+        seen_family = set()
+        for inst in self._ordered():
+            if inst.name not in seen_family:
+                seen_family.add(inst.name)
+                help_text, kind = self._families[inst.name]
+                if help_text:
+                    lines.append(f"# HELP {inst.name} {_escape(help_text)}")
+                lines.append(f"# TYPE {inst.name} {kind}")
+            for sample, value in inst._samples():
+                lines.append(f"{sample} {_fmt_value(value)}")
+        return "\n".join(lines) + "\n" if lines else ""
+
+    def snapshot(self) -> Dict:
+        """JSON-able view: {name or name{labels}: value} for counters and
+        gauges; histograms expand to quantile/sum/count entries."""
+        out: Dict = {}
+        for inst in self._ordered():
+            for sample, value in inst._samples():
+                out[sample] = value
+        return out
+
+    def write_prom(self, path: str) -> None:
+        """Atomically rewrite `path` with the current exposition: write a
+        sibling tmp file, fsync, `os.replace` — a concurrent reader sees
+        a complete snapshot or the previous one, never a torn mix. Errors
+        are swallowed (scrape-by-file must never take down the writer)."""
+        try:
+            body = self.expose()
+            d = os.path.dirname(os.path.abspath(path))
+            os.makedirs(d, exist_ok=True)
+            tmp = os.path.join(d, f".{os.path.basename(path)}.{os.getpid()}.tmp")
+            with open(tmp, "w") as f:
+                f.write(body)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        except OSError:
+            pass

@@ -1,0 +1,223 @@
+"""Serving observability: per-request / per-batch counters and latency
+percentiles for the micro-batching engine (serve/engine.py).
+
+Since the obs/ spine landed this module is a thin bridge: every counter,
+gauge and the latency window live as instruments in an
+`obs.registry.Registry` (one per ServeMetrics — engines in one process
+never cross-talk), so the SAME numbers back three surfaces at once:
+
+- the legacy dict `snapshot()` (`/healthz`, `/metrics.json`, bench's
+  serve row, the console `log_line`) — keys and values unchanged;
+- the Prometheus text exposition `/metrics` serves
+  (`registry.expose()`), where the serve/engine instrument families
+  live next to the watcher's (serve/reload.py registers into the same
+  registry via `metrics.registry`);
+- TensorBoard scalar curves through the dependency-free writer.
+
+Everything is host-side bookkeeping — the engine records one event per
+submit/reject/batch/reload; nothing here ever syncs a device value.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Dict, Optional, Sequence
+
+from ..obs.registry import Registry
+
+
+def percentile(sorted_values: Sequence[float], q: float) -> float:
+    """Nearest-rank percentile of an ascending sequence (0 when empty)."""
+    if not sorted_values:
+        return 0.0
+    i = int(round((q / 100.0) * (len(sorted_values) - 1)))
+    return float(sorted_values[i])
+
+
+class ServeMetrics:
+    """Thread-safe counters + a bounded latency window, instrument-backed.
+
+    The window is a deque inside the registry histogram, not an unbounded
+    list: a long-lived server must not grow memory with request count, and
+    recent-window percentiles are the operationally useful ones anyway (a
+    p99 diluted by yesterday's traffic hides a regression happening now).
+    """
+
+    def __init__(self, latency_window: int = 2048,
+                 registry: Optional[Registry] = None):
+        self.registry = registry if registry is not None else Registry()
+        r = self.registry
+        # serve-facing family: the request lifecycle as clients see it
+        self._submitted = r.counter(
+            "serve_requests_total", "requests submitted to the engine")
+        self._completed = r.counter(
+            "serve_completed_total", "requests answered with a prediction")
+        self._rejected = r.counter(
+            "serve_rejected_total", "requests refused by the bounded queue")
+        self._latency = r.histogram(
+            "serve_request_latency_ms",
+            "end-to-end request latency (submit -> top-k result)",
+            window=latency_window)
+        self._queue_depth = r.gauge(
+            "serve_queue_depth", "requests waiting in the bounded queue")
+        # engine-facing family: what the micro-batcher actually did
+        self._batches = r.counter(
+            "engine_batches_total", "micro-batches dispatched to the device")
+        self._errors = r.counter(
+            "engine_errors_total", "predict failures (futures carry the "
+            "exception)")
+        self._reloads = r.counter(
+            "engine_reloads_total", "successful hot-reload swaps")
+        self._reloads_rejected = r.counter(
+            "engine_reloads_rejected_total",
+            "corrupt reload candidates quarantined")
+        self._recompiles = r.counter(
+            "engine_recompiles_total",
+            "steady-state compiles the sentinel caught")
+        self._rows_real = r.counter(
+            "engine_rows_real_total", "real rows through the jitted predict")
+        self._rows_padded = r.counter(
+            "engine_rows_padded_total", "bucket-padding rows (discarded)")
+        # per-bucket batch counters, created lazily per observed shape
+        self._bucket_counters: Dict[int, object] = {}
+        self._lock = threading.Lock()  # guards _done_t + bucket map
+        self._done_t = deque(maxlen=latency_window)
+
+    # ------------------------------------------- legacy attribute surface --
+    # (tests and operator tooling read these names; each is a view over
+    # the backing instrument)
+    @property
+    def submitted(self) -> int:
+        return int(self._submitted.value)
+
+    @property
+    def completed(self) -> int:
+        return int(self._completed.value)
+
+    @property
+    def rejected(self) -> int:
+        return int(self._rejected.value)
+
+    @property
+    def batches(self) -> int:
+        return int(self._batches.value)
+
+    @property
+    def errors(self) -> int:
+        return int(self._errors.value)
+
+    @property
+    def reloads(self) -> int:
+        return int(self._reloads.value)
+
+    @property
+    def reloads_rejected(self) -> int:
+        return int(self._reloads_rejected.value)
+
+    @property
+    def recompiles(self) -> int:
+        return int(self._recompiles.value)
+
+    @property
+    def rows_real(self) -> int:
+        return int(self._rows_real.value)
+
+    @property
+    def rows_padded(self) -> int:
+        return int(self._rows_padded.value)
+
+    @property
+    def bucket_hist(self) -> Dict[int, int]:
+        with self._lock:
+            return {b: int(c.value) for b, c in self._bucket_counters.items()}
+
+    # ------------------------------------------------------------- events --
+    def record_submit(self) -> None:
+        self._submitted.inc()
+
+    def record_reject(self) -> None:
+        self._rejected.inc()
+
+    def record_batch(self, bucket: int, n_real: int,
+                     latencies_ms: Sequence[float]) -> None:
+        now = time.monotonic()
+        self._batches.inc()
+        self._completed.inc(n_real)
+        self._rows_real.inc(n_real)
+        self._rows_padded.inc(bucket - n_real)
+        with self._lock:
+            counter = self._bucket_counters.get(bucket)
+            if counter is None:
+                counter = self.registry.counter(
+                    "engine_bucket_batches_total",
+                    "micro-batches run at each padded bucket shape",
+                    labels={"bucket": str(int(bucket))})
+                self._bucket_counters[bucket] = counter
+            for lat in latencies_ms:
+                self._done_t.append(now)
+        counter.inc()
+        for lat in latencies_ms:
+            self._latency.observe(float(lat))
+
+    def record_error(self, n: int = 1) -> None:
+        self._errors.inc(n)
+
+    def record_reload(self, ok: bool) -> None:
+        if ok:
+            self._reloads.inc()
+        else:
+            self._reloads_rejected.inc()
+
+    def record_recompile(self, n: int = 1) -> None:
+        """Steady-state compile(s) observed by the engine's sentinel — each
+        one stalled a micro-batch for a full XLA compile."""
+        self._recompiles.inc(n)
+
+    # ----------------------------------------------------------- snapshot --
+    def snapshot(self, queue_depth: Optional[int] = None) -> Dict:
+        lat = sorted(self._latency.values())
+        with self._lock:
+            done = list(self._done_t)
+        out = {
+            "requests": self.submitted,
+            "completed": self.completed,
+            "rejected": self.rejected,
+            "batches": self.batches,
+            "errors": self.errors,
+            "reloads": self.reloads,
+            "reloads_rejected": self.reloads_rejected,
+            "recompiles": self.recompiles,
+            "bucket_hist": self.bucket_hist,
+            "fill_ratio": round(
+                self.rows_real / max(self.rows_real + self.rows_padded, 1), 4),
+        }
+        out["p50_ms"] = round(percentile(lat, 50), 3)
+        out["p95_ms"] = round(percentile(lat, 95), 3)
+        out["p99_ms"] = round(percentile(lat, 99), 3)
+        # rate over the completion window (needs two samples for a span)
+        span = done[-1] - done[0] if len(done) >= 2 else 0.0
+        out["requests_per_sec"] = round((len(done) - 1) / span, 2) if span > 0 else 0.0
+        if queue_depth is not None:
+            out["queue_depth"] = queue_depth
+            self._queue_depth.set(queue_depth)
+        return out
+
+    def log_line(self, queue_depth: Optional[int] = None) -> str:
+        s = self.snapshot(queue_depth)
+        line = (f"[serve] reqs={s['requests']} done={s['completed']} "
+                f"rej={s['rejected']} p50={s['p50_ms']}ms p99={s['p99_ms']}ms "
+                f"rps={s['requests_per_sec']} fill={s['fill_ratio']} "
+                f"reloads={s['reloads']}")
+        if queue_depth is not None:
+            line += f" depth={queue_depth}"
+        return line
+
+    def to_tensorboard(self, writer, step: int) -> None:
+        """Scalar curves via the dependency-free event writer
+        (utils/tensorboard.py::SummaryWriter, same one the trainer uses)."""
+        s = self.snapshot()
+        for key in ("p50_ms", "p95_ms", "p99_ms", "requests_per_sec",
+                    "fill_ratio", "rejected", "reloads", "reloads_rejected"):
+            writer.add_scalar(f"serve/{key}", float(s[key]), step)

@@ -1,0 +1,41 @@
+"""Shared pieces of the torch port's parity tests (imported by
+tests/test_torch_port_*.py, like torch_resnet_oracle.py for the oracle
+tests)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+# the reduced TResNet both sides build for forward parity on the CPU
+REDUCED = dict(num_classes=10, stages=(1, 1, 1, 1), width=0.5)
+
+
+def init_variables(model, image_size: int):
+    """flax `init` under jit (eager init compiles op by op: ~4x slower on
+    the CPU)."""
+    x = jnp.zeros((1, image_size, image_size, 3))
+    return jax.jit(lambda k: model.init(k, x, train=False))(
+        jax.random.PRNGKey(0))
+
+
+def randomize_bn(params, stats, rng):
+    """Randomize every BN γ/β and running mean/var (and every bias) so a
+    scale↔bias or mean↔var swap in the mapping cannot hide behind the
+    init's 1/0 values."""
+    params = jax.tree_util.tree_map(np.asarray, params)
+    stats = jax.tree_util.tree_map(np.asarray, stats)
+
+    def walk(p, s):
+        for k, v in p.items():
+            if isinstance(v, dict):
+                walk(v, s.get(k, {}) if isinstance(s, dict) else {})
+            elif k == "scale":
+                p[k] = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+            elif k == "bias":
+                p[k] = rng.normal(0.0, 0.1, v.shape).astype(np.float32)
+        if isinstance(s, dict) and "mean" in s:
+            s["mean"] = rng.normal(0.0, 0.2, s["mean"].shape).astype(np.float32)
+            s["var"] = rng.uniform(0.5, 2.0, s["var"].shape).astype(np.float32)
+
+    walk(params, stats)
+    return params, stats
