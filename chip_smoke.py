@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke of the torch port: builds its kernels, holds each against
-its plain PyTorch version, and drives the port's main path — serving
-TResNet-M at full width and depth — on one NVIDIA GPU.
+its plain PyTorch version, and drives the port's main paths — serving
+TResNet-M at full width and depth, and training ViT-B/16 at 512 px — on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,32 +10,60 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
 
 1. device — CUDA is required (no CPU fallback); prints the card's name and
    power limit as nvidia-smi gives them;
-2. build — K1 from `ops/csrc/fused_abn.cu` with nvcc for sm_90a;
-3. kernel vs plain — K1 against `fused_bn_leaky_relu_ref` at every ABN shape
-   TResNet-M gives it at bucket 8 / 224 px, plus a ragged channel count and
-   an odd row count, in f32 (atol/rtol 1e-5) and bf16 (compared in f32,
-   atol/rtol 1e-2: one bf16 ulp of slack); per shape: max error, kernel and
-   plain device µs (kernel durations from torch.profiler, mean of 20 calls,
-   L2 warm as after the conv that feeds it), the kernel's wall µs as the
-   host drives it (CUDA events, median of 20), and the bound;
-4. the main path — `cli/serve.py`'s selfcheck sequence in process:
+2. build — K1 from `ops/csrc/fused_abn.cu` and K2-K4 from
+   `ops/csrc/flash_attention.cu`, one nvcc each, started together, for
+   sm_90a (nvcc's register and shared-memory lines printed);
+3. kernel vs plain (K1) — K1 against `fused_bn_leaky_relu_ref` at every
+   ABN shape TResNet-M gives it at bucket 8 / 224 px, plus a ragged channel
+   count and an odd row count, in f32 (atol/rtol 1e-5) and bf16 (compared
+   in f32, atol/rtol 1e-2: one bf16 ulp of slack); per shape: max error,
+   kernel and plain device µs (kernel durations from torch.profiler, mean
+   of 20 calls, L2 warm as after the conv that feeds it), the kernel's wall
+   µs as the host drives it (CUDA events, median of 20), and the bound;
+4. the serving path — `cli/serve.py`'s selfcheck sequence in process:
    TResNet-M, 224 px, 2173 classes, bf16, uint8 wire, buckets 1/2/4/8,
    warmup → batcher thread → drain over 32 seeded requests. Every future is
    answered with finite probabilities and K1's launch count rose by exactly
    36 per forward (warmup buckets + served batches);
-5. the slice, kernel vs plain — one bucket-8 batch through the served model
-   with random non-degenerate weights, once with K1 and once with every
-   ABN site calling the plain version on the same CUDA tensors; logits agree
-   within 5% of their standard deviation (bf16 activations through 36
-   ABN sites; the two differ only where an f32 result rounds to bf16 on the
-   other side of a tie); then the same weights in f32 on the CPU (the
-   plain path the CPU tests hold against the JAX package) as the reference
-   for two images: within 10% of the logits' spread, same top-1;
-6. timings — the 36 K1 launches of one bucket-8 forward as a sequence, and
-   the served forward per bucket: device time (summed kernel durations from
-   torch.profiler) and wall time as the host drives it (CUDA events), with
-   the SM clock and power draw read beside them;
-7. a `{"kernels": [...]}` line, then `{"ok": true, "device": {...}}` last.
+5. the serving slice, kernel vs plain — one bucket-8 batch through the
+   served model with random non-degenerate weights, once with K1 and once
+   with every ABN site calling the plain version on the same CUDA tensors;
+   logits agree within 5% of their standard deviation (bf16 activations
+   through 36 ABN sites; the two differ only where an f32 result rounds to
+   bf16 on the other side of a tie); then the same weights in f32 on the
+   CPU (the plain path the CPU tests hold against the JAX package) as the
+   reference for two images: within 10% of the logits' spread, same top-1;
+6. serving timings — the 36 K1 launches of one bucket-8 forward as a
+   sequence, and the served forward per bucket: device time (summed kernel
+   durations from torch.profiler) and wall time as the host drives it
+   (CUDA events), with the SM clock and power draw read beside them;
+7. kernel vs plain (K2-K4) — the flash forward, dQ and dK/dV kernels
+   against `flash_forward_ref` / `flash_dq_ref` / `flash_dkv_ref` at the
+   slice's shape (B 32, T 1024, H 12, D 64), T 196 (one ragged tile), T 128
+   and T 256 causal, in f32 (atol/rtol 1e-4: sums in another order) and
+   bf16 (compared in f32: O 2e-2, gradients 5e-2, rtol 2e-2 — bf16
+   rounding of P and dS summed over T terms); per shape: max errors, kernel
+   and plain device ms, the bound, and `F.scaled_dot_product_attention`
+   forward and backward as the yardstick (the port never calls it);
+8. the training path — `cli/train.py`'s sequence in process: ViT-B/16,
+   512 px (1024 tokens), 1000 classes, batch 32, bf16, `--flash_attention`,
+   synthetic data of 256 images, one epoch at lr 0.01: 8 train steps and 2
+   eval batches. The loss is finite, no step was skipped, `output.txt`,
+   `history.json`, `meta.json` and `ckpt_e0.pt` with its sidecar are
+   written and the checkpoint restores to the trained weights, and K2 rose
+   by exactly 12 × (8 + 2) = 120, K3 and K4 by 12 × 8 = 96 each. The run
+   writes into a temporary directory (its checkpoint is 350 MB); the small
+   records go into the report;
+9. the training slice, kernel vs plain — one train step at batch 8 from
+   the same weights and batch, through K2-K4 and with `flash_attention`'s
+   three wrappers swapped for their plain versions: loss within 1e-3 and
+   grad norm within 1e-2 of each other, relatively (bf16 rounding of P and
+   dS through 12 blocks), and the plain run launched no flash kernel;
+10. training timings — the batch-32 train step: wall time (host clock,
+   median of 5) and device time (torch.profiler), images/s, the device's
+   busy share, the 12 launches each of K2/K3/K4 inside it against their
+   bound, with the SM clock and power draw read beside them;
+11. a `{"kernels": [...]}` line, then `{"ok": true, "device": {...}}` last.
 
 Numerics on the card: `torch.backends.cudnn.allow_tf32 = False` and
 `torch.backends.cuda.matmul.allow_tf32 = False` (f32 convolutions and
@@ -46,10 +75,13 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -63,6 +95,23 @@ SERVE_ARGV = ["baseline", "--model", "tresnet_m", "--image_size", "224",
               "--input_dtype", "uint8", "--buckets", "1,2,4,8",
               "--max_batch", "8", "--selfcheck", "32", "--device", "cuda"]
 ABN_SITES = 36  # stem + abn1 of 21 blocks + abn2 of 14 bottlenecks
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 dense tensor cores (data sheet)
+TRAIN_ARGV = ["baseline", "--dataset", "synthetic", "--synthetic_size", "256",
+              "--model", "vit_b16", "--image_size", "512",
+              "--num_classes", "1000", "--batchsize", "32",
+              "--flash_attention", "--dtype", "bfloat16", "--epochs", "1",
+              "--lr", "0.01", "--device", "cuda"]
+VIT_BLOCKS = 12
+TRAIN_STEPS, EVAL_BATCHES = 8, 2  # 256 / 32 train images, max(64, 32) / 32 val
+# (B, T, H, causal): the slice's shape, one ragged tile, one aligned tile
+# pair, causal over four tiles
+FLASH_CASES = [(32, 1024, 12, False), (2, 196, 12, False),
+               (2, 128, 12, False), (2, 256, 12, True)]
+# dtype name -> (O atol, gradient atol, rtol), compared in f32
+FLASH_TOL = {"float32": (1e-4, 1e-4, 1e-4), "bfloat16": (2e-2, 5e-2, 2e-2)}
+FLASH_REPS = 5
+STEP_REPS = 3
+SCORE_ELEMENTWISE_OPS = 5  # per score: scale, mask/max, subtract, exp, sum/mul
 
 
 def check(cond: bool, msg: str) -> None:
@@ -82,6 +131,41 @@ def abn_bound_ms(shapes, itemsize: int):
     ops = sum(int(np.prod(s)) * ABN_OPS_PER_ELEMENT for s in shapes)
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def flash_bound_ms(kind: str, bh: int, t: int, d: int, itemsize: int,
+                   causal: bool):
+    """Least time the card needs for one K2 ("fwd"), K3 ("dq") or K4
+    ("dkv") launch: the largest of the bytes moved (each operand read once,
+    each output written once, the f32 row statistics) over the memory rate,
+    the products' operations over the tensor-core bf16 rate (CUDA-core f32
+    rate for f32 operands), and the per-score elementwise f32 operations
+    over the f32 rate. Causal counts the T(T+1)/2 scores this data needs."""
+    scores = bh * (t * (t + 1) // 2 if causal else t * t)
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
+    operands = {"fwd": 4, "dq": 5, "dkv": 6}[kind]  # (BH, T, D) in + out
+    stats = {"fwd": 1, "dq": 2, "dkv": 2}[kind]     # lse / delta rows
+    nbytes = operands * bh * t * d * itemsize + stats * bh * t * 4
+    mm_rate = BF16_OPS_PER_S if itemsize == 2 else F32_OPS_PER_S
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(products * 2 * scores * d / mm_rate,
+                               SCORE_ELEMENTWISE_OPS * scores / F32_OPS_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def host_ms(torch, fn, reps: int = 5) -> float:
+    """Median host-clock time of `fn` ending in a synchronize (for work
+    that reads the device from the host inside it, as the train step does)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def wall_ms(torch, fn, reps: int = REPS) -> float:
@@ -119,6 +203,7 @@ class DeviceTimer:
         self.prof = profile(activities=[ProfilerActivity.CPU,
                                         ProfilerActivity.CUDA])
         self.regions = []
+        self.per_kernel = {}
 
     def __enter__(self):
         self.prof.__enter__()
@@ -156,7 +241,15 @@ class DeviceTimer:
             check(bool(mine), f"torch.profiler recorded no device time for {label}")
             out[label] = (sum(d for d, _ in mine) / reps / 1e3,
                           [n for _, n in mine])
+            self.per_kernel[label] = (mine, reps)
         return out
+
+    def kernel_ms(self, label: str, part: str):
+        """(device ms per call, launches per call) of the kernels of region
+        `label` whose name holds `part` (after `results`)."""
+        mine, reps = self.per_kernel[label]
+        hit = [d for d, n in mine if part in n]
+        return sum(hit) / reps / 1e3, len(hit) / reps
 
 
 def clocks() -> str:
@@ -187,6 +280,181 @@ def randomize_(torch, model, seed: int) -> None:
                 b.copy_(torch.rand(b.shape, generator=gen) * 1.5 + 0.5)
 
 
+
+FLASH_KERNELS = (  # (kind, wrapper attribute, kernel name part, TPU kernel)
+    ("fwd", "flash_forward", "flash_fwd_kernel",
+     "ddp_classification_pytorch_tpu/ops/flash_attention.py:79"),
+    ("dq", "flash_dq", "flash_dq_kernel",
+     "ddp_classification_pytorch_tpu/ops/flash_attention.py:192"),
+    ("dkv", "flash_dkv", "flash_dkv_kernel",
+     "ddp_classification_pytorch_tpu/ops/flash_attention.py:238"),
+)
+
+
+def flash_counts(fa):
+    return tuple(getattr(fa, attr).launches for _, attr, _, _ in FLASH_KERNELS)
+
+
+def flash_vs_plain(torch, fa, device):
+    """Phase 7: K2-K4 against their plain versions at FLASH_CASES in f32
+    and bf16. Returns per-case rows (errors, bound) and, per case, the
+    closures the timing phase runs: kernel, plain and the SDPA yardstick."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    d = fa.HEAD_DIM
+    rows, timed = [], []
+    for b, t, h, causal in FLASH_CASES:
+        bh, scale = b * h, d ** -0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            q, k, v, do = (torch.randn(bh, t, d, device=device, generator=gen)
+                           .to(dtype) for _ in range(4))
+            out, lse = fa.flash_forward(q, k, v, scale, causal)
+            dsum = (do.float() * out.float()).sum(-1, keepdim=True)
+            got = {"o": out, "lse": lse,
+                   "dq": fa.flash_dq(q, k, v, do, lse, dsum, scale, causal)}
+            got["dk"], got["dv"] = fa.flash_dkv(q, k, v, do, lse, dsum, scale,
+                                                causal)
+            want = dict(zip(("o", "lse"),
+                            fa.flash_forward_ref(q, k, v, scale, causal)))
+            want["dq"] = fa.flash_dq_ref(q, k, v, do, lse, dsum, scale, causal)
+            want["dk"], want["dv"] = fa.flash_dkv_ref(q, k, v, do, lse, dsum,
+                                                      scale, causal)
+            torch.cuda.synchronize()
+            o_tol, g_tol, rtol = FLASH_TOL[dname]
+            errs = {}
+            for key, val in got.items():
+                check(val.dtype == (torch.float32 if key == "lse" else dtype),
+                      f"flash {key} dtype {val.dtype}")
+                errs[key] = (val.float() - want[key].float()).abs().max().item()
+                atol = {"o": o_tol, "lse": 1e-4}.get(key, g_tol)
+                torch.testing.assert_close(val.float(), want[key].float(),
+                                           atol=atol,
+                                           rtol=1e-4 if key == "lse" else rtol)
+            row = {"shape": [b, t, h, d], "causal": causal, "dtype": dname,
+                   "max_abs_err": errs}
+            for kind, _, _, _ in FLASH_KERNELS:
+                row[f"bound_ms_{kind}"], row[f"bound_by_{kind}"] = \
+                    flash_bound_ms(kind, bh, t, d, q.element_size(), causal)
+            rows.append(row)
+            args = (q, k, v, do, lse, dsum, scale, causal)
+            q4, k4, v4 = (x.clone().view(b, h, t, d).requires_grad_()
+                          for x in (q, k, v))
+            do4 = do.view(b, h, t, d)
+            sdpa_out = F.scaled_dot_product_attention(q4, k4, v4,
+                                                      is_causal=causal,
+                                                      scale=scale)
+            timed.append({
+                "k_fwd": lambda a=args: fa.flash_forward(*a[:3], a[6], a[7]),
+                "k_dq": lambda a=args: fa.flash_dq(*a),
+                "k_dkv": lambda a=args: fa.flash_dkv(*a),
+                "p_fwd": lambda a=args: fa.flash_forward_ref(*a[:3], a[6], a[7]),
+                "p_dq": lambda a=args: fa.flash_dq_ref(*a),
+                "p_dkv": lambda a=args: fa.flash_dkv_ref(*a),
+                "sdpa_fwd": lambda x=(q4, k4, v4), c=causal, sc=scale:
+                    F.scaled_dot_product_attention(*x, is_causal=c, scale=sc),
+                "sdpa_bwd": lambda o=sdpa_out, x=(q4, k4, v4), g=do4:
+                    torch.autograd.grad(o, x, g, retain_graph=True),
+            })
+            log(f"[flash] {b}x{t}x{h}x{d} causal={causal} {dname}: kernels "
+                f"agree with the plain versions, max |err| {json.dumps(errs)}")
+    return rows, timed
+
+
+def train_main_path(torch, fa, device, train_cli, checkpoint):
+    """Phase 8: cli/train.py's sequence in process; returns the trainer and
+    a record of the run."""
+    from ddp_classification_pytorch_tpu_torch.train.loop import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        cfg = train_cli.config_from_args(
+            train_cli.build_parser().parse_args(TRAIN_ARGV + ["--out", tmp]))
+        trainer = Trainer(cfg, device)
+        check(trainer.steps_per_epoch == TRAIN_STEPS
+              and len(trainer.val_loader) == EVAL_BATCHES,
+              f"{trainer.steps_per_epoch} train steps / "
+              f"{len(trainer.val_loader)} eval batches, expected "
+              f"{TRAIN_STEPS} / {EVAL_BATCHES}")
+        for _, attr, _, _ in FLASH_KERNELS:  # count only the main path's
+            getattr(fa, attr).launches = 0
+        t0 = time.perf_counter()
+        last = trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(zip(("fwd", "dq", "dkv"), flash_counts(fa)))
+        log(f"[train] epoch 0: {json.dumps(last)}")
+        check(np.isfinite(last["loss"]) and np.isfinite(last["val_loss"]),
+              "non-finite loss")
+        check(last["step_ok"] == 1.0 and trainer.sentinel.skipped_total == 0,
+              f"skipped steps: step_ok mean {last['step_ok']}")
+        want = {"fwd": VIT_BLOCKS * (TRAIN_STEPS + EVAL_BATCHES),
+                "dq": VIT_BLOCKS * TRAIN_STEPS, "dkv": VIT_BLOCKS * TRAIN_STEPS}
+        check(launches == want, f"flash launches {launches}, expected {want}")
+        names = ("output.txt", "history.json", "meta.json", "ckpt_e0.pt",
+                 "ckpt_e0.pt.sha256")
+        for n in names:
+            check(os.path.isfile(os.path.join(tmp, n)), f"train wrote no {n}")
+        restored = checkpoint.restore(os.path.join(tmp, "ckpt_e0.pt"))
+        trained = trainer.state.model.state_dict()
+        check(restored.keys() == trained.keys()
+              and all(torch.equal(restored[k], trained[k].cpu())
+                      for k in trained), "checkpoint does not restore the "
+              "trained weights")
+        files = {}
+        for n in names[:3]:  # the small records ride in the report
+            with open(os.path.join(tmp, n)) as f:
+                files[n] = f.read()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    record = {"argv": TRAIN_ARGV, "epoch": last, "launches": launches,
+              "wall_s": wall,
+              "images_per_s": TRAIN_STEPS * 32 / last["epoch_time"]}
+    log(f"[train] {json.dumps(record)}")
+    record["records"] = files
+    return trainer, cfg, record
+
+
+def train_slice(torch, fa, device, cfg, train_ds):
+    """Phase 9: one train step at batch 8 through K2-K4 and through the
+    plain versions, from the same weights and batch."""
+    from ddp_classification_pytorch_tpu_torch.train.state import create_train_state
+    from ddp_classification_pytorch_tpu_torch.train.steps import make_train_step
+
+    items = [train_ds[i] for i in range(8)]
+    images = torch.from_numpy(np.stack([im for im, _ in items])).to(device)
+    labels = torch.from_numpy(np.asarray([lb for _, lb in items], np.int32)).to(device)
+    step = make_train_step(cfg)
+    metrics = []
+    for plain in (False, True):
+        state = create_train_state(cfg, device, TRAIN_STEPS)
+        before = flash_counts(fa)
+        saved = {attr: getattr(fa, attr) for _, attr, _, _ in FLASH_KERNELS}
+        if plain:
+            for _, attr, _, _ in FLASH_KERNELS:
+                setattr(fa, attr, getattr(fa, attr + "_ref"))
+        try:
+            m = step(state, images, labels)
+            torch.cuda.synchronize()
+        finally:
+            for attr, fn in saved.items():
+                setattr(fa, attr, fn)
+        grew = tuple(a - b for a, b in zip(flash_counts(fa), before))
+        check(grew == ((0, 0, 0) if plain else (VIT_BLOCKS,) * 3),
+              f"{'plain' if plain else 'kernel'} step launched {grew}")
+        check(float(m["step_ok"]) == 1.0, "slice step skipped")
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        del state
+    kern, ref = metrics
+    rel = {k: abs(kern[k] - ref[k]) / abs(ref[k]) for k in kern}
+    log(f"[train-slice] kernel {json.dumps(kern)} plain {json.dumps(ref)} "
+        f"relative diff {json.dumps(rel)}")
+    check(rel["loss"] <= 1e-3 and rel["grad_norm"] <= 1e-2,
+          f"train slice disagrees: {rel}")
+    return {"kernel": kern, "plain": ref, "relative_diff": rel}
+
+
 def main() -> int:
     import torch
 
@@ -197,6 +465,7 @@ def main() -> int:
     from ddp_classification_pytorch_tpu_torch.cli import serve as serve_cli
     from ddp_classification_pytorch_tpu_torch.models import tresnet
     from ddp_classification_pytorch_tpu_torch.ops import fused_abn
+    from ddp_classification_pytorch_tpu_torch.ops import flash_attention as fa
     from ddp_classification_pytorch_tpu_torch.train.state import create_served_model
     from ddp_classification_pytorch_tpu_torch.train.steps import (
         IMAGENET_MEAN,
@@ -226,13 +495,20 @@ def main() -> int:
     device = resolve_device("cuda")
 
     # --------------------------------------------------------- 2. build --
+    def timed_build(build):
+        t0 = time.perf_counter()
+        return build(), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    lib = fused_abn.build()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        builds = list(pool.map(timed_build, (fused_abn.build, fa.build)))
     build_s = time.perf_counter() - t0
-    log(f"[build] {os.path.relpath(lib, REPO)} in {build_s:.2f} s")
-    with open(lib + ".log") as f:
-        for line in f.read().splitlines():
-            log(f"[build] nvcc: {line}")
+    for lib, secs in builds:
+        log(f"[build] {os.path.relpath(lib, REPO)} in {secs:.2f} s")
+        with open(lib + ".log") as f:
+            for line in f.read().splitlines():
+                log(f"[build] nvcc: {line}")
+    log(f"[build] both in {build_s:.2f} s")
     report["build_s"] = build_s
 
     # ABN shapes at bucket 8 come from the model itself: hooks on one
@@ -423,6 +699,71 @@ def main() -> int:
     report["k1_shapes"] = [row for row, _ in per_shape]
     report["k1_forward_sequence"] = seq
     report["forward"] = forward
+    del model, engine, served
+
+    # ---------------------------------------- 7. kernel vs plain (K2-K4) --
+    from ddp_classification_pytorch_tpu_torch.cli import train as train_cli
+    from ddp_classification_pytorch_tpu_torch.train import checkpoint
+
+    flash_rows, flash_timed = flash_vs_plain(torch, fa, device)
+
+    # -------------------------------------------- 8. the training path --
+    trainer, train_cfg, train_rec = train_main_path(torch, fa, device,
+                                                    train_cli, checkpoint)
+    report["train"] = train_rec
+
+    # ------------------------------- 9. the training slice, kernel vs plain --
+    report["train_slice"] = train_slice(torch, fa, device, train_cfg,
+                                        trainer.train_ds)
+
+    # ----------------------------------------------- 10. training timings --
+    log(f"[timing] clocks.sm, clocks.max.sm, power.draw: {clocks()}")
+    n = train_cfg.data.batch_size
+    items = [trainer.train_ds[i] for i in range(n)]
+    images = torch.from_numpy(np.stack([im for im, _ in items])).to(device)
+    labels = torch.from_numpy(
+        np.asarray([lb for _, lb in items], np.int32)).to(device)
+
+    def step():
+        return trainer.train_step(trainer.state, images, labels)
+
+    step_wall = host_ms(torch, step)
+    with DeviceTimer(torch) as timer:
+        for i, fns in enumerate(flash_timed):
+            for key, fn in fns.items():
+                timer.run(f"{key} {i}", fn, reps=FLASH_REPS)
+        timer.run("train step", step, reps=STEP_REPS)
+    res = timer.results()
+    for i in range(len(flash_timed)):  # attribution: kernel regions hold
+        for kind, _, part, _ in FLASH_KERNELS:  # exactly their launches
+            names = res[f"k_{kind} {i}"][1]
+            check(len(names) == FLASH_REPS and all(part in n for n in names),
+                  f"profiler region k_{kind} {i}: {len(names)} kernels")
+    for i, row in enumerate(flash_rows):
+        row.update({f"{key}_ms": res[f"{key} {i}"][0]
+                    for key in flash_timed[i]})
+        log("[flash] " + json.dumps(row))
+    step_dev = res["train step"][0]
+    step_rec = {"batch": n, "wall_ms": step_wall, "device_ms": step_dev,
+                "device_busy": step_dev / step_wall,
+                "images_per_s": n / step_wall * 1e3}
+    slice_row = flash_rows[1]  # (32, 1024, 12, 64) bf16
+    for kind, _, part, _ in FLASH_KERNELS:
+        ms, per_step = timer.kernel_ms("train step", part)
+        want = VIT_BLOCKS
+        check(per_step == want, f"{per_step} {part} launches per train "
+              f"step, expected {want}")
+        step_rec[f"{kind}_x12_ms"] = ms
+        step_rec[f"{kind}_x12_bound_ms"] = VIT_BLOCKS * slice_row[f"bound_ms_{kind}"]
+    top = {}  # the step's device time by kernel name, largest first
+    for d, kname in timer.per_kernel["train step"][0]:
+        top[kname] = top.get(kname, 0.0) + d / STEP_REPS / 1e3
+    step_rec["top_kernels_ms"] = dict(sorted(top.items(),
+                                             key=lambda kv: -kv[1])[:12])
+    log(f"[timing] {name}: ViT-B/16 train step: {json.dumps(step_rec)}")
+    log(f"[timing] clocks.sm, clocks.max.sm, power.draw: {clocks()}")
+    report["flash"] = flash_rows
+    report["train_step"] = step_rec
 
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
@@ -444,7 +785,25 @@ def main() -> int:
         "bound_ms": seq["bound_ms"],
         "bound_by": seq["bound_by"],
         "library_ms": None,
-    }]}))
+    }] + [{
+        "name": attr,
+        "route": "cuda",
+        "source": "ddp_classification_pytorch_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": tpu,
+        "launches": train_rec["launches"][kind],
+        "max_abs_err": max(max(r["max_abs_err"][key] for key in
+                               (("o", "lse") if kind == "fwd" else
+                                ("dq",) if kind == "dq" else ("dk", "dv")))
+                           for r in flash_rows),
+        "ms": slice_row[f"k_{kind}_ms"],
+        "plain_ms": slice_row[f"p_{kind}_ms"],
+        "bound_ms": slice_row[f"bound_ms_{kind}"],
+        "bound_by": slice_row[f"bound_by_{kind}"],
+        # one PyTorch call computing the same function: SDPA's forward for
+        # K2; its backward computes dQ, dK and dV together, so K3 and K4
+        # alone have none (the SDPA backward stands in the flash rows)
+        "library_ms": slice_row["sdpa_fwd_ms"] if kind == "fwd" else None,
+    } for kind, attr, _, tpu in FLASH_KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,0 +1,163 @@
+"""`train` entry point of the port — the JAX train CLI's flags for the
+paths ported so far (ViT on synthetic data), on the card.
+
+    python -m ddp_classification_pytorch_tpu_torch.cli.train baseline \
+        --dataset synthetic --model vit_b16 --image_size 512 \
+        --flash_attention --batchsize 32 --epochs 1 --out runs/vit
+
+Exit codes, as the JAX CLI's:
+
+- **rc 2**: config errors — an unported workload, dataset, arch or option,
+  a flag this CLI does not take (argparse), bad values;
+- **rc 3**: no CUDA device and `--device cpu` not asked for (it never
+  carries on on the CPU);
+- **rc 8**: `run.max_bad_steps` consecutive non-finite steps (diverged;
+  deterministic, a supervisor must not restart it).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Optional, Sequence
+
+from ..config import Config, get_preset
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ddp_classification_pytorch_tpu_torch.cli.train",
+        description="classification training on the card (ported: ViT on "
+                    "synthetic data)")
+    p.add_argument("workload", choices=["baseline", "arcface", "cdr", "nested", "plc"],
+                   help="which reference silo's recipe to run (ported: baseline)")
+
+    d = p.add_argument_group("data")
+    d.add_argument("--dataset", default="", help="synthetic (the one ported)")
+    d.add_argument("--synthetic_size", type=int, default=0,
+                   help="train-set size for --dataset synthetic (default 512)")
+    d.add_argument("--batchsize", "-b", type=int, default=0)
+    d.add_argument("--num_classes", type=int, default=0)
+    d.add_argument("--image_size", type=int, default=0)
+    d.add_argument("--input_dtype", default="", choices=["", "uint8", "float32"],
+                   help="H2D wire format (default uint8: raw pixels, "
+                        "normalized on the device)")
+
+    m = p.add_argument_group("model")
+    m.add_argument("--model", "--arch", dest="model", default="",
+                   help="vit_t16 | vit_s16 | vit_b16 (ported for training)")
+    m.add_argument("--flash_attention", action="store_true",
+                   help="ViT: the flash kernels for attention")
+    m.add_argument("--flash_min_tokens", type=int, default=-1,
+                   help="below this token count --flash_attention takes the "
+                        "dense op (default 1024; 0 = kernel always)")
+    m.add_argument("--dtype", default="", help="bfloat16 | float32 compute dtype")
+
+    o = p.add_argument_group("optimization")
+    o.add_argument("--optimizer", default="", help="sgd | adam")
+    o.add_argument("--lr", type=float, default=0.0)
+    o.add_argument("--momentum", type=float, default=-1.0)
+    o.add_argument("--weight_decay", type=float, default=-1.0)
+    o.add_argument("--epochs", type=int, default=0)
+    o.add_argument("--lrSchedule", type=int, nargs="*", default=None,
+                   help="multistep milestones (epochs)")
+    o.add_argument("--warmUpIter", type=int, default=-1,
+                   help="linear warmup iterations")
+
+    r = p.add_argument_group("run")
+    r.add_argument("--seed", type=int, default=-1)
+    r.add_argument("--out", default="", help="output dir (records + checkpoints)")
+    r.add_argument("--log_every", type=int, default=0)
+    r.add_argument("--device", default="", choices=["", "cuda", "cpu"],
+                   help="default cuda; cpu only when asked (rc 3 when cuda "
+                        "is missing and cpu was not asked for)")
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    if args.workload != "baseline":
+        raise ValueError(f"workload {args.workload!r} not yet ported to "
+                         "training in the torch package (ported: baseline)")
+    cfg = get_preset(args.workload)
+    if args.dataset:
+        cfg.data.dataset = args.dataset
+    if cfg.data.dataset != "synthetic":
+        raise ValueError(f"dataset {cfg.data.dataset!r} not yet ported to the "
+                         "torch package (ported: synthetic; ROADMAP.md)")
+    if args.synthetic_size:
+        cfg.data.synthetic_size = args.synthetic_size
+    if args.batchsize:
+        cfg.data.batch_size = args.batchsize
+    if args.num_classes:
+        cfg.data.num_classes = args.num_classes
+    if args.image_size:
+        cfg.data.image_size = args.image_size
+    if args.input_dtype:
+        cfg.data.input_dtype = args.input_dtype
+
+    if args.model:
+        cfg.model.arch = args.model
+    if args.flash_attention:
+        cfg.model.flash_attention = True
+    if args.flash_min_tokens >= 0:
+        cfg.model.flash_min_tokens = args.flash_min_tokens
+    if args.dtype:
+        cfg.model.dtype = args.dtype
+
+    if args.optimizer:
+        cfg.optim.optimizer = args.optimizer
+    if args.lr:
+        cfg.optim.lr = args.lr
+    if args.momentum >= 0:
+        cfg.optim.momentum = args.momentum
+    if args.weight_decay >= 0:
+        cfg.optim.weight_decay = args.weight_decay
+    if args.lrSchedule is not None:
+        cfg.optim.schedule = "multistep"
+        cfg.optim.milestones = tuple(args.lrSchedule)
+    if args.warmUpIter >= 0:
+        cfg.optim.warmup_iters = args.warmUpIter
+
+    if args.epochs:
+        cfg.run.epochs = args.epochs
+    if args.seed >= 0:
+        cfg.run.seed = args.seed
+    if args.out:
+        cfg.run.out_dir = args.out
+    if args.log_every:
+        cfg.run.log_every = args.log_every
+    if cfg.data.batch_size < 1 or cfg.run.log_every < 1:
+        raise ValueError("--batchsize and --log_every must be >= 1")
+    return cfg
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    from ..train.loop import Trainer
+    from ..train.sentinel import SentinelDiverged
+    from ..utils.backend_probe import BackendUnavailable, resolve_device
+
+    args = build_parser().parse_args(argv)
+    try:
+        cfg = config_from_args(args)
+    except ValueError as e:
+        print(f"[trainer] config error: {e}", file=sys.stderr)
+        raise SystemExit(2) from None
+    try:
+        device = resolve_device(args.device)
+    except BackendUnavailable as e:
+        print(f"[trainer] backend unreachable: {e}", file=sys.stderr)
+        raise SystemExit(3) from None
+    try:
+        trainer = Trainer(cfg, device)
+    except ValueError as e:  # an unported arch, head or option: deterministic
+        print(f"[trainer] config error: {e}", file=sys.stderr)
+        raise SystemExit(2) from None
+    try:
+        trainer.run()
+    except SentinelDiverged as e:
+        print(f"[trainer] diverged: {e}", file=sys.stderr)
+        raise SystemExit(SentinelDiverged.exit_code) from None
+
+
+if __name__ == "__main__":
+    main()

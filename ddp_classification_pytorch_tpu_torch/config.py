@@ -1,11 +1,12 @@
 """Config tree for the port: the part of the JAX package's `config.py` that
-serving reads, as the port's own copy (the port imports nothing of the JAX
-package).
+serving and ViT training read, as the port's own copy (the port imports
+nothing of the JAX package).
 
 Field names, defaults and the five workload presets are the JAX package's,
 so a command line means the same on both sides. Fields for the parts not
-ported yet (training, optimizer, parallelism, the serve fleet, hot reload,
-the HTTP front end, the AOT sidecar) are left out until their slice lands.
+ported yet (the image-folder data path, the heads' and CDR's knobs,
+parallelism, resume, the serve fleet, hot reload, the HTTP front end, the
+AOT sidecar) are left out until their slice lands.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ class DataConfig:
     dataset: str = "imagefolder"  # imagefolder | synthetic | plc
     image_size: int = 224
     num_classes: int = 2173  # BASELINE/main.py:85
+    batch_size: int = 16  # one process, one card: the whole batch
+    synthetic_size: int = 0  # train-set size for dataset == "synthetic" (0 = 512)
     # request wire format: "uint8" raw HWC pixels, normalized on the device
     # by train/steps.py::device_input_epilogue; "float32" host-normalized
     input_dtype: str = "uint8"
@@ -28,18 +31,51 @@ class DataConfig:
 
 @dataclass
 class ModelConfig:
-    """Backbone + head selection (only tresnet_m / timm with head fc are
-    ported; models/factory.py refuses the rest)."""
+    """Backbone + head selection (tresnet_m / timm and vit_t16/s16/b16 with
+    head fc are ported; models/factory.py refuses the rest)."""
 
     arch: str = "resnet50"
     head: str = "fc"  # fc | arcface | nested
     dtype: str = "bfloat16"  # compute dtype; ABN math, pool and fc stay f32
+    dropout: float = 0.0
+    remat: bool = False  # not ported: refused (ROADMAP.md)
+    moe_experts: int = 0  # not ported: refused (ROADMAP.md)
+    # ViT: the flash kernels (ops/flash_attention.py) for attention when
+    # the token count reaches flash_min_tokens (0 = always)
+    flash_attention: bool = False
+    flash_min_tokens: int = 1024
+    ln_bf16: bool = False  # not ported: refused (ROADMAP.md)
+
+
+@dataclass
+class OptimConfig:
+    """Optimizer + LR schedule (the JAX package's names and defaults)."""
+
+    optimizer: str = "sgd"  # sgd | adam
+    lr: float = 1e-3
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    schedule: str = "step"  # step | multistep | constant
+    step_size: int = 10
+    gamma: float = 0.1
+    milestones: Sequence[int] = field(default_factory=lambda: (10, 20))
+    warmup_iters: int = 0
+    warmup_start_lr: float = 1e-6  # BASELINE/main.py:175
 
 
 @dataclass
 class RunConfig:
+    epochs: int = 100  # NUM_EPOCH, BASELINE/main.py:87
     seed: int = 999  # set_seed(999), BASELINE/main.py:43-50
+    log_every: int = 20  # BASELINE/main.py:284
+    eval_every: int = 1
+    eval_first: bool = False
     out_dir: str = "./runs/default"
+    save_every_epoch: bool = True  # BASELINE/main.py:308-310
+    write_records: bool = True  # output.txt / history.json
+    # consecutive non-finite (skipped) steps before the run exits rc 8;
+    # 0 = skip forever
+    max_bad_steps: int = 25
 
 
 @dataclass
@@ -102,6 +138,7 @@ class Config:
     workload: str = "baseline"  # baseline | arcface | cdr | nested | plc
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
     run: RunConfig = field(default_factory=RunConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
 
@@ -112,30 +149,52 @@ def baseline_preset() -> Config:
 
 
 def arcface_preset() -> Config:
-    """ARCFACE/arc_main.py: ResNet-50 → 256-d embedding + ArcMarginProduct."""
+    """ARCFACE/arc_main.py: ResNet-50 → 256-d embedding + ArcMarginProduct,
+    batch 32, Adam."""
     cfg = Config(workload="arcface")
+    cfg.data.batch_size = 32
     cfg.model.head = "arcface"
+    cfg.optim.optimizer = "adam"
     return cfg
 
 
 def cdr_preset() -> Config:
-    """CDR/main.py: ResNet-50, first 100 classes."""
+    """CDR/main.py: ResNet-50, first 100 classes, batch 128, SGD 0.1,
+    MultiStepLR([10, 20]), 30 epochs."""
     cfg = Config(workload="cdr")
+    cfg.data.batch_size = 128
     cfg.data.num_classes = 100
+    cfg.optim.lr = 0.1
+    cfg.optim.schedule = "multistep"
+    cfg.optim.milestones = (10, 20)
+    cfg.run.epochs = 30
     return cfg
 
 
 def nested_preset() -> Config:
-    """NESTED/train.py: ResNet-50 feat + bias-free linear cls (nested head)."""
+    """NESTED/train.py: ResNet-50 feat + bias-free linear cls (nested head),
+    batch 128, 10k-iter warmup → lr 1e-2, MultiStepLR([20, 30, 40, 120])."""
     cfg = Config(workload="nested")
+    cfg.data.batch_size = 128
     cfg.model.head = "nested"
+    cfg.optim.lr = 1e-2
+    cfg.optim.schedule = "multistep"
+    cfg.optim.milestones = (20, 30, 40, 120)
+    cfg.optim.warmup_iters = 10000
+    cfg.run.epochs = 50
+    cfg.run.eval_first = True
     return cfg
 
 
 def plc_preset() -> Config:
     """PLC correction training on Clothing1M-scale data (14 classes)."""
     cfg = Config(workload="plc")
+    cfg.data.batch_size = 128
     cfg.data.num_classes = 14  # Clothing1M
+    cfg.optim.lr = 0.01
+    cfg.optim.schedule = "multistep"
+    cfg.optim.milestones = (10, 20)
+    cfg.run.epochs = 30
     return cfg
 
 

@@ -1,0 +1,51 @@
+"""Synthetic dataset — the port's copy of the JAX package's
+`data/synthetic.py`: the same numpy streams from the same seeds and the
+same uint8 mapping, so both packages see the same pixels and labels.
+Deterministic, no filesystem."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class SyntheticDataset:
+    size: int
+    image_size: int = 32
+    num_classes: int = 10
+    seed: int = 0
+    channels: int = 3
+    # offsets the per-item noise stream so train/val share class means (the
+    # learnable mapping) but draw disjoint samples
+    item_offset: int = 0
+    # "float32": raw N(class_mean, 0.1) floats; "uint8": the same floats
+    # mapped affinely into [0, 255] and quantized (the uint8 wire)
+    out_dtype: str = "float32"
+
+    def __post_init__(self) -> None:
+        # class means on a stream keyed by seed only, so train/val sets of
+        # different sizes share the label → mean mapping
+        means_rng = np.random.default_rng((self.seed, 0xC1A55))
+        self.class_means = means_rng.normal(
+            0, 1, size=(self.num_classes, 1, 1, self.channels)).astype(np.float32)
+        labels_rng = np.random.default_rng((self.seed, 0x1ABE15, self.item_offset))
+        self.labels = labels_rng.integers(0, self.num_classes, size=self.size).astype(np.int32)
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __getitem__(self, i: int, rng: Optional[np.random.Generator] = None
+                    ) -> Tuple[np.ndarray, int]:
+        label = int(self.labels[i])
+        item_rng = np.random.default_rng(self.seed * 1_000_003 + self.item_offset + i)
+        img = self.class_means[label] + 0.1 * item_rng.normal(
+            size=(self.image_size, self.image_size, self.channels)
+        ).astype(np.float32)
+        if self.out_dtype == "uint8":
+            # ~N(0,1) class means land mostly inside [-2, 2] → [0, 255]
+            return np.clip(np.rint((img * 0.25 + 0.5) * 255.0),
+                           0, 255).astype(np.uint8), label
+        return img.astype(np.float32), label

@@ -1,5 +1,6 @@
 """Weights carried across from the JAX package: its flax TResNet variables
-→ the port's TResNet `state_dict` (timm's key layout, models/tresnet.py).
+→ the port's TResNet `state_dict` (timm's key layout, models/tresnet.py),
+and its flax ViT params → the port's ViT `state_dict` (models/vit.py).
 
 The inverse direction of the JAX package's
 `models/import_torch.py::convert_tresnet_state_dict`, taking the flax trees
@@ -36,7 +37,7 @@ _BN_LEAVES = (("scale", "params", "weight"), ("bias", "params", "bias"),
 
 
 def _t(a: Any) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+    return torch.from_numpy(np.array(a, order="C"))  # a writable copy
 
 
 def _conv(kernel: Any) -> torch.Tensor:
@@ -90,4 +91,42 @@ def tresnet_from_jax(params: Mapping[str, Any],
     if "fc" in params:
         sd["head.fc.weight"] = _t(np.asarray(params["fc"]["kernel"]).T)
         sd["head.fc.bias"] = _t(params["fc"]["bias"])
+    return sd
+
+
+def _dense(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)  # (I, O) → (O, I)
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def vit_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ViT `params` (or a ClassifierModel's, with the single
+    `backbone` level) → the port ViT's `state_dict`: conv HWIO → OIHW, Dense
+    (I, O) → Linear (O, I), LayerNorm `scale`/`bias` → `weight`/`bias`,
+    `pos_embed` as it is. A ViT has no batch statistics."""
+    if set(params) == {"backbone"}:
+        params = params["backbone"]
+    sd: Dict[str, torch.Tensor] = {
+        "patch_embed.weight": _conv(params["patch_embed"]["kernel"]),
+        "patch_embed.bias": _t(params["patch_embed"]["bias"]),
+        "pos_embed": _t(params["pos_embed"]),
+    }
+
+    def ln(prefix: str, p: Mapping) -> None:
+        sd[f"{prefix}.weight"] = _t(p["scale"])
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+    blocks = sorted(int(m.group(1)) for name in params
+                    if (m := re.fullmatch(r"block(\d+)", name)))
+    for i in blocks:
+        p, pre = params[f"block{i}"], f"blocks.{i}"
+        ln(f"{pre}.ln1", p["ln1"])
+        ln(f"{pre}.ln2", p["ln2"])
+        _dense(sd, f"{pre}.attn.qkv", p["attn"]["qkv"])
+        _dense(sd, f"{pre}.attn.proj", p["attn"]["proj"])
+        _dense(sd, f"{pre}.mlp_in", p["mlp_in"])
+        _dense(sd, f"{pre}.mlp_out", p["mlp_out"])
+    ln("ln_final", params["ln_final"])
+    if "fc" in params:
+        _dense(sd, "fc", params["fc"])
     return sd

@@ -7,6 +7,7 @@ import torch
 import torch.nn as nn
 
 from ..config import ModelConfig
+from . import vit as _vit
 from .tresnet import tresnet_m
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -20,13 +21,25 @@ def compute_dtype(name: str) -> torch.dtype:
                          f"{sorted(_DTYPES)}") from None
 
 
-def build_backbone(cfg: ModelConfig, num_classes: int = 0) -> nn.Module:
-    """Backbone emitting features (num_classes=0) or logits."""
+PORTED_ARCHS = ("tresnet_m", "timm", *_vit.VIT_CONFIGS)
+
+
+def build_backbone(cfg: ModelConfig, num_classes: int = 0,
+                   image_size: int = 224) -> nn.Module:
+    """Backbone emitting features (num_classes=0) or logits. `image_size`
+    sizes the ViT position table (the flax model infers it at init)."""
     if cfg.arch in ("tresnet_m", "timm"):
         # reference `--model timm` → tresnet_m_miil_in21k (BASELINE/main.py:141-144)
         return tresnet_m(num_classes=num_classes, dtype=compute_dtype(cfg.dtype))
+    if cfg.arch in _vit.VIT_CONFIGS:
+        return _vit.build_vit(
+            cfg.arch, num_classes=num_classes, image_size=image_size,
+            dtype=compute_dtype(cfg.dtype), dropout=cfg.dropout,
+            remat=cfg.remat, use_flash=cfg.flash_attention,
+            moe_experts=cfg.moe_experts,
+            flash_min_tokens=cfg.flash_min_tokens, ln_bf16=cfg.ln_bf16)
     raise ValueError(f"arch {cfg.arch!r} not yet ported to the torch package "
-                     "(ported: tresnet_m, timm)")
+                     f"(ported: {', '.join(PORTED_ARCHS)})")
 
 
 class ClassifierModel(nn.Module):
@@ -40,8 +53,9 @@ class ClassifierModel(nn.Module):
         return self.backbone(x)
 
 
-def build_model(cfg: ModelConfig, num_classes: int) -> nn.Module:
+def build_model(cfg: ModelConfig, num_classes: int,
+                image_size: int = 224) -> nn.Module:
     if cfg.head == "fc":
-        return ClassifierModel(build_backbone(cfg, num_classes))
+        return ClassifierModel(build_backbone(cfg, num_classes, image_size))
     raise ValueError(f"head {cfg.head!r} not yet ported to the torch package "
                      "(ported: fc)")

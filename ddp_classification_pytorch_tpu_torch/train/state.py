@@ -1,19 +1,23 @@
-"""The served model's state — serving's part of the JAX package's
-`train/state.py::create_train_state`.
+"""Model state — the JAX package's `train/state.py`: the training state
+(`create_train_state`) and the served model (`create_served_model`).
 
 In PyTorch the module holds its own weights, so the "state" the engine
-serves and swaps is the `nn.Module` itself.
+serves and swaps is the `nn.Module` itself; the training state bundles the
+module (f32 master weights) with its optimizer, LR schedule and counters.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+import dataclasses
+from typing import List, Mapping, Optional
 
 import torch
 import torch.nn as nn
 
 from ..config import Config
 from ..models.factory import build_model
+from ..models.vit import VIT_CONFIGS
+from .schedule import Schedule, build_optimizer, build_schedule
 
 
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -29,7 +33,51 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
+        for name, p in model.named_parameters():
+            if name.endswith("pos_embed"):  # the ViT's N(0, 0.02), as flax's
+                p.normal_(0.0, 0.02, generator=generator)
     return model
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Everything a train step reads and updates.
+
+    `step` counts train steps (skipped ones too); `opt_count` counts the
+    updates applied — the count optax keeps in its optimizer state, which
+    the schedule reads, so a skipped step does not advance the lr."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    schedule: Schedule
+    step: int = 0
+    opt_count: int = 0
+
+    @property
+    def params(self) -> List[nn.Parameter]:
+        return [p for group in self.optimizer.param_groups
+                for p in group["params"]]
+
+
+def create_train_state(cfg: Config, device: torch.device,
+                       steps_per_epoch: int) -> TrainState:
+    """Model with fresh f32 master weights from `run.seed` on `device`, its
+    optimizer and LR schedule. Training is ported for the ViT family only;
+    anything else is a ValueError."""
+    if cfg.model.arch not in VIT_CONFIGS:
+        raise ValueError(f"training arch {cfg.model.arch!r} not yet ported "
+                         f"to the torch package (ported: "
+                         f"{', '.join(VIT_CONFIGS)}; ROADMAP.md)")
+    model = build_model(cfg.model, cfg.data.num_classes, cfg.data.image_size)
+    init_weights_(model, torch.Generator().manual_seed(cfg.run.seed))
+    model.to(device)
+    return TrainState(model=model,
+                      optimizer=build_optimizer(cfg.optim, model.parameters()),
+                      schedule=build_schedule(cfg.optim, steps_per_epoch))
+
+
+def param_count(state: TrainState) -> int:
+    return sum(p.numel() for p in state.params)
 
 
 def create_served_model(cfg: Config, device: torch.device,
@@ -39,7 +87,11 @@ def create_served_model(cfg: Config, device: torch.device,
     (or load `state_dict`, e.g. a verified checkpoint), then apply the
     dtype policy once, move to the device in channels_last, and set eval
     mode. Raises ValueError for an arch or head not ported yet."""
-    model = build_model(cfg.model, cfg.data.num_classes)
+    if cfg.model.arch not in ("tresnet_m", "timm"):
+        raise ValueError(f"serving arch {cfg.model.arch!r} not yet ported to "
+                         "the torch package (ported: tresnet_m, timm; "
+                         "ROADMAP.md)")
+    model = build_model(cfg.model, cfg.data.num_classes, cfg.data.image_size)
     if state_dict is None:
         init_weights_(model, torch.Generator().manual_seed(cfg.run.seed))
     else:

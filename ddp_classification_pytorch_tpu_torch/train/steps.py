@@ -1,19 +1,25 @@
-"""Step functions of the port — serving's part of the JAX package's
-`train/steps.py`: the uint8 input epilogue and the top-k predict.
+"""Step functions of the port — the JAX package's `train/steps.py` for
+serving (the uint8 input epilogue, the top-k predict) and for training
+(`make_train_step`, `make_eval_step`).
 
-PyTorch runs eagerly, so a "step" here is a plain function over the model
-and a device tensor; there is nothing to trace or compile.
+PyTorch runs eagerly, so a "step" here is a plain function over the state
+and device tensors; there is nothing to trace or compile.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..config import Config
+from ..utils.metrics import topk_correct, topk_hits
+
+if TYPE_CHECKING:
+    from .state import TrainState
 
 # ImageNet normalization constants (the JAX package's data/transforms.py)
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -66,5 +72,101 @@ def make_topk_predict_step(
             probs = torch.softmax(logits.float(), dim=-1)
             vals, idx = torch.topk(probs, min(k, probs.shape[-1]), dim=-1)
         return vals, idx.to(torch.int32)
+
+    return step
+
+
+def _consts(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    return tuple(torch.from_numpy(a).view(1, 3, 1, 1).to(device)
+                 for a in (IMAGENET_MEAN, IMAGENET_STD))
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax-CE on f32 logits (the reference's LogSoftmax + NLLLoss
+    pair, BASELINE/main.py:139,152)."""
+    return F.cross_entropy(logits.float(), labels.long())
+
+
+def _train_metrics(loss: torch.Tensor, logits: torch.Tensor,
+                   labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+    n = labels.shape[0]
+    return {"loss": loss.detach(),
+            "top1": topk_correct(logits, labels, 1) / n,
+            "top3": topk_correct(logits, labels, 3) / n}
+
+
+def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
+    """`(state, images (B, H, W, 3), labels (B,)) -> metrics`, updating
+    `state` in place — the JAX `_build_step` for the baseline workload.
+
+    uint8 epilogue (synthetic data has no transform, so no flip), forward
+    in train mode, f32 CE, backward, global grad norm, then the skip-step
+    gate: `step_ok = isfinite(loss) & isfinite(grad_norm)`. A passing step
+    sets the lr from the schedule at the count of updates applied so far
+    and steps the optimizer; a failing one leaves the parameters, the
+    optimizer state and that count as they were. The step counter always
+    advances. The gate reads `step_ok` on the host once per step (the JAX
+    step selects on the device instead). Metrics are 0-d tensors: loss,
+    top1, top3, step_ok, grad_norm."""
+    if cfg.model.head != "fc":
+        raise ValueError(f"head {cfg.model.head!r} not yet ported to the "
+                         "torch package (ported: fc)")
+    consts: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def step(state: "TrainState", images: torch.Tensor,
+             labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        model, opt = state.model, state.optimizer
+        if images.device not in consts:
+            consts[images.device] = _consts(images.device)
+        x = device_input_epilogue(images.permute(0, 3, 1, 2),
+                                  *consts[images.device])
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        logits = model(x)
+        loss = _cross_entropy(logits, labels)
+        loss.backward()
+        grads = [p.grad for p in state.params if p.grad is not None]
+        grad_norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        ok = torch.isfinite(loss.detach()) & torch.isfinite(grad_norm)
+        if bool(ok):  # the one host read of the step
+            lr = state.schedule(state.opt_count)
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
+            state.opt_count += 1
+        state.step += 1
+        metrics = _train_metrics(loss, logits.detach(), labels)
+        metrics["step_ok"] = ok.float()
+        metrics["grad_norm"] = grad_norm
+        return metrics
+
+    return step
+
+
+def make_eval_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
+    """`(state, images, labels, valid) -> {loss_sum, top1, top3, n}`:
+    per-batch counts over the rows where `valid` is 1 (the loader's
+    wrap-padding is 0), summed exactly on the host across batches."""
+    if cfg.model.head != "fc":
+        raise ValueError(f"head {cfg.model.head!r} not yet ported to the "
+                         "torch package (ported: fc)")
+    consts: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def step(state: "TrainState", images: torch.Tensor, labels: torch.Tensor,
+             valid: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if images.device not in consts:
+            consts[images.device] = _consts(images.device)
+        state.model.eval()
+        with torch.no_grad():
+            x = device_input_epilogue(images.permute(0, 3, 1, 2),
+                                      *consts[images.device])
+            logits = state.model(x)
+            ce = F.cross_entropy(logits.float(), labels.long(),
+                                 reduction="none")
+            return {"loss_sum": (ce * valid).sum(),
+                    "top1": (topk_hits(logits, labels, 1) * valid).sum(),
+                    "top3": (topk_hits(logits, labels, 3) * valid).sum(),
+                    "n": valid.sum()}
 
     return step

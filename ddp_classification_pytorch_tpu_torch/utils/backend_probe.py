@@ -25,5 +25,5 @@ def resolve_device(requested: str = "") -> torch.device:
         raise ValueError(f"unknown device {requested!r}; one of cuda, cpu")
     if not torch.cuda.is_available():
         raise BackendUnavailable(
-            "CUDA is not available (pass --device cpu to serve on the host)")
+            "CUDA is not available (pass --device cpu to run on the host)")
     return torch.device("cuda", torch.cuda.current_device())

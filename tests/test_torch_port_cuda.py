@@ -1,16 +1,18 @@
-"""On-card tests of the torch port: K1's CUDA kernel against its plain
-PyTorch version (which the CPU tests hold against the JAX package), the
-wrapper's refusals and its launch count, and the served model on the card
-against the same model on the CPU.
+"""On-card tests of the torch port: K1's CUDA kernel and the flash
+attention kernels K2-K4 against their plain PyTorch versions (which the CPU
+tests hold against the JAX package), the wrappers' refusals and launch
+counts, the flash autograd Function against the plain versions' autograd,
+and the served model on the card against the same model on the CPU.
 
 Marked `cuda`; each test skips (inside a fixture, never at import) where
 `torch.cuda.is_available()` is false. On the card, without JAX installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-Tolerances: f32 1e-5; bf16 compared in f32 at 1e-2 (one bf16 ulp of slack:
-the kernel may fuse x_hat * scale + bias into one FMA where the plain
-version rounds twice, which moves a bf16 result across a tie).
+Tolerances, K1: f32 1e-5; bf16 compared in f32 at 1e-2 (one bf16 ulp of
+slack: the kernel may fuse x_hat * scale + bias into one FMA where the
+plain version rounds twice, which moves a bf16 result across a tie).
+K2-K4: at FLASH_TOL below.
 """
 
 import pytest
@@ -140,3 +142,119 @@ def test_served_model_on_card_matches_cpu(cuda):
     assert fused_abn.fused_bn_leaky_relu.launches == before + 7  # stem + 2 basic + 2 x 2 bottleneck
     torch.testing.assert_close(got_i.cpu(), want_i)
     torch.testing.assert_close(got_p.cpu(), want_p, atol=1e-4, rtol=1e-4)
+
+
+# ----------------------------------------------- K2-K4: flash attention --
+# (B·H, T, causal): the ViT-B/16 slice shape, a ragged single tile, one
+# aligned tile pair, and causal over four tiles
+FLASH_SHAPES = [(384, 1024, False), (24, 196, False), (24, 128, False),
+                (24, 256, True)]
+# f32 1e-4 (sums in another order); bf16 compared in f32: 2e-2 for O and
+# 5e-2 for gradients, with rtol 2e-2 (bf16 rounding of P and dS, summed
+# over T terms, at the points the kernel and the plain version share)
+FLASH_TOL = {torch.float32: (1e-4, 1e-4, 1e-4),
+             torch.bfloat16: (2e-2, 5e-2, 2e-2)}
+
+
+def _flash_inputs(bh, t, dtype, device, seed=0):
+    from ddp_classification_pytorch_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(bh, t, fa.HEAD_DIM, device=device,
+                               generator=g).to(dtype) for _ in range(4))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bh,t,causal", FLASH_SHAPES,
+                         ids=lambda x: str(x))
+def test_flash_kernels_match_plain_versions(cuda, bh, t, causal, dtype):
+    from ddp_classification_pytorch_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(bh, t, dtype, cuda)
+    scale = fa.HEAD_DIM ** -0.5
+    o_tol, g_tol, rtol = FLASH_TOL[dtype]
+    out, lse = fa.flash_forward(q, k, v, scale, causal)
+    ref_out, ref_lse = fa.flash_forward_ref(q, k, v, scale, causal)
+    dsum = (do.float() * out.float()).sum(-1, keepdim=True)
+    dq = fa.flash_dq(q, k, v, do, lse, dsum, scale, causal)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, dsum, scale, causal)
+    ref_dq = fa.flash_dq_ref(q, k, v, do, lse, dsum, scale, causal)
+    ref_dk, ref_dv = fa.flash_dkv_ref(q, k, v, do, lse, dsum, scale, causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == dtype
+    assert lse.dtype == torch.float32 and lse.shape == (bh, t, 1)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=o_tol, rtol=rtol)
+    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        torch.testing.assert_close(got.float(), want.float(), atol=g_tol, rtol=rtol)
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from ddp_classification_pytorch_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(4, 64, torch.bfloat16, cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_forward(q.half(), k.half(), v.half(), 0.125)
+    with pytest.raises(ValueError, match=r"\(BH, T, 64\)"):
+        x = torch.zeros(4, 64, 32, device=cuda, dtype=torch.bfloat16)
+        fa.flash_forward(x, x, x, 0.125)
+    with pytest.raises(ValueError, match="k must be"):
+        fa.flash_forward(q, k[:, :32].contiguous(), v, 0.125)
+    with pytest.raises(ValueError, match="v must be"):
+        fa.flash_forward(q, k, v.cpu(), 0.125)
+    with pytest.raises(ValueError, match="k must be"):
+        fa.flash_forward(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, 0.125)
+    lse = torch.zeros(4, 64, 1, device=cuda)
+    with pytest.raises(ValueError, match="dsum must be"):
+        fa.flash_dq(q, k, v, do, lse, lse.bfloat16(), 0.125)
+
+
+def test_flash_launch_counts(cuda):
+    from ddp_classification_pytorch_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(4, 128, torch.bfloat16, cuda)
+    before = (fa.flash_forward.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
+    out, lse = fa.flash_forward(q, k, v, 0.125)
+    dsum = (do.float() * out.float()).sum(-1, keepdim=True)
+    fa.flash_dq(q, k, v, do, lse, dsum, 0.125)
+    fa.flash_dkv(q, k, v, do, lse, dsum, 0.125)
+    fa.flash_dkv(q, k, v, do, lse, dsum, 0.125)
+    fa.flash_forward_ref(q, k, v, 0.125)  # the plain version counts nothing
+    fa.flash_forward(q.cpu(), k.cpu(), v.cpu(), 0.125)  # CPU: the plain version
+    assert (fa.flash_forward.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == (before[0] + 1, before[1] + 1, before[2] + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_autograd_matches_the_plain_versions_autograd(cuda, monkeypatch, dtype):
+    """flash_attention's forward and gradients through K2-K4 against the
+    same autograd Function with the three wrappers swapped for their plain
+    versions, on the same CUDA tensors, (B, T, H, D) = (2, 256, 3, 64)."""
+    from ddp_classification_pytorch_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    base = [torch.randn(2, 256, 3, 64, device=cuda, generator=g).to(dtype)
+            for _ in range(3)]
+
+    def run():
+        q, k, v = (x.clone().requires_grad_() for x in base)
+        out = fa.flash_attention(q, k, v, causal=True)
+        (out.float() ** 2).mean().backward()
+        return [out.detach()] + [x.grad for x in (q, k, v)]
+
+    before = fa.flash_forward.launches, fa.flash_dq.launches, fa.flash_dkv.launches
+    got = run()
+    assert (fa.flash_forward.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == tuple(n + 1 for n in before)
+    monkeypatch.setattr(fa, "flash_forward", fa.flash_forward_ref)
+    monkeypatch.setattr(fa, "flash_dq", fa.flash_dq_ref)
+    monkeypatch.setattr(fa, "flash_dkv", fa.flash_dkv_ref)
+    want = run()
+    o_tol, g_tol, rtol = FLASH_TOL[dtype]
+    for i, (a, b) in enumerate(zip(got, want)):
+        tol = o_tol if i == 0 else g_tol
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=rtol)
