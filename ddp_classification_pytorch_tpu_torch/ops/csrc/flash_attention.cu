@@ -28,13 +28,18 @@
 // about it: the (T, T) scores never reach device memory; each block keeps
 // one 64-row tile of its fixed operand in shared memory and streams the
 // other operand through in 64-row tiles, so device memory sees O(T D)
-// bytes; bf16 products run on the tensor cores (WMMA 16x16x16, f32
-// accumulate). This first version stages every product's f32 result
-// through shared memory so that the softmax, the masks and the running
-// accumulators work on elements each thread owns at a known place: thread
-// t owns row t/2, columns 32*(t%2) .. +31 of every 64x64 tile. That costs
-// shared-memory traffic and synchronisation; wgmma, TMA and keeping the
-// accumulators in registers are the next step.
+// bytes.
+//
+// bf16 K3 and K4 run the Hopper kernels of `flash_bwd_sm90.cu` (wgmma
+// products, scores in registers, double-buffered TMA loads); the entry
+// points below hand bf16 operands to them. What stays here: K2 in bf16 and
+// f32, and K3/K4 in f32. K2's bf16 products run on the tensor cores through
+// WMMA 16x16x16 with f32 accumulate, and every product's f32 result is
+// staged through shared memory so that the softmax, the masks and the
+// running accumulators work on elements each thread owns at a known place:
+// thread t owns row t/2, columns 32*(t%2) .. +31 of every 64x64 tile. That
+// costs shared-memory traffic and synchronisation; K2's move to the design
+// of `flash_bwd_sm90.cu` is the next step.
 //
 // Grid: K2 and K3 take one block per (bh, 64-row q tile) and loop over the
 // kv tiles (the Pallas kernels' sequential last grid axis); K4 takes one
@@ -430,6 +435,14 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// flash_bwd_sm90.cu: the bf16 K3 and K4
+int flash_dq_bf16_sm90(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, void* dq, int bh, int t,
+                       float scale, int causal, cudaStream_t stream);
+int flash_dkv_bf16_sm90(const void* q, const void* k, const void* v, const void* dout,
+                        const float* lse, const float* delta, void* dk, void* dv, int bh,
+                        int t, float scale, int causal, cudaStream_t stream);
+
 // dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after
 // its launch (0 = launched), or cudaErrorInvalidValue for a dtype code or a
 // shape the kernels do not take (D must be 64).
@@ -454,8 +467,8 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v,
   return dtype == 0
              ? (int)launch_dq<float>(q, k, v, dout, lse, delta, dq, bh, t,
                                      scale, causal, s)
-             : (int)launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh,
-                                             t, scale, causal, s);
+             : flash_dq_bf16_sm90(q, k, v, dout, lse, delta, dq, bh, t, scale,
+                                  causal, s);
 }
 
 extern "C" int flash_dkv(const void* q, const void* k, const void* v,
@@ -468,6 +481,6 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
   return dtype == 0
              ? (int)launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, bh, t,
                                       scale, causal, s)
-             : (int)launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk,
-                                              dv, bh, t, scale, causal, s);
+             : flash_dkv_bf16_sm90(q, k, v, dout, lse, delta, dk, dv, bh, t,
+                                   scale, causal, s);
 }

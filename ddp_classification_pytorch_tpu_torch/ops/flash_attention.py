@@ -1,7 +1,9 @@
 """K2-K4: flash attention forward and backward, the port of the JAX
 package's Pallas kernels in `ops/flash_attention.py` — `_flash_kernel`
 (K2, forward), `_dq_kernel` (K3) and `_dkv_kernel` (K4) — as CUDA kernels
-for Hopper (`ops/csrc/flash_attention.cu`).
+for Hopper: `ops/csrc/flash_attention.cu` (K2; K3 and K4 in f32) and
+`ops/csrc/flash_bwd_sm90.cu` (K3 and K4 in bf16: wgmma products, scores in
+registers, double-buffered TMA loads), built into one library.
 
 Three launch wrappers over (BH, T, D) tensors, each with its plain PyTorch
 version beside it:
@@ -34,7 +36,8 @@ import torch
 
 from . import _build
 
-SOURCE = os.path.join(_build.CSRC, "flash_attention.cu")
+SOURCES = [os.path.join(_build.CSRC, name)
+           for name in ("flash_attention.cu", "flash_bwd_sm90.cu")]
 HEAD_DIM = 64  # the kernels' D: every ViT of models/vit.py has 64-wide heads
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -44,17 +47,36 @@ _lib: Optional[ctypes.CDLL] = None
 def build() -> str:
     """Build (or find) the kernels' library and load it; returns its path."""
     global _lib
-    path = _build.build("flash_attention", [SOURCE])
+    path = _build.build("flash_attention", SOURCES)
     if _lib is None:
         lib = ctypes.CDLL(path)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_fwd.argtypes = [p] * 5 + [i, i, i, f, i, i, p]
         lib.flash_dq.argtypes = [p] * 7 + [i, i, i, f, i, i, p]
         lib.flash_dkv.argtypes = [p] * 8 + [i, i, i, f, i, i, p]
-        for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv):
+        lib.flash_bwd_sm90_resources.argtypes = [p]
+        for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv,
+                   lib.flash_bwd_sm90_resources):
             fn.restype = ctypes.c_int
         _lib = lib
     return path
+
+
+def bwd_kernel_resources() -> dict:
+    """What the bf16 K3 and K4 hold on the current card, as the CUDA
+    runtime reports it: registers per thread, dynamic shared memory per
+    block (bytes) and resident blocks per SM (the occupancy calculator).
+    It exists for `chip_smoke.py`'s record only; no launch path calls it."""
+    if _lib is None:
+        build()
+    out = (ctypes.c_int * 6)()
+    rc = _lib.flash_bwd_sm90_resources(out)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_sm90_resources failed: CUDA error {rc}")
+    return {name: {"registers": out[3 * i], "smem_bytes": out[3 * i + 1],
+                   "blocks_per_sm": out[3 * i + 2]}
+            for i, name in enumerate(("flash_dq_kernel_sm90",
+                                      "flash_dkv_kernel_sm90"))}
 
 
 def _supported(t: int) -> bool:

@@ -97,16 +97,22 @@ def test_flash_untileable_t_takes_the_dense_op(monkeypatch):
     assert not calls
 
 
-@pytest.mark.parametrize("t,causal", [(196, False), (128, True)],
-                         ids=["t196", "t128-causal"])
-def test_plain_versions_match_the_jax_kernels(t, causal):
+@pytest.mark.parametrize(
+    "bh,t,d,causal",
+    [(4, 196, 32, False), (4, 128, 32, True), (2, 1024, 64, False),
+     (2, 320, 64, True)],
+    ids=["t196", "t128-causal", "d64-t1024", "d64-t320-causal"])
+def test_plain_versions_match_the_jax_kernels(bh, t, d, causal):
     """flash_forward_ref / flash_dq_ref / flash_dkv_ref against the JAX
     kernels K2 (`_flash_forward`) and K3 + K4 (`_flash_backward_impl`) on
-    the same (BH, T, D) operands: out, lse, dQ, dK, dV."""
+    the same (BH, T, D) operands: out, lse, dQ, dK, dV. The D = 64 cases
+    are the CUDA kernels' head width: T = 1024 runs the JAX kernels' default
+    512-row blocks (two q and two kv blocks per head), T = 320 causal one
+    whole-T block."""
     rng = np.random.default_rng(4)
-    q3, k3, v3, do3 = (rng.normal(size=(4, t, 32)).astype(np.float32)
+    q3, k3, v3, do3 = (rng.normal(size=(bh, t, d)).astype(np.float32)
                        for _ in range(4))
-    scale = 32 ** -0.5
+    scale = d ** -0.5
     out, lse = jax_fa._flash_forward(jnp.asarray(q3), jnp.asarray(k3),
                                      jnp.asarray(v3), scale, causal)
     dsum = (do3 * np.asarray(out)).sum(-1, keepdims=True)
@@ -121,7 +127,7 @@ def test_plain_versions_match_the_jax_kernels(t, causal):
     p_dq = port_fa.flash_dq(tq3, tk3, tv3, tdo3, p_lse_j, p_dsum, scale, causal)
     p_dk, p_dv = port_fa.flash_dkv(tq3, tk3, tv3, tdo3, p_lse_j, p_dsum, scale,
                                    causal)
-    assert p_lse.shape == (4, t, 1) and p_lse.dtype == torch.float32
+    assert p_lse.shape == (bh, t, 1) and p_lse.dtype == torch.float32
     for got, want in ((p_out, out), (p_lse, lse), (p_dq, dq), (p_dk, dk),
                       (p_dv, dv)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
