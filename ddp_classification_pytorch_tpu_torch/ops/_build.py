@@ -6,10 +6,13 @@ interface, at first use, with `nvcc` for Hopper (`sm_90a`).
 
 No PyTorch headers are included, so a build takes seconds, not the minutes
 `torch.utils.cpp_extension.load` needs. The library lands in
-`ops/build/` (git-ignored), named by a hash of the sources and the flags: a
-changed source builds anew, an unchanged one is reused. Each build writes to
-a name private to its process and then `os.replace`s it into place, so two
-processes building at once cannot hand each other a half-written file.
+`ops/build/` (git-ignored), named by a hash of the flags, the sources and
+every header they include with `#include "..."` (found beside the file
+that includes it, followed through headers that include others): a
+changed source or header builds anew, an unchanged set is reused. Each
+build writes to a name private to its process and then `os.replace`s it
+into place, so two processes building at once cannot hand each other a
+half-written file.
 nvcc's output (register and shared-memory use from `-Xptxas -v`) is kept in
 `<library>.log`. A missing `nvcc` or a failed build raises `BuildError`.
 """
@@ -18,9 +21,10 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
-from typing import Sequence
+from typing import List, Sequence
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -51,12 +55,35 @@ def find_nvcc() -> str:
                      "use)")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def local_headers(sources: Sequence[str]) -> List[str]:
+    """The headers `sources` include with `#include "..."` that exist beside
+    the including file, and the headers those include, each once, in the
+    order first met. System headers (`<...>`) are not followed."""
+    found: List[str] = []
+    stack = list(reversed(sources))
+    while stack:
+        path = stack.pop()
+        with open(path, "rb") as f:
+            names = _LOCAL_INCLUDE.findall(f.read())
+        for name in reversed(names):
+            dep = os.path.normpath(os.path.join(os.path.dirname(path),
+                                                name.decode()))
+            if os.path.isfile(dep) and dep not in found:
+                found.append(dep)
+                stack.append(dep)
+    return found
+
+
 def library_path(name: str, sources: Sequence[str]) -> str:
-    """Where the library for these sources and flags lives (built or not)."""
+    """Where the library for these sources, their local headers and the
+    flags lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        with open(src, "rb") as f:
-            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    for path in [*sources, *local_headers(sources)]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 

@@ -26,42 +26,36 @@
 // operations against 0.2-0.3 GB of operands, so the tensor cores bound
 // them (989 TFLOP/s bf16 dense: 0.10, 0.16, 0.21 ms). What the design does
 // about it: the (T, T) scores never reach device memory; each block keeps
-// one 64-row tile of its fixed operand in shared memory and streams the
-// other operand through in 64-row tiles, so device memory sees O(T D)
-// bytes.
+// one tile of its fixed operand in shared memory and streams the other
+// operand through in tiles, so device memory sees O(T D) bytes.
 //
-// bf16 K3 and K4 run the Hopper kernels of `flash_bwd_sm90.cu` (wgmma
+// In bf16 all three run the Hopper kernels, which hold the main path: K2
+// in `flash_fwd_sm90.cu` (wgmma products, the online softmax in registers,
+// a TMA ring for K and V), K3 and K4 in `flash_bwd_sm90.cu` (wgmma
 // products, scores in registers, double-buffered TMA loads); the entry
-// points below hand bf16 operands to them. What stays here: K2 in bf16 and
-// f32, and K3/K4 in f32. K2's bf16 products run on the tensor cores through
-// WMMA 16x16x16 with f32 accumulate, and every product's f32 result is
-// staged through shared memory so that the softmax, the masks and the
-// running accumulators work on elements each thread owns at a known place:
-// thread t owns row t/2, columns 32*(t%2) .. +31 of every 64x64 tile. That
-// costs shared-memory traffic and synchronisation; K2's move to the design
-// of `flash_bwd_sm90.cu` is the next step.
+// points below hand bf16 operands to them. What stays here is the f32 path
+// of all three: CUDA-core products in full f32 (no TF32), with every
+// product's result staged through shared memory so that the softmax, the
+// masks and the running accumulators work on elements each thread owns at
+// a known place: thread t owns row t/2, columns 32*(t%2) .. +31 of every
+// 64x64 tile.
 //
-// Grid: K2 and K3 take one block per (bh, 64-row q tile) and loop over the
-// kv tiles (the Pallas kernels' sequential last grid axis); K4 takes one
-// block per (bh, 64-row kv tile) and loops over the q tiles. Ragged T is
-// masked in the kernels: rows past T load as zeros and are not written,
-// columns past T score -1e30. Causal skips tiles wholly above the diagonal
-// and masks within the diagonal tile. f32 inputs take a CUDA-core product
-// (no TF32) with the same structure.
+// Grid (f32): K2 and K3 take one block per (bh, 64-row q tile) and loop
+// over the kv tiles (the Pallas kernels' sequential last grid axis); K4
+// takes one block per (bh, 64-row kv tile) and loops over the q tiles.
+// Ragged T is masked in the kernels: rows past T load as zeros and are not
+// written, columns past T score -1e30. Causal skips tiles wholly above the
+// diagonal and masks within the diagonal tile.
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes (ops/_build.py, ops/flash_attention.py). Each entry point launches
 // on the caller's stream, does not synchronise, allocates nothing and
 // returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr int kTile = 64;      // rows of every tile (q and kv)
 constexpr int kD = 64;         // head dimension
@@ -70,7 +64,6 @@ constexpr int kLdC = kD + 4;   // f32 staging tiles (row pitch, floats)
 constexpr float kNegInf = -1e30f;
 
 template <typename T> struct Ld;
-template <> struct Ld<__nv_bfloat16> { static constexpr int v = kD + 8; };
 template <> struct Ld<float> { static constexpr int v = kD + 4; };
 
 template <typename T>
@@ -81,48 +74,17 @@ constexpr int kCBytes = kTile * kLdC * (int)sizeof(float);
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Logical (row, col) of a 64x64 operand held in shared memory with pitch LD.
 struct RowMajor {
-  using wmma_t = wmma::row_major;
   template <int LD> __device__ static int off(int r, int c) { return r * LD + c; }
 };
 struct ColMajor {  // the transpose of a row-major tile
-  using wmma_t = wmma::col_major;
   template <int LD> __device__ static int off(int r, int c) { return c * LD + r; }
 };
 
 // C (64x64 f32, pitch kLdC) = A (64x64) x B (64x64), A and B in shared
-// memory. bf16: tensor cores, each warp 16 rows x 64 columns.
-template <class LA, class LB>
-__device__ __forceinline__ void tile_product(const __nv_bfloat16* A,
-                                             const __nv_bfloat16* B, float* C) {
-  constexpr int LD = Ld<__nv_bfloat16>::v;
-  const int m0 = (threadIdx.x >> 5) * 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-#pragma unroll
-  for (int k0 = 0; k0 < kD; k0 += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, typename LA::wmma_t> a;
-    wmma::load_matrix_sync(a, A + LA::template off<LD>(m0, k0), LD);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, typename LB::wmma_t> b;
-      wmma::load_matrix_sync(b, B + LB::template off<LD>(k0, 16 * j), LD);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(C + m0 * kLdC + 16 * j, acc[j], kLdC,
-                            wmma::mem_row_major);
-}
-
-// f32: CUDA cores, full f32 (no TF32); each thread computes the 32
+// memory; CUDA cores, full f32 (no TF32); each thread computes the 32
 // elements it owns.
 template <class LA, class LB>
 __device__ __forceinline__ void tile_product(const float* A, const float* B,
@@ -435,13 +397,17 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// flash_bwd_sm90.cu: the bf16 K3 and K4
+// flash_fwd_sm90.cu and flash_bwd_sm90.cu: the bf16 K2, K3 and K4
+int flash_fwd_bf16_sm90(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int bh, int t, float scale, int causal, cudaStream_t stream);
 int flash_dq_bf16_sm90(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dq, int bh, int t,
                        float scale, int causal, cudaStream_t stream);
 int flash_dkv_bf16_sm90(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, void* dk, void* dv, int bh,
                         int t, float scale, int causal, cudaStream_t stream);
+int flash_fwd_sm90_resources(int* out);
+int flash_bwd_sm90_resources(int* out);
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after
 // its launch (0 = launched), or cudaErrorInvalidValue for a dtype code or a
@@ -454,8 +420,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0
              ? (int)launch_fwd<float>(q, k, v, o, lse, bh, t, scale, causal, s)
-             : (int)launch_fwd<__nv_bfloat16>(q, k, v, o, lse, bh, t, scale,
-                                              causal, s);
+             : flash_fwd_bf16_sm90(q, k, v, o, lse, bh, t, scale, causal, s);
 }
 
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
@@ -483,4 +448,14 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
                                       scale, causal, s)
              : flash_dkv_bf16_sm90(q, k, v, dout, lse, delta, dk, dv, bh, t,
                                    scale, causal, s);
+}
+
+// What the three bf16 Hopper kernels hold on this card, for chip_smoke.py's
+// record only (no launch path calls it): per kernel (K2, K3, K4) registers
+// per thread, dynamic shared memory per block in bytes and resident blocks
+// per SM from the occupancy calculator, three ints each. Returns 0 or a
+// CUDA error code.
+extern "C" int flash_sm90_resources(int* out) {
+  const int err = flash_fwd_sm90_resources(out);
+  return err != 0 ? err : flash_bwd_sm90_resources(out + 3);
 }

@@ -61,23 +61,16 @@
 // load as zeros and are not written; columns past T score -1e30; tiles
 // wholly above the diagonal are skipped.
 //
-// The tensor-map encoder is fetched from the driver at run time
-// (cudaGetDriverEntryPoint), so the library needs no -lcuda.
+// The PTX and tensor-map helpers are shared with K2 (flash_sm90.cuh).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_sm90.cuh"
 
 namespace {
 
 constexpr int kTile = 64;       // rows of every tile (q and kv)
-constexpr int kD = 64;          // head dimension: one 128-byte bf16 row
 constexpr int kThreads = 128;   // one warpgroup
 constexpr int kTileBytes = kTile * kD * 2;  // 8 KB, one swizzled bf16 tile
 constexpr int kStatBytes = kTile * 4;       // one tile's lse or delta row
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory plan (offsets from a 1024-byte aligned base: the 128-byte
 // swizzle repeats every 8 rows of 128 bytes).
@@ -90,45 +83,7 @@ constexpr int kDkvBars = 2 * kTileBytes + 2 * kDkvStage;
 constexpr int kSmemDq = kDqBars + 64 + 1024;   // + alignment slack
 constexpr int kSmemDkv = kDkvBars + 64 + 1024;
 
-// ------------------------------------------------------ PTX helpers --
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: one (64, 64) bf16 box at element (0, row, bh) of a (D, T, BH) map.
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int row, int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(bh)
-      : "memory");
-}
-
+// ------------------------------------------------- K3/K4 helpers --
 // TMA: 64 f32 at element `i` of a flat (BH * T) map.
 __device__ __forceinline__ void tma_row(uint32_t dst, const CUtensorMap* map,
                                         uint32_t bar, int i) {
@@ -139,108 +94,9 @@ __device__ __forceinline__ void tma_row(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory descriptor of a 1024-byte aligned (64 x 64) bf16 tile
-// in the 128-byte swizzle TMA writes: 8-row groups 1024 bytes apart (SBO);
-// the leading offset is unused at this width. K-major operands step 32
-// bytes per k16 slice (+2 in the address field), MN-major ones 16 rows of
-// 128 bytes (+128).
-__device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-constexpr uint64_t kKStep = 2;     // K-major: 32 bytes
-constexpr uint64_t kMNStep = 128;  // MN-major: 2048 bytes
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of the accumulators across
-// the asynchronous products (the asm statements are ordered; these tie each
-// register to that order).
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
-}
-
-#define WG_ACC32(d)                                                           \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
-      "+f"(d[31])
-#define WG_D32                                                                \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
-  "%30, %31}"
-
-// d (+)= A B, m64n64k16: A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_ACC32(d)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d += A B, m64n64k16: A from registers (the m64k16 fragment), B MN-major
-// in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// c (+)= A B over k = 64 (four k16 slices), A and B K-major tiles.
-__device__ __forceinline__ void product_ss(float (&c)[32], uint64_t a, uint64_t b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_ss(c, a + kk * kKStep, b + kk * kKStep, kk > 0);
-}
-
-// c += A B over k = 64: A in registers, B an MN-major tile.
-__device__ __forceinline__ void product_rs(float (&c)[32], const uint32_t (&a)[4][4],
-                                           uint64_t b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs(c, a[kk], b + kk * kMNStep);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The f32 accumulator of a 64x64 tile, rounded to bf16, as the register A
-// operand of a product over its 64 columns: k16 slice kk is accumulator
-// elements 8kk .. 8kk + 7, in order.
-__device__ __forceinline__ void to_frag(const float (&d)[32], uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
-}
-
 // Write a 64x64 f32 accumulator, times `scale`, as bf16 rows [row0, row0+64)
-// of a (T, 64) matrix; rows at or past t are not written.
+// of a (T, 64) matrix; rows at or past t are not written. For blocks of one
+// warpgroup.
 __device__ __forceinline__ void store_tile(__nv_bfloat16* dst, const float (&d)[32],
                                            int row0, int t, float scale) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -255,11 +111,6 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* dst, const float (&d)[
           __floats2bfloat162_rn(d[4 * j + 2 * i] * scale, d[4 * j + 2 * i + 1] * scale);
     }
   }
-}
-
-__device__ __forceinline__ unsigned char* aligned_base(unsigned char* smem) {
-  const uint32_t a = smem_u32(smem);
-  return smem + (((a + 1023u) & ~1023u) - a);
 }
 
 // ------------------------------------------------------------------ K3 --
@@ -487,42 +338,6 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ------------------------------------------------------------- host --
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &status);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (D, T, BH) bf16 operand, (64, 64, 1) boxes, 128-byte swizzle; rows past T
-// of a head read as zeros.
-bool tile_map(CUtensorMap* map, const void* ptr, int bh, int t) {
-  const cuuint64_t dims[3] = {(cuuint64_t)kD, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)kD * 2, (cuuint64_t)t * kD * 2};
-  const cuuint32_t box[3] = {kD, kTile, 1}, step[3] = {1, 1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                   strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // flat (BH * T) f32 row statistics, 64-element boxes. A box that runs past
 // the head's T reads the next head's values (finite; those q columns are
 // masked) or, past the end, zeros.
@@ -534,19 +349,6 @@ bool row_map(CUtensorMap* map, const float* ptr, int bh, int t) {
                    unused, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                    CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Raise a kernel's dynamic shared-memory limit once per device: the
-// attribute call is host work every launch would otherwise repeat. Two
-// threads that race here both set it, which is harmless.
-constexpr int kMaxDevices = 64;
-cudaError_t allow_smem(const void* kernel, int bytes, bool* done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
-  return err;
 }
 
 bool dq_smem_set[kMaxDevices] = {};
@@ -562,8 +364,8 @@ int flash_dq_bf16_sm90(const void* q, const void* k, const void* v, const void* 
                        float scale, int causal, cudaStream_t stream) {
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap mq, mk, mv, mdo;
-  if (!tile_map(&mq, q, bh, t) || !tile_map(&mk, k, bh, t) || !tile_map(&mv, v, bh, t) ||
-      !tile_map(&mdo, dout, bh, t))
+  if (!tile_map(&mq, q, bh, t, kTile) || !tile_map(&mk, k, bh, t, kTile) ||
+      !tile_map(&mv, v, bh, t, kTile) || !tile_map(&mdo, dout, bh, t, kTile))
     return (int)cudaErrorInvalidValue;
   cudaError_t err =
       allow_smem(reinterpret_cast<const void*>(flash_dq_kernel_sm90), kSmemDq, dq_smem_set);
@@ -574,27 +376,16 @@ int flash_dq_bf16_sm90(const void* q, const void* k, const void* v, const void* 
   return (int)cudaGetLastError();
 }
 
-// What the two kernels hold on this card, for chip_smoke.py's record only
-// (no launch path calls it): per kernel (K3, then K4) registers per thread,
-// dynamic shared memory per block in bytes, and resident blocks per SM from
-// the occupancy calculator.
-extern "C" int flash_bwd_sm90_resources(int* out) {
-  const void* kernels[2] = {reinterpret_cast<const void*>(flash_dq_kernel_sm90),
-                            reinterpret_cast<const void*>(flash_dkv_kernel_sm90)};
-  const int smem[2] = {kSmemDq, kSmemDkv};
-  bool* set[2] = {dq_smem_set, dkv_smem_set};
-  for (int i = 0; i < 2; ++i) {
-    cudaFuncAttributes attr;
-    cudaError_t err = allow_smem(kernels[i], smem[i], set[i]);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernels[i]);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3 * i + 2], kernels[i],
-                                                          kThreads, smem[i]);
-    if (err != cudaSuccess) return (int)err;
-    out[3 * i] = attr.numRegs;
-    out[3 * i + 1] = smem[i];
-  }
-  return 0;
+// What the two kernels hold on this card (see kernel_resources), K3 into
+// out[0..2], K4 into out[3..5]; called by flash_sm90_resources
+// (flash_attention.cu) for chip_smoke.py's record only.
+int flash_bwd_sm90_resources(int* out) {
+  cudaError_t err = kernel_resources(reinterpret_cast<const void*>(flash_dq_kernel_sm90),
+                                     kThreads, kSmemDq, dq_smem_set, out);
+  if (err == cudaSuccess)
+    err = kernel_resources(reinterpret_cast<const void*>(flash_dkv_kernel_sm90), kThreads,
+                           kSmemDkv, dkv_smem_set, out + 3);
+  return (int)err;
 }
 
 int flash_dkv_bf16_sm90(const void* q, const void* k, const void* v, const void* dout,
@@ -602,9 +393,9 @@ int flash_dkv_bf16_sm90(const void* q, const void* k, const void* v, const void*
                         int t, float scale, int causal, cudaStream_t stream) {
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap mq, mk, mv, mdo, mlse, mdelta;
-  if (!tile_map(&mq, q, bh, t) || !tile_map(&mk, k, bh, t) || !tile_map(&mv, v, bh, t) ||
-      !tile_map(&mdo, dout, bh, t) || !row_map(&mlse, lse, bh, t) ||
-      !row_map(&mdelta, delta, bh, t))
+  if (!tile_map(&mq, q, bh, t, kTile) || !tile_map(&mk, k, bh, t, kTile) ||
+      !tile_map(&mv, v, bh, t, kTile) || !tile_map(&mdo, dout, bh, t, kTile) ||
+      !row_map(&mlse, lse, bh, t) || !row_map(&mdelta, delta, bh, t))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(flash_dkv_kernel_sm90),
                                kSmemDkv, dkv_smem_set);

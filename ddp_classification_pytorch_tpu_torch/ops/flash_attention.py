@@ -1,9 +1,16 @@
 """K2-K4: flash attention forward and backward, the port of the JAX
 package's Pallas kernels in `ops/flash_attention.py` — `_flash_kernel`
 (K2, forward), `_dq_kernel` (K3) and `_dkv_kernel` (K4) — as CUDA kernels
-for Hopper: `ops/csrc/flash_attention.cu` (K2; K3 and K4 in f32) and
-`ops/csrc/flash_bwd_sm90.cu` (K3 and K4 in bf16: wgmma products, scores in
-registers, double-buffered TMA loads), built into one library.
+for Hopper, built into one library:
+
+- `ops/csrc/flash_fwd_sm90.cu`: K2 in bf16 — wgmma products, the online
+  softmax in registers, K/V streamed through a TMA ring by a producer warp
+  to two consumer warpgroups of 64 q rows each;
+- `ops/csrc/flash_bwd_sm90.cu`: K3 and K4 in bf16 — wgmma products, scores
+  in registers, double-buffered TMA loads;
+- `ops/csrc/flash_sm90.cuh`: the PTX and tensor-map helpers both share;
+- `ops/csrc/flash_attention.cu`: the C entry points, and K2-K4 in f32
+  (CUDA-core products in full f32).
 
 Three launch wrappers over (BH, T, D) tensors, each with its plain PyTorch
 version beside it:
@@ -37,7 +44,8 @@ import torch
 from . import _build
 
 SOURCES = [os.path.join(_build.CSRC, name)
-           for name in ("flash_attention.cu", "flash_bwd_sm90.cu")]
+           for name in ("flash_attention.cu", "flash_fwd_sm90.cu",
+                        "flash_bwd_sm90.cu")]
 HEAD_DIM = 64  # the kernels' D: every ViT of models/vit.py has 64-wide heads
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -54,28 +62,29 @@ def build() -> str:
         lib.flash_fwd.argtypes = [p] * 5 + [i, i, i, f, i, i, p]
         lib.flash_dq.argtypes = [p] * 7 + [i, i, i, f, i, i, p]
         lib.flash_dkv.argtypes = [p] * 8 + [i, i, i, f, i, i, p]
-        lib.flash_bwd_sm90_resources.argtypes = [p]
+        lib.flash_sm90_resources.argtypes = [p]
         for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv,
-                   lib.flash_bwd_sm90_resources):
+                   lib.flash_sm90_resources):
             fn.restype = ctypes.c_int
         _lib = lib
     return path
 
 
-def bwd_kernel_resources() -> dict:
-    """What the bf16 K3 and K4 hold on the current card, as the CUDA
+def kernel_resources() -> dict:
+    """What the bf16 K2, K3 and K4 hold on the current card, as the CUDA
     runtime reports it: registers per thread, dynamic shared memory per
     block (bytes) and resident blocks per SM (the occupancy calculator).
     It exists for `chip_smoke.py`'s record only; no launch path calls it."""
     if _lib is None:
         build()
-    out = (ctypes.c_int * 6)()
-    rc = _lib.flash_bwd_sm90_resources(out)
+    out = (ctypes.c_int * 9)()
+    rc = _lib.flash_sm90_resources(out)
     if rc != 0:
-        raise RuntimeError(f"flash_bwd_sm90_resources failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_sm90_resources failed: CUDA error {rc}")
     return {name: {"registers": out[3 * i], "smem_bytes": out[3 * i + 1],
                    "blocks_per_sm": out[3 * i + 2]}
-            for i, name in enumerate(("flash_dq_kernel_sm90",
+            for i, name in enumerate(("flash_fwd_kernel_sm90",
+                                      "flash_dq_kernel_sm90",
                                       "flash_dkv_kernel_sm90"))}
 
 
@@ -143,8 +152,9 @@ def flash_dkv_ref(q3, k3, v3, do3, lse, dsum, scale: float,
 
 def _check(name: str, ref: torch.Tensor, **tensors: torch.Tensor) -> None:
     """The kernels take (BH, T, 64) f32/bf16 operands of one shape and
-    dtype, contiguous and 16-byte aligned on one CUDA device, and (BH, T, 1)
-    f32 row statistics; anything else raises."""
+    dtype, contiguous and 16-byte aligned on one CUDA device (the bf16
+    kernels read them through TMA tensor maps), and (BH, T, 1) f32 row
+    statistics; anything else raises."""
     if ref.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {ref.device}")
     if ref.dtype not in _DTYPE_CODES:

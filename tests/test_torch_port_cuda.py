@@ -1,8 +1,10 @@
 """On-card tests of the torch port: K1's CUDA kernel and the flash
 attention kernels K2-K4 against their plain PyTorch versions (which the CPU
-tests hold against the JAX package), the wrappers' refusals and launch
-counts, the flash autograd Function against the plain versions' autograd,
-and the served model on the card against the same model on the CPU.
+tests hold against the JAX package), the bf16 comparisons' power to refuse
+near misses, the kernels' bitwise determinism, the wrappers' refusals and
+launch counts, the flash autograd Function against the plain versions'
+autograd, and the served model on the card against the same model on the
+CPU.
 
 Marked `cuda`; each test skips (inside a fixture, never at import) where
 `torch.cuda.is_available()` is false. On the card, without JAX installed:
@@ -147,12 +149,14 @@ def test_served_model_on_card_matches_cpu(cuda):
 # ----------------------------------------------- K2-K4: flash attention --
 # (B·H, T, causal): the ViT-B/16 slice shape, a ragged single tile, one
 # aligned tile pair, causal over four tiles; for the edges of the bf16
-# K3/K4 pipelines (two-stage TMA ring, causal skipping): causal over five
-# tiles (an odd count of streamed tiles), a single row, a single whole tile
-# of one head, and T = 1000, ragged across sixteen tiles
+# pipelines (TMA rings, causal skipping; K2 streams 128-row kv tiles to
+# 128-row q blocks, K3/K4 64-row tiles): causal over five 64-row tiles (an
+# odd count of streamed tiles), a single row, a single whole tile of one
+# head, T = 1000, ragged across sixteen tiles, and T = 200 causal, where
+# K2's diagonal tile also crosses T
 FLASH_SHAPES = [(384, 1024, False), (24, 196, False), (24, 128, False),
                 (24, 256, True), (2, 320, True), (1, 1, False), (1, 64, False),
-                (4, 1000, False)]
+                (4, 1000, False), (3, 200, True)]
 # (O atol, gradient atol, rtol): f32 1e-4 (sums in another order); bf16
 # compared in f32 at 1e-2 and 2e-2, a few times the kernels' largest error
 # (one bf16 ulp of the output; P and dS are rounded to bf16 at the points
@@ -165,7 +169,8 @@ FLASH_TOL = {torch.float32: (1e-4, 1e-4, 1e-4),
 # chip_smoke.py logs), while the near misses of
 # test_flash_comparison_rejects_a_wrong_dq exceed 1e-3; O sits near 2e-3,
 # as K2's running max rounds P against another offset than the plain
-# version's
+# version's, while the near misses of
+# test_flash_comparison_rejects_a_wrong_forward exceed 5e-3
 FLASH_RMS_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (5e-3, 1e-3)}
 
 
@@ -243,6 +248,57 @@ def test_flash_comparison_rejects_a_wrong_dq(cuda, wrong):
         _assert_flash_close(bad.bfloat16(), want, g_tol, rtol, g_rms)
 
 
+def _online_forward_without_rescale(q, k, v, scale, tile=64):
+    """K2's online softmax over kv tiles of `tile` rows with the exp(m -
+    m_new) rescale of the running sums left out: each tile's P·V and row
+    sum keep the offset of the running max they were computed at."""
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    m = torch.full(s.shape[:2] + (1,), -1e30, device=s.device)
+    acc = torch.zeros(q.shape, device=s.device)
+    l = torch.zeros_like(m)
+    for k0 in range(0, s.shape[-1], tile):
+        st = s[:, :, k0:k0 + tile]
+        m = torch.maximum(m, st.amax(-1, keepdim=True))
+        p = torch.exp(st - m)
+        l = l + p.sum(-1, keepdim=True)
+        acc = acc + torch.matmul(p.to(v.dtype).float(), v[:, k0:k0 + tile].float())
+    return acc / l
+
+
+@pytest.mark.parametrize("wrong", ["O 1% too large", "one kv tile dropped",
+                                   "rescale left out"])
+def test_flash_comparison_rejects_a_wrong_forward(cuda, wrong):
+    """The bf16 O comparison passes K2's output and refuses near misses made
+    from the plain math (24 heads, T 1024): O 1% too large, one 64-row kv
+    tile left out of the softmax (of both l and P·V), and the online
+    softmax over 64-row tiles with the exp(m - m_new) rescale of acc and l
+    left out. What the O limit cannot see: P left unrounded (kept in f32
+    for P·V) moves O by about a tenth of bf16's ulp and sits inside it, so
+    this comparison does not show that K2 rounds P where the Pallas kernel
+    does."""
+    from ddp_classification_pytorch_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _flash_inputs(24, 1024, torch.bfloat16, cuda, seed=11)
+    scale = fa.HEAD_DIM ** -0.5
+    want, want_lse = fa.flash_forward_ref(q, k, v, scale)
+    o_tol, _, rtol = FLASH_TOL[torch.bfloat16]
+    o_rms = FLASH_RMS_TOL[torch.bfloat16][0]
+    out, lse = fa.flash_forward(q, k, v, scale)
+    _assert_flash_close(out, want, o_tol, rtol, o_rms)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    if wrong == "O 1% too large":
+        bad = want.float() * 1.01
+    elif wrong == "one kv tile dropped":
+        s = fa._scores(q, k, scale, False)
+        s[:, :, 512:576] = -1e30
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        bad = torch.matmul(p.bfloat16().float(), v.float()) / p.sum(-1, keepdim=True)
+    else:
+        bad = _online_forward_without_rescale(q, k, v, scale)
+    with pytest.raises(AssertionError):
+        _assert_flash_close(bad.bfloat16(), want, o_tol, rtol, o_rms)
+
+
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from ddp_classification_pytorch_tpu_torch.ops import flash_attention as fa
 
@@ -280,6 +336,48 @@ def test_flash_backward_is_bitwise_deterministic(cuda):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def test_flash_forward_is_bitwise_deterministic(cuda):
+    """K2 writes every output row from one block, with no atomics: two
+    launches on the same inputs at the ViT-B/16 slice shape (bf16) give the
+    same bits in O and lse."""
+    from ddp_classification_pytorch_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _flash_inputs(384, 1024, torch.bfloat16, cuda, seed=6)
+    scale = fa.HEAD_DIM ** -0.5
+    first = fa.flash_forward(q, k, v, scale)
+    second = fa.flash_forward(q, k, v, scale)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bf16_forward_refuses_what_the_kernel_does_not_take(cuda):
+    """The bf16 K2 reads q, k and v through TMA maps of contiguous
+    (BH, T, 64) rows at 16-byte aligned addresses; the wrapper refuses
+    anything else before a launch."""
+    from ddp_classification_pytorch_tpu_torch.ops import flash_attention as fa
+
+    bh, t = 4, 128
+    q, k, v, _ = _flash_inputs(bh, t, torch.bfloat16, cuda)
+    narrow = torch.zeros(bh, t, 32, device=cuda, dtype=torch.bfloat16)
+    strided = torch.zeros(bh, t, 128, device=cuda, dtype=torch.bfloat16)[..., :64]
+    buf = torch.zeros(bh * t * 64 + 8, device=cuda, dtype=torch.bfloat16)
+    shifted = buf[1:1 + bh * t * 64].view(bh, t, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    before = fa.flash_forward.launches
+    with pytest.raises(ValueError, match=r"\(BH, T, 64\)"):
+        fa.flash_forward(narrow, narrow, narrow, 0.125)
+    with pytest.raises(ValueError, match="k must be"):
+        fa.flash_forward(q, strided, v, 0.125)
+    with pytest.raises(ValueError, match="v must be"):
+        fa.flash_forward(q, k, shifted, 0.125)
+    with pytest.raises(ValueError, match="q must be"):
+        fa.flash_forward(shifted, k, v, 0.125)
+    with pytest.raises(ValueError, match="k must be"):
+        fa.flash_forward(q, shifted, v, 0.125)
+    assert fa.flash_forward.launches == before
 
 
 def test_bf16_backward_refuses_what_the_kernels_do_not_take(cuda):
