@@ -25,7 +25,11 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    in f32, atol/rtol 1e-2: one bf16 ulp of slack); per shape: max error,
    kernel and plain device µs (kernel durations from torch.profiler, mean
    of 20 calls, L2 warm as after the conv that feeds it), the kernel's wall
-   µs as the host drives it (CUDA events, median of 20), and the bound;
+   µs as the host drives it (CUDA events, median of 20), the bound, the
+   launch geometry K1's wrapper chose, and two yardsticks that do not
+   compute K1's function: the device µs of an empty kernel launched with
+   the same block and grid (the launch floor) and of `Tensor.copy_` of the
+   same input (one read and one write of the same bytes);
 4. the serving path — `cli/serve.py`'s selfcheck sequence in process:
    TResNet-M, 224 px, 2173 classes, bf16, uint8 wire, buckets 1/2/4/8,
    warmup → batcher thread → drain over 32 seeded requests. Every future is
@@ -40,9 +44,13 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    CPU (the plain path the CPU tests hold against the JAX package) as the
    reference for two images: within 10% of the logits' spread, same top-1;
 6. serving timings — the 36 K1 launches of one bucket-8 forward as a
-   sequence, and the served forward per bucket: device time (summed kernel
-   durations from torch.profiler) and wall time as the host drives it
-   (CUDA events), with the SM clock and power draw read beside them;
+   sequence (beside the same two yardsticks over the 36 inputs, and the
+   host µs of issuing one launch through the wrapper, 36 in a row with
+   nothing synchronized), and the served forward per bucket: device time
+   (summed kernel durations from torch.profiler) and wall time as the host
+   drives it (CUDA events), with the SM clock and power draw read beside
+   them; the bucket-8 forward's device time by kernel family (K1, the
+   convolutions, F.batch_norm, the rest with its largest kernels);
 7. kernel vs plain (K2-K4) — the flash forward, dQ and dK/dV kernels
    against `flash_forward_ref` / `flash_dq_ref` / `flash_dkv_ref` at the
    slice's shape (B 32, T 1024, H 12, D 64), T 196 (one ragged tile), T 128,
@@ -158,6 +166,56 @@ def abn_bound_ms(shapes, itemsize: int):
     ops = sum(int(np.prod(s)) * ABN_OPS_PER_ELEMENT for s in shapes)
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def abn_geometry(fused_abn, x, y, args):
+    """The launch geometry K1's wrapper chose for x (and its output y)."""
+    return fused_abn.launch_geometry(
+        x, [t.data_ptr() for t in (x, y, *args[1:5])])
+
+
+def abn_yardsticks(torch, fused_abn, x, geom):
+    """Closures for the two yardsticks beside K1 at x's shape, neither of
+    which computes K1's function: an empty kernel launched with K1's block
+    and grid (the launch floor), and `torch.Tensor.copy_` of x into a
+    tensor like it (one read and one write of the same bytes, what a
+    PyTorch elementwise pass reaches there)."""
+    out = torch.empty_like(x)
+    return {"floor": lambda: fused_abn.launch_floor(x, geom),
+            "copy": lambda: out.copy_(x)}
+
+
+# the served forward's kernels by family, matched on the kernel's name in
+# this order: K1, convolutions (cuDNN's kernels and the cuBLAS products it
+# and the SE and head layers call), F.batch_norm's, and the rest
+FORWARD_FAMILIES = (
+    ("k1", ("fused_abn_fwd_kernel",)),
+    ("convolutions", ("xmma_fprop", "conv2d", "implicit_gemm", "nvjet",
+                      "gemm", "Gemv", "cudnn", "nchwToNhwc", "nhwcToNchw")),
+    ("batch_norm", ("batch_norm",)),
+)
+
+
+def forward_families(kernels, reps: int) -> dict:
+    """Device ms per forward of each FORWARD_FAMILIES family and of the
+    rest, from one DeviceTimer region's (µs, name) records, with the
+    launches per forward and the largest of the rest by name."""
+    fam = {name: [0.0, 0] for name, _ in FORWARD_FAMILIES}
+    fam["rest"] = [0.0, 0]
+    rest = {}
+    for dur, kname in kernels:
+        key = next((name for name, parts in FORWARD_FAMILIES
+                    if any(p in kname for p in parts)), "rest")
+        fam[key][0] += dur / reps / 1e3
+        fam[key][1] += 1
+        if key == "rest":
+            short = kname.removeprefix("void ")[:100]
+            rest[short] = rest.get(short, 0.0) + dur / reps / 1e3
+    out = {name: {"ms": ms, "launches": n / reps}
+           for name, (ms, n) in fam.items()}
+    out["rest_largest_ms"] = dict(sorted(rest.items(),
+                                         key=lambda kv: -kv[1])[:8])
+    return out
 
 
 def flash_bound_ms(kind: str, bh: int, t: int, d: int, itemsize: int,
@@ -772,12 +830,14 @@ def main() -> int:
             err = (y.float() - ref.float()).abs().max().item()
             torch.testing.assert_close(y.float(), ref.float(), atol=tol, rtol=tol)
             max_err = max(max_err, err)
+            geom = abn_geometry(fused_abn, x, y, args)
             row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                   "max_abs_err": err,
+                   "max_abs_err": err, "geometry": geom._asdict(),
                    "kernel_wall_us": wall_ms(torch, lambda: k1(*args)) * 1e3,
                    "bound_us": abn_bound_ms([shape], x.element_size())[0] * 1e3,
                    "sites_per_forward": shapes.count(shape)}
-            per_shape.append((row, args))  # device times: phase 6
+            per_shape.append((row, args, abn_yardsticks(torch, fused_abn, x, geom)))
+            # device times: phase 6
         log(f"[k1] {shape}: K1 agrees with the plain version (f32, bf16)")
 
     # -------------------------------------------------- 4. the main path --
@@ -874,6 +934,10 @@ def main() -> int:
         vecs = [torch.rand(c, device=device, generator=gen) + 0.5
                 for _ in range(4)]
         sites.append((x, *vecs, 1e-5, tresnet.SLOPE))
+    site_outs = [k1(*a) for a in sites]
+    site_yards = [abn_yardsticks(torch, fused_abn, a[0], abn_geometry(
+        fused_abn, a[0], y, a)) for a, y in zip(sites, site_outs)]
+    del site_outs
     plain = fused_abn.fused_bn_leaky_relu_ref
     served = engine._state
     bucket_imgs = {b: torch.zeros((b, h, h, 3), dtype=torch.uint8, device=device)
@@ -883,17 +947,32 @@ def main() -> int:
            "bound_by": abn_bound_ms(shapes, 2)[1]}
     forward = {b: {"wall_ms": wall_ms(torch, lambda im=im: predict(served, im))}
                for b, im in bucket_imgs.items()}
+    # host time of issuing one K1 launch through its wrapper: the 36 sites
+    # in a row with nothing synchronized (the median of 5 such rows)
+    rows_us = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in sites:
+            k1(*a)
+        rows_us.append((time.perf_counter() - t0) / ABN_SITES * 1e6)
+    torch.cuda.synchronize()
+    seq["host_us_per_launch"] = statistics.median(rows_us)
     with DeviceTimer(torch, lambda: (k1.launches,)) as timer:  # device
         # times, host overhead aside
-        for i, (row, args) in enumerate(per_shape):
+        for i, (row, args, yard) in enumerate(per_shape):
             timer.run(f"k1 {i}", lambda a=args: k1(*a))
             timer.run(f"plain {i}", lambda a=args: plain(*a))
+            for key, fn in yard.items():
+                timer.run(f"{key} {i}", fn)
         timer.run("k1 seq", lambda: [k1(*a) for a in sites])
         timer.run("plain seq", lambda: [plain(*a) for a in sites])
+        for key in ("floor", "copy"):
+            timer.run(f"{key} seq", lambda k=key: [y[k]() for y in site_yards])
         for b, im in bucket_imgs.items():
             timer.run(f"forward {b}", lambda im=im: predict(served, im), reps=10)
     res = timer.results()
-    del sites
+    del sites, site_yards
     for label, (_, names) in res.items():  # attribution check: K1 regions
         if label.startswith("k1 "):           # hold exactly their launches
             want = REPS * (ABN_SITES if label == "k1 seq" else 1)
@@ -907,18 +986,31 @@ def main() -> int:
                       f"profiler region {label}: {len(names)} kernels, want "
                       f"{want} K1")
     dev = {label: ms for label, (ms, _) in res.items()}
-    for i, (row, _) in enumerate(per_shape):
-        row.update(kernel_us=dev[f"k1 {i}"] * 1e3, plain_us=dev[f"plain {i}"] * 1e3)
+    for i, (row, *_) in enumerate(per_shape):
+        row.update(kernel_us=dev[f"k1 {i}"] * 1e3, plain_us=dev[f"plain {i}"] * 1e3,
+                   floor_us=dev[f"floor {i}"] * 1e3, copy_us=dev[f"copy {i}"] * 1e3)
         log("[k1] " + json.dumps(row))
-    seq.update(ms=dev["k1 seq"], plain_ms=dev["plain seq"])
-    log(f"[timing] {name}: K1 x{ABN_SITES} at bucket 8: {json.dumps(seq)}")
+    seq.update(ms=dev["k1 seq"], plain_ms=dev["plain seq"],
+               floor_ms=dev["floor seq"], copy_ms=dev["copy seq"])
+    log(f"[timing] {name}: K1 x{ABN_SITES} at bucket 8 (floor_ms: an empty "
+        f"kernel of each launch's geometry; copy_ms: Tensor.copy_ of each "
+        f"input; yardsticks, neither computes K1): {json.dumps(seq)}")
     for b, f in forward.items():
         f.update(device_ms=dev[f"forward {b}"],
                  device_busy=dev[f"forward {b}"] / f["wall_ms"],
                  images_per_s=b / f["wall_ms"] * 1e3)
         log(f"[timing] {name}: served forward, bucket {b}: {json.dumps(f)}")
+    check("forward 8" in timer.per_kernel, "torch.profiler recorded no kernel "
+          "for the bucket-8 forward")
+    breakdown = forward_families(*timer.per_kernel["forward 8"])
+    check(breakdown["k1"]["launches"] == ABN_SITES,
+          f"bucket-8 forward breakdown: {breakdown['k1']['launches']} K1 "
+          f"launches, expected {ABN_SITES}")
+    forward[8]["by_family"] = breakdown
+    log(f"[timing] {name}: served forward, bucket 8, device ms by kernel "
+        f"family: {json.dumps(breakdown)}")
     log(f"[timing] clocks.sm, clocks.max.sm, power.draw: {clocks()}")
-    report["k1_shapes"] = [row for row, _ in per_shape]
+    report["k1_shapes"] = [row for row, *_ in per_shape]
     report["k1_forward_sequence"] = seq
     report["forward"] = forward
     report["profiler_serve"] = timer.record()
@@ -1033,7 +1125,12 @@ def main() -> int:
         "plain_ms": seq["plain_ms"],
         "bound_ms": seq["bound_ms"],
         "bound_by": seq["bound_by"],
+        # no PyTorch call computes BN + LeakyReLU; the two yardsticks (an
+        # empty kernel per launch, Tensor.copy_ of each input) compute
+        # something else and stand beside it, labelled
         "library_ms": None,
+        "yardstick_floor_ms": seq["floor_ms"],
+        "yardstick_copy_ms": seq["copy_ms"],
     }] + [{
         "name": attr,
         "route": "cuda",

@@ -2,9 +2,10 @@
 attention kernels K2-K4 against their plain PyTorch versions (which the CPU
 tests hold against the JAX package), the bf16 comparisons' power to refuse
 near misses, the kernels' bitwise determinism, the wrappers' refusals and
-launch counts, the flash autograd Function against the plain versions'
-autograd, and the served model on the card against the same model on the
-CPU.
+launch counts, K1 at every rows-per-thread on ragged row counts and its
+refusal of a launch geometry it does not take, the flash autograd Function
+against the plain versions' autograd, and the served model on the card
+against the same model on the CPU.
 
 Marked `cuda`; each test skips (inside a fixture, never at import) where
 `torch.cuda.is_available()` is false. On the card, without JAX installed:
@@ -28,8 +29,13 @@ pytestmark = pytest.mark.cuda
 TRESNET_M_ABN = [(8, 64, 56, 56), (8, 128, 56, 56), (8, 128, 28, 28),
                  (8, 256, 28, 28), (8, 256, 14, 14), (8, 512, 14, 14),
                  (8, 512, 7, 7)]
+# the same sites at bucket 1, and the stem's at bucket 64: 200,704 rows,
+# past the 65,535 row blocks the first version's grid could name
+TRESNET_M_ABN_B1 = [(1,) + s[1:] for s in TRESNET_M_ABN]
+BUCKET_64 = [(64, 64, 56, 56)]
 RAGGED = [(393, 48), (1001, 37), (3, 48, 5, 7)]  # odd M, C off the vector width
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
 
 
 @pytest.fixture
@@ -58,8 +64,8 @@ def _args(shape, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", TRESNET_M_ABN + RAGGED,
-                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", TRESNET_M_ABN + TRESNET_M_ABN_B1 + BUCKET_64
+                         + RAGGED, ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain_version(cuda, shape, dtype):
     args = _args(shape, dtype, cuda)
     y = fused_abn.fused_bn_leaky_relu(*args)
@@ -84,6 +90,83 @@ def test_misaligned_input_takes_the_scalar_path(cuda):
     torch.testing.assert_close(fused_abn.fused_bn_leaky_relu(*args),
                                fused_abn.fused_bn_leaky_relu_ref(*args),
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,c", [(1001, 48), (393, 64), (77, 37)])
+def test_rows_not_a_multiple_of_r(cuda, m, c, dtype):
+    """Every R the kernel is built for, on M that no row tile divides: the
+    masked tail is neither skipped nor written past, and each R gives the
+    bits the wrapper's own choice gives."""
+    args = _args((m, c), dtype, cuda)
+    want = fused_abn.fused_bn_leaky_relu(*args)
+    ref = fused_abn.fused_bn_leaky_relu_ref(*args)
+    torch.testing.assert_close(want.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    x, scale, bias, mean, var, eps, slope = args
+    sms = fused_abn.sm_count(x.get_device())
+    for r in fused_abn.ROWS_PER_THREAD:
+        g = fused_abn.geometry(m, c, sms, True, r)
+        assert m % (g.ty * r) != 0
+        guard = torch.full((m + 64, c), 7.0, device=cuda, dtype=dtype)
+        y = guard[:m]
+        fused_abn.launch(x, y, scale, bias, mean, var, eps, slope, g)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want), f"R = {r}"
+        assert (guard[m:] == 7.0).all(), f"R = {r} wrote past the last row"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_two_launches_give_the_same_bits(cuda, dtype):
+    for shape in [(8, 256, 14, 14), (64, 64, 56, 56), (1001, 37)]:
+        args = _args(shape, dtype, cuda, seed=3)
+        a = fused_abn.fused_bn_leaky_relu(*args)
+        b = fused_abn.fused_bn_leaky_relu(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), shape
+
+
+def test_refuses_a_geometry_the_kernel_does_not_take(cuda):
+    """The C side checks the geometry the host hands it and refuses, with
+    cudaErrorInvalidValue, one that would leave work undone, launch an
+    idle block, exceed its block size, name an R it was not built for or
+    take the vector path where C or a pointer does not allow it."""
+    m, c = 1001, 48
+    x, scale, bias, mean, var, eps, slope = _args((m, c), torch.float32, cuda)
+    y = torch.empty_like(x)
+    good = fused_abn.geometry(m, c, fused_abn.sm_count(x.get_device()))
+    fused_abn.launch(x, y, scale, bias, mean, var, eps, slope, good)
+    tiles = -(-m // (good.ty * good.rows))
+    bad = {
+        "a channel group uncovered": good._replace(tx=good.tx - 1),
+        "idle block column": good._replace(gx=good.gx + 1),
+        "idle block row": good._replace(gy=tiles + 1),
+        "too many threads": good._replace(ty=good.ty * 2),
+        "R not built": good._replace(rows=3),
+        "vector width not built": good._replace(vec=8, tx=good.tx // 2),
+        "no block": good._replace(gy=0),
+    }
+    for why, g in bad.items():
+        with pytest.raises(RuntimeError,
+                           match=f"CUDA error {CUDA_ERROR_INVALID_VALUE} "):
+            fused_abn.launch(x, y, scale, bias, mean, var, eps, slope, g)
+            pytest.fail(f"launched with {why}: {g}")
+    # the vector path on a C it does not divide, and on a misaligned x
+    x37, *v37 = _args((m, 37), torch.float32, cuda)[:5]
+    with pytest.raises(RuntimeError,
+                       match=f"CUDA error {CUDA_ERROR_INVALID_VALUE} "):
+        fused_abn.launch(x37, torch.empty_like(x37), *v37, eps, slope,
+                         fused_abn.geometry(m, 36, 132)._replace(tx=10))
+    buf = torch.randn(m * c + 1, device=cuda)
+    xm = buf[1:].view(m, c)
+    with pytest.raises(RuntimeError,
+                       match=f"CUDA error {CUDA_ERROR_INVALID_VALUE} "):
+        fused_abn.launch(xm, torch.empty_like(xm), scale, bias, mean, var, eps,
+                         slope, good)
+    assert fused_abn.launch_geometry(
+        xm, [xm.data_ptr(), y.data_ptr()]).vec == 1  # the wrapper's choice
 
 
 def test_refuses_non_channels_last(cuda):
