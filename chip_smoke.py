@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke of the torch port: builds its kernels, holds each against
 its plain PyTorch version, and drives the port's main paths — serving
-TResNet-M at full width and depth, and training ViT-B/16 at 512 px — on
-one NVIDIA GPU.
+TResNet-M at full width and depth, training ViT-B/16 at 512 px, and
+training TResNet-M at 224 px, then serving its checkpoint — on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -10,8 +11,9 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
 
 1. device — CUDA is required (no CPU fallback); prints the card's name and
    power limit as nvidia-smi gives them;
-2. build — K1 from `ops/csrc/fused_abn.cu` and K2-K4 from
-   `ops/csrc/flash_attention.cu` + `ops/csrc/flash_fwd_sm90.cu` +
+2. build — K1, K1s, K1r and K1d from `ops/csrc/fused_abn.cu` +
+   `ops/csrc/fused_abn_train.cu` (with their header `fused_abn.cuh`), and
+   K2-K4 from `ops/csrc/flash_attention.cu` + `ops/csrc/flash_fwd_sm90.cu` +
    `ops/csrc/flash_bwd_sm90.cu` (with their header `flash_sm90.cuh`), one
    nvcc per library, started together, for sm_90a (nvcc's register and
    shared-memory lines printed); then `cuobjdump -sass` of the flash
@@ -86,7 +88,50 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    bound, with the SM clock and power draw read beside them; and the host
    time of issuing one K2, K3 and K4 launch through its wrapper (12 in a
    row, no synchronize: checks, output allocation, tensor maps, launch);
-11. a `{"kernels": [...]}` line, then `{"ok": true, "device": {...}}` last.
+11. kernel vs plain (K1s, K1r, K1d) — the training passes around K1
+   (batch statistics; the backward's sums; dx) against `bn_stats_ref`,
+   `abn_grad_sums_ref` and `abn_grad_input_ref` at every ABN shape of a
+   batch-32 TResNet-M train step at 224 px, plus a ragged C and an odd M,
+   in f32 and bf16: statistics within 1e-5; dscale and dbias per channel
+   within SUM_ULPS f32 ulps of the sum of the terms' magnitudes (sums in
+   another order); dx within 1e-5 in f32 and 1e-2 in bf16 (compared in
+   f32: one bf16 ulp); K1r + K1d also against the line-for-line `_bwd`
+   (`fused_bn_leaky_relu_backward_ref`); a second launch of each gives
+   the same bits (no floating-point atomics);
+12. the TResNet-M training path — `cli/train.py`'s sequence in process:
+   TResNet-M at full width and depth, 224 px, 2173 classes, batch 32,
+   bf16, SGD momentum 0.9 at lr 0.01, synthetic data of 256 images: 8
+   train steps and 2 eval batches. The loss is finite, no step was
+   skipped, K1 rose by 36 × (8 + 2) and K1s, K1r and K1d by 36 × 8 each,
+   no gradient was copied into another layout, the records and the
+   checkpoint with its sidecar are written and restore to the trained
+   weights; then `cli/serve.py`'s selfcheck over that `--ckpt` answers 8
+   requests with finite probabilities (K1 36 per forward), and the
+   served model's top-5 on one batch equals the trainer's own eval
+   forward on it;
+13. the TResNet-M training slice, kernel vs plain — one train step at
+   batch 8 from the same weights and batch, through the four kernels and
+   with their four wrappers swapped for the plain versions on the same
+   CUDA tensors, in f32 and in bf16; the plain runs launch none of them.
+   f32: loss within 1e-5, grad norm within 1e-2 and each of the 120
+   running statistics' updates within 1e-3 of the plain run's (relative
+   to the update's largest value). A batch-normalized net at random init
+   amplifies a perturbation along its depth (each BN site's output
+   divergence between the runs is recorded: in f32 it grows from 0 at the
+   stem to about 5e-5 at the last site), and in bf16 the one-ulp
+   differences of two rounding orders grow to tens of percent by stage 4,
+   so bf16 checks the loss within 1e-2 and records the grad norm and the
+   running statistics' divergence;
+14. TResNet-M training timings — the batch-32 train step: wall (host
+   clock, median of 5), device time, images/s, busy share; the 36
+   launches each of K1, K1s, K1r and K1d inside the step against their
+   byte bounds; the step's device time by kernel family; per bf16 shape
+   of phase 11 and over the 36 sites in a row: each kernel, its plain
+   version, and two yardsticks: `torch.var_mean(correction=0)` beside
+   K1s and the backward of `F.batch_norm(training=True)` (no gate) beside
+   K1r + K1d;
+15. a `{"kernels": [...]}` line (K1-K4, K1s, K1r, K1d), then
+   `{"ok": true, "device": {...}}` last.
 
 Numerics on the card: `torch.backends.cudnn.allow_tf32 = False` and
 `torch.backends.cuda.matmul.allow_tf32 = False` (f32 convolutions and
@@ -144,8 +189,35 @@ FLASH_TOL = {"float32": (1e-4, 1e-4, 1e-4), "bfloat16": (1e-2, 1e-2, 2e-2)}
 FLASH_RMS_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (5e-3, 1e-3)}
 FLASH_REPS = 5
 STEP_REPS = 3
+TRESNET_TRAIN_ARGV = ["baseline", "--dataset", "synthetic", "--synthetic_size",
+                      "256", "--model", "tresnet_m", "--image_size", "224",
+                      "--num_classes", "2173", "--batchsize", "32",
+                      "--dtype", "bfloat16", "--epochs", "1", "--lr", "0.01",
+                      "--device", "cuda"]
+PALLAS = "ddp_classification_pytorch_tpu/ops/pallas_kernels.py"
+# the training passes around K1: (kind, wrapper, kernel-name part of all
+# its launches, part of its one counted launch a call, the jnp they stand
+# for, f32 operations an element, (M×C tensors, f32 (C,) vectors) moved)
+ABN_TRAIN_KERNELS = (
+    ("k1s", "bn_stats", "abn_stats_", "abn_stats_partial",
+     PALLAS + ":140-143", 3, (1, 3)),
+    ("k1r", "abn_grad_sums", "abn_grad_sums_", "abn_grad_sums_partial",
+     PALLAS + ":103-109", 7, (3, 4)),
+    ("k1d", "abn_grad_input", "abn_grad_input", "abn_grad_input",
+     PALLAS + ":113-117", 10, (4, 5)),
+)
+# K1r's f32 sums over up to 1e5 rows, in another order than the plain
+# version's: per channel within SUM_ULPS f32 ulps (2^-24) of the sum of the
+# terms' magnitudes (a row dropped or counted twice moves a sum by about
+# that sum / M, above this limit below M ≈ 1e6)
+SUM_ULPS = 16
+# the four wrappers of a TResNet-M train step, in ABN_COUNTS order
+ABN_WRAPPERS = ("fused_bn_leaky_relu", "bn_stats", "abn_grad_sums",
+                "abn_grad_input")
 RETRY_SESSIONS = 2  # fresh profiler sessions for regions a session missed
 MARK = "spin_kernel"  # torch.cuda._sleep's kernel, DeviceTimer's marker
+MARKS_PER_EDGE = 2  # markers at each edge of a region: one lost still shows it
+PAD_KERNELS = 8  # kernels outside every region at each end of a session
 SCORE_ELEMENTWISE_OPS = 5  # per score: scale, mask/max, subtract, exp, sum/mul
 
 
@@ -196,15 +268,28 @@ FORWARD_FAMILIES = (
 )
 
 
-def forward_families(kernels, reps: int) -> dict:
-    """Device ms per forward of each FORWARD_FAMILIES family and of the
-    rest, from one DeviceTimer region's (µs, name) records, with the
-    launches per forward and the largest of the rest by name."""
-    fam = {name: [0.0, 0] for name, _ in FORWARD_FAMILIES}
+# a TResNet-M train step's kernels by family: K1 and its training passes,
+# then the convolutions forward and backward (cuDNN's fprop, dgrad and
+# wgrad kernels and the cuBLAS products), and the rest
+TRAIN_FAMILIES = (
+    ("k1", ("fused_abn_fwd_kernel",)),
+    ("k1s", ("abn_stats_",)),
+    ("k1r", ("abn_grad_sums_",)),
+    ("k1d", ("abn_grad_input",)),
+    ("convolutions", FORWARD_FAMILIES[1][1] + ("xmma", "dgrad", "wgrad",
+                                               "cutlass")),
+)
+
+
+def forward_families(kernels, reps: int, families=FORWARD_FAMILIES) -> dict:
+    """Device ms per call of each of `families` and of the rest, from one
+    DeviceTimer region's (µs, name) records, with the launches per call
+    and the largest of the rest by name."""
+    fam = {name: [0.0, 0] for name, _ in families}
     fam["rest"] = [0.0, 0]
     rest = {}
     for dur, kname in kernels:
-        key = next((name for name, parts in FORWARD_FAMILIES
+        key = next((name for name, parts in families
                     if any(p in kname for p in parts)), "rest")
         fam[key][0] += dur / reps / 1e3
         fam[key][1] += 1
@@ -275,29 +360,34 @@ class DeviceTimer:
     profiler session (in one process, repeated sessions stopped recording
     device activity after about sixteen). A region runs its calls and
     synchronizes inside a `record_function` range, with 2 ms idle on each
-    side, and launches a one-thread marker kernel (`torch.cuda._sleep`,
-    MARK) just before its calls and just after them: a kernel counts
-    toward the region whose two markers enclose it on the device's own
-    timeline, so no host timestamp is needed (the profiler places device
-    records up to 0.6 ms off the host clock in the runs seen; `lag_us`
-    keeps, per region, the marker's device start less the range's host
-    start). The range's own mirror on the device timeline (a span from its
-    first kernel to its last, gaps included) is not a kernel and is left
-    out.
+    side, and launches MARKS_PER_EDGE one-thread marker kernels
+    (`torch.cuda._sleep`, MARK) just before its calls and as many just
+    after them: a kernel counts toward the region whose two runs of
+    markers enclose it on the device's own timeline (`region_spans`), so
+    no host timestamp is needed (the profiler places device records off
+    the host clock, by up to 21.7 ms in the runs seen; `lag_us` keeps, per
+    region, the first marker's device start less the range's host start). The
+    range's own mirror on the device timeline (a span from its first
+    kernel to its last, gaps included) is not a kernel and is left out.
 
     The profiler loses a device record now and then (seen on the card: a
-    marker, one of a region's five launches, all of a small region's). A
-    session whose markers do not pair up counts as having recorded
-    nothing, and a region's record is whole only if each kernel name in
-    it ran a multiple of its calls (`whole`). The regions a session did
-    not record whole run again, all in one fresh session, up to
-    RETRY_SESSIONS times, keeping the fuller record; one still partial is
-    used as it is (and listed), one still empty is timed with CUDA events
-    around its calls issued back to back (the host's gaps between them
-    included, so at most the wall time: an upper bound on its device time)
-    and reports no kernel names. `count` returns the wrappers' launch
-    counters; each region's rise over its timed calls is kept in
-    `launched`, so a caller can check what such a region launched."""
+    marker — in 3 of 4 sessions of a TResNet-M train step's 83 regions —,
+    one of a region's five launches, all of a small region's; and, in every
+    session of one run, one edge's two markers, most likely the session's
+    last records). A lost marker leaves its edge's run one shorter, and
+    each session opens and closes with PAD_KERNELS kernels outside every
+    region (`_pad`), so its first and last records are none of a region's;
+    a session whose runs do not pair up counts as having recorded nothing,
+    and a region's record is whole only if each kernel name in it ran a
+    multiple of its calls (`whole`). The regions a session did not record
+    whole run again, all in one fresh session, up to RETRY_SESSIONS times,
+    keeping the fuller record; one still partial is used as it is (and
+    listed), one still empty is timed with CUDA events around its calls
+    issued back to back (the host's gaps between them included, so at most
+    the wall time: an upper bound on its device time) and reports no kernel
+    names. `count` returns the wrappers' launch counters; each region's
+    rise over its timed calls is kept in `launched`, so a caller can check
+    what such a region launched."""
 
     def __init__(self, torch, count=None):
         from torch.profiler import ProfilerActivity, profile, record_function
@@ -318,10 +408,19 @@ class DeviceTimer:
 
     def __enter__(self):
         self.prof.__enter__()
+        self._pad()
         return self
 
     def __exit__(self, *exc):
+        self._pad()
         self.prof.__exit__(*exc)
+
+    def _pad(self) -> None:
+        """PAD_KERNELS small fills outside every region, then a synchronize."""
+        t = self.torch.empty(PAD_KERNELS, device="cuda")
+        for i in range(PAD_KERNELS):
+            t[i:i + 1].fill_(0.0)
+        self.torch.cuda.synchronize()
 
     def _rise(self, before) -> tuple:
         return tuple(a - b for a, b in zip(self.count(), before))
@@ -332,10 +431,12 @@ class DeviceTimer:
         time.sleep(0.002)
         before = self.count()
         with self.record_function(label):
-            self.torch.cuda._sleep(1)  # MARK, before
+            for _ in range(MARKS_PER_EDGE):  # MARK, before
+                self.torch.cuda._sleep(1)
             for _ in range(reps):
                 fn()
-            self.torch.cuda._sleep(1)  # MARK, after
+            for _ in range(MARKS_PER_EDGE):  # MARK, after
+                self.torch.cuda._sleep(1)
             self.torch.cuda.synchronize()
         self.launched[label] = self._rise(before)
         time.sleep(0.002)
@@ -355,15 +456,19 @@ class DeviceTimer:
         device = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name)
                         for e in events
                         if e.device_type == cuda and e.name not in labels)
-        marks = [i for i, (_, _, n) in enumerate(device) if MARK in n]
-        if len(marks) != 2 * len(regions) or set(ranges) != labels:
-            log(f"[timing] torch.profiler session: {len(marks)} markers and "
+        names = [n for _, _, n in device]
+        spans = region_spans(names, len(regions))
+        if spans is None or set(ranges) != labels:
+            runs = [b - a + 1 for a, b in marker_runs(names)]
+            log(f"[timing] torch.profiler session: "
+                f"{sum(MARK in n for n in names)} markers in {len(runs)} runs "
+                f"(lengths, first and last: {runs[:4]} {runs[-4:]}) and "
                 f"{len(ranges)} ranges for {len(regions)} regions")
             return {label: [] for label in labels}
         found = {}
-        for (label, *_), i, j in zip(regions, marks[::2], marks[1::2]):
-            found[label] = [(d, n) for _, d, n in device[i + 1:j]]
-            self.lag_us[label] = device[i][0] - ranges[label].start
+        for (label, *_), (first, lo, hi) in zip(regions, spans):
+            found[label] = [(d, n) for _, d, n in device[lo:hi]]
+            self.lag_us[label] = device[first][0] - ranges[label].start
         return found
 
     def _event_ms(self, label: str, fn, reps: int) -> float:
@@ -390,8 +495,10 @@ class DeviceTimer:
                 break
             self.retried += [label for label, *_ in missing]
             with self.new_session() as prof:
+                self._pad()
                 for region in missing:
                     self._record(*region)
+                self._pad()
             again = self._attribute(prof, missing)
             for label, _, reps in missing:  # keep the fuller record
                 if (whole(again[label], reps)
@@ -435,6 +542,36 @@ class DeviceTimer:
         mine, reps = self.per_kernel[label]
         hit = [d for d, n in mine if part in n]
         return sum(hit) / reps / 1e3, len(hit) / reps
+
+
+def marker_runs(names):
+    """(first, last) index of each maximal stretch of consecutive markers
+    in a device-ordered list of kernel names."""
+    runs, i = [], 0
+    while i < len(names):
+        if MARK not in names[i]:
+            i += 1
+            continue
+        j = i
+        while j + 1 < len(names) and MARK in names[j + 1]:
+            j += 1
+        runs.append((i, j))
+        i = j + 1
+    return runs
+
+
+def region_spans(names, n: int):
+    """For the device-ordered kernel names of a session that recorded n
+    regions: per region (index of its first marker, then the slice bounds
+    of the kernels between its runs of markers), or None where the runs do
+    not pair up. The region's calls separate its two runs and the next
+    region's warm call separates it from the next, so a run that lost a
+    marker still counts; kernels before the first run and after the last
+    (the session's padding) belong to no region."""
+    runs = marker_runs(names)
+    if len(runs) != 2 * n:
+        return None
+    return [(a[0], a[1] + 1, b[0]) for a, b in zip(runs[::2], runs[1::2])]
 
 
 def whole(kernels, reps: int) -> bool:
@@ -623,56 +760,65 @@ def flash_vs_plain(torch, fa, device):
     return rows, timed
 
 
-def train_main_path(torch, fa, device, train_cli, checkpoint):
-    """Phase 8: cli/train.py's sequence in process; returns the trainer and
-    a record of the run."""
+def train_main_path(torch, device, train_cli, checkpoint, argv, counters,
+                    want, tag, then=None):
+    """Phases 8 and 12: cli/train.py's sequence for `argv` in process, into
+    a temporary directory (a checkpoint is hundreds of MB): one epoch of
+    TRAIN_STEPS steps and EVAL_BATCHES eval batches. `counters` names the
+    wrappers whose launches the run must raise by exactly `want` (set to 0
+    just before it). The loss is finite, no step was skipped, the records
+    and the checkpoint with its sidecar are written and the checkpoint
+    restores to the trained weights. `then(trainer, ckpt)` runs
+    before the directory goes and returns more of the record. Returns the
+    trainer, its config and the record (with the small records' text)."""
     from ddp_classification_pytorch_tpu_torch.train.loop import Trainer
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         cfg = train_cli.config_from_args(
-            train_cli.build_parser().parse_args(TRAIN_ARGV + ["--out", tmp]))
+            train_cli.build_parser().parse_args(argv + ["--out", tmp]))
         trainer = Trainer(cfg, device)
         check(trainer.steps_per_epoch == TRAIN_STEPS
               and len(trainer.val_loader) == EVAL_BATCHES,
               f"{trainer.steps_per_epoch} train steps / "
               f"{len(trainer.val_loader)} eval batches, expected "
               f"{TRAIN_STEPS} / {EVAL_BATCHES}")
-        for _, attr, *_ in FLASH_KERNELS:  # count only the main path's
-            getattr(fa, attr).launches = 0
+        for f in counters.values():  # count only the main path's
+            f.launches = 0
         t0 = time.perf_counter()
         last = trainer.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(zip(("fwd", "dq", "dkv"), flash_counts(fa)))
-        log(f"[train] epoch 0: {json.dumps(last)}")
+        launches = {k: f.launches for k, f in counters.items()}
+        log(f"[{tag}] epoch 0: {json.dumps(last)}")
         check(np.isfinite(last["loss"]) and np.isfinite(last["val_loss"]),
               "non-finite loss")
         check(last["step_ok"] == 1.0 and trainer.sentinel.skipped_total == 0,
               f"skipped steps: step_ok mean {last['step_ok']}")
-        want = {"fwd": VIT_BLOCKS * (TRAIN_STEPS + EVAL_BATCHES),
-                "dq": VIT_BLOCKS * TRAIN_STEPS, "dkv": VIT_BLOCKS * TRAIN_STEPS}
-        check(launches == want, f"flash launches {launches}, expected {want}")
+        check(launches == want, f"launches {launches}, expected {want}")
         names = ("output.txt", "history.json", "meta.json", "ckpt_e0.pt",
                  "ckpt_e0.pt.sha256")
         for n in names:
             check(os.path.isfile(os.path.join(tmp, n)), f"train wrote no {n}")
-        restored = checkpoint.restore(os.path.join(tmp, "ckpt_e0.pt"))
+        ckpt = os.path.join(tmp, "ckpt_e0.pt")
+        restored = checkpoint.restore(ckpt)
         trained = trainer.state.model.state_dict()
         check(restored.keys() == trained.keys()
               and all(torch.equal(restored[k], trained[k].cpu())
                       for k in trained), "checkpoint does not restore the "
               "trained weights")
+        more = then(trainer, ckpt) if then else {}
         files = {}
         for n in names[:3]:  # the small records ride in the report
             with open(os.path.join(tmp, n)) as f:
                 files[n] = f.read()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    record = {"argv": TRAIN_ARGV, "epoch": last, "launches": launches,
+    record = {"argv": argv, "epoch": last, "launches": launches,
               "wall_s": wall,
-              "images_per_s": TRAIN_STEPS * 32 / last["epoch_time"]}
-    log(f"[train] {json.dumps(record)}")
+              "images_per_s": TRAIN_STEPS * cfg.data.batch_size
+              / last["epoch_time"]} | more
+    log(f"[{tag}] {json.dumps(record)}")
     record["records"] = files
     return trainer, cfg, record
 
@@ -714,6 +860,271 @@ def train_slice(torch, fa, device, cfg, train_ds):
     check(rel["loss"] <= 1e-3 and rel["grad_norm"] <= 1e-2,
           f"train slice disagrees: {rel}")
     return {"kernel": kern, "plain": ref, "relative_diff": rel}
+
+
+def abn_train_bound_ms(kind: str, shapes, itemsize: int):
+    """Least time the card needs for K1s, K1r or K1d over `shapes`, and what
+    bounds it: the larger of the bytes moved (each M×C tensor and f32 (C,)
+    vector read or written once) over the memory rate and the f32
+    operations over the f32 peak."""
+    _, _, _, _, _, ops, (tensors, vecs) = next(
+        k for k in ABN_TRAIN_KERNELS if k[0] == kind)
+    elements = sum(int(np.prod(s)) for s in shapes)
+    nbytes = elements * tensors * itemsize + sum(vecs * s[1] * 4 for s in shapes)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = elements * ops / F32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def abn_train_inputs(torch, fused_abn, shape, dtype, device, gen, slope):
+    """One ABN site's training tensors at `shape` ((N, C, H, W) channels_last
+    or (M, C) rows): x, g (y's gradient, in y's layout), y = K1's plain
+    version on x's batch statistics, scale, bias, mean, var, inv_std."""
+    c = shape[1]
+    if len(shape) == 4:
+        n, _, h, w = shape
+        x = (torch.randn((n, h, w, c), device=device, generator=gen) * 1.5
+             + 0.3).to(dtype).permute(0, 3, 1, 2)
+    else:
+        x = (torch.randn(shape, device=device, generator=gen) * 1.5
+             + 0.3).to(dtype)
+    scale = torch.rand(c, device=device, generator=gen) + 0.5
+    bias = torch.rand(c, device=device, generator=gen) - 0.5
+    mean, var, inv = fused_abn.bn_stats_ref(x)
+    y = fused_abn.fused_bn_leaky_relu_ref(x, scale, bias, mean, var, 1e-5, slope)
+    g = torch.empty_like(x).normal_(generator=gen)
+    return x, g, y, scale, bias, mean, var, inv
+
+
+def abn_train_closures(torch, fused_abn, t, slope, ds, db):
+    """What phase 14 times at one site: each kernel, its plain version, and
+    two PyTorch calls: `torch.var_mean(correction=0)` (K1s's mean and
+    biased variance by another formula, without inv_std) and the backward
+    of `F.batch_norm(training=True)` (a BN's dx, dγ and dβ without the
+    LeakyReLU gate: a yardstick beside K1r + K1d, not the same function)."""
+    import torch.nn.functional as F
+
+    x, g, y, scale, bias, mean, var, inv = t
+    dims = (0, 2, 3) if x.dim() == 4 else (0,)
+    xr = x.detach().clone().requires_grad_()
+    w, b = (v.clone().requires_grad_() for v in (scale, bias))
+    out = F.batch_norm(xr, None, None, w, b, training=True, eps=1e-5)
+    return {
+        "k_k1s": lambda: fused_abn.bn_stats(x),
+        "p_k1s": lambda: fused_abn.bn_stats_ref(x),
+        "k_k1r": lambda: fused_abn.abn_grad_sums(g, y, x, mean, inv, slope),
+        "p_k1r": lambda: fused_abn.abn_grad_sums_ref(g, y, x, mean, inv, slope),
+        "k_k1d": lambda: fused_abn.abn_grad_input(g, y, x, scale, mean, inv, ds,
+                                                  db, slope),
+        "p_k1d": lambda: fused_abn.abn_grad_input_ref(g, y, x, scale, mean, inv,
+                                                      ds, db, slope),
+        "var_mean": lambda: torch.var_mean(x, dim=dims, correction=0),
+        "bn_bwd": lambda: torch.autograd.grad(out, (xr, w, b), g,
+                                              retain_graph=True),
+    }
+
+
+def abn_train_vs_plain(torch, fused_abn, device, shapes, slope):
+    """Phase 11: K1s, K1r and K1d against their plain versions at every
+    distinct ABN shape of a batch-32 TResNet-M train step, a ragged C and
+    an odd M, in f32 and bf16; a second launch must give the same bits.
+    Returns per-case rows, the bf16 cases' closures for phase 14, and each
+    kernel's largest error."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    rows_of = fused_abn._rows
+    cases = sorted(set(shapes), key=lambda s: (-s[2], s[1])) + [(393, 48),
+                                                                 (1001, 37)]
+    rows, timed = [], []
+    max_err = {"k1s": 0.0, "k1r": 0.0, "k1d": 0.0}
+    for shape in cases:
+        for dtype, stats_tol, dx_tol in ((torch.float32, 1e-5, 1e-5),
+                                         (torch.bfloat16, 1e-5, 1e-2)):
+            dname = str(dtype).split(".")[-1]
+            t = abn_train_inputs(torch, fused_abn, shape, dtype, device, gen,
+                                 slope)
+            x, g, y, scale, _, mean, _, inv = t
+            stats = fused_abn.bn_stats(x)
+            ds, db = fused_abn.abn_grad_sums(g, y, x, mean, inv, slope)
+            dx = fused_abn.abn_grad_input(g, y, x, scale, mean, inv, ds, db,
+                                          slope)
+            again = (*fused_abn.bn_stats(x),
+                     *fused_abn.abn_grad_sums(g, y, x, mean, inv, slope),
+                     fused_abn.abn_grad_input(g, y, x, scale, mean, inv, ds, db,
+                                              slope))
+            want_stats = fused_abn.bn_stats_ref(x)
+            want_ds, want_db = fused_abn.abn_grad_sums_ref(g, y, x, mean, inv,
+                                                           slope)
+            want_dx = fused_abn.abn_grad_input_ref(g, y, x, scale, mean, inv,
+                                                   ds, db, slope)
+            oracle = fused_abn.fused_bn_leaky_relu_backward_ref(
+                g, x, y, scale, mean, inv, slope)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in
+                      zip(again, (*stats, ds, db, dx))),
+                  f"K1s/K1r/K1d {shape} {dname}: a second launch gave other "
+                  f"bits")
+            errs = {}
+            for name, a, b in zip(("mean", "var", "inv_std"), stats, want_stats):
+                errs[name] = (a - b).abs().max().item()
+                torch.testing.assert_close(a, b, atol=stats_tol, rtol=stats_tol)
+            dy = fused_abn._gated(rows_of(g), rows_of(y), slope)
+            terms = {"dbias": dy, "dscale": dy * (rows_of(x) - mean) * inv}
+            for name, a, b, o in (("dscale", ds, want_ds, oracle[1]),
+                                  ("dbias", db, want_db, oracle[2])):
+                limit = SUM_ULPS * 2.0 ** -24 * terms[name].abs().sum(0)
+                errs[name] = (a - b).abs().max().item()
+                errs[name + "_vs_bwd"] = (a - o).abs().max().item()
+                check(bool(((a - b).abs() <= limit).all()
+                           and ((a - o).abs() <= limit).all()),
+                      f"K1r {name} {shape} {dname}: off its plain version by "
+                      f"{errs[name]}, off _bwd by {errs[name + '_vs_bwd']}")
+            check(dx.dtype == dtype and dx.stride() == x.stride(),
+                  f"K1d output {dx.dtype} {dx.stride()}")
+            for name, want in (("dx", want_dx), ("dx_vs_bwd", oracle[0])):
+                errs[name] = (dx.float() - want.float()).abs().max().item()
+                torch.testing.assert_close(dx.float(), want.float(),
+                                           atol=dx_tol, rtol=dx_tol)
+            for kind, keys in (("k1s", ("mean", "var", "inv_std")),
+                               ("k1r", ("dscale", "dbias")), ("k1d", ("dx",))):
+                max_err[kind] = max(max_err[kind], *(errs[k] for k in keys))
+            row = {"shape": list(shape), "dtype": dname, "max_abs_err": errs,
+                   "bitwise_repeat": True,
+                   "sites_per_step": shapes.count(shape)}
+            for kind, *_ in ABN_TRAIN_KERNELS:
+                row[f"bound_us_{kind}"] = abn_train_bound_ms(
+                    kind, [shape], x.element_size())[0] * 1e3
+            rows.append(row)
+            if dtype == torch.bfloat16:
+                timed.append((row, abn_train_closures(torch, fused_abn, t,
+                                                      slope, ds, db)))
+        log(f"[abn-train] {shape}: K1s, K1r, K1d agree with the plain versions "
+            f"and with _bwd (f32, bf16); a second launch gives the same bits")
+    return rows, timed, max_err
+
+
+def serve_trained_checkpoint(torch, fused_abn, device, serve_cli, k1,
+                             trainer, ckpt):
+    """Phase 12's second half: cli/serve.py's selfcheck over the TResNet-M
+    checkpoint the trainer wrote (8 requests with finite probabilities, K1
+    36 times a forward), then one val batch through the served model and
+    the trainer's own eval forward: the same top-5."""
+    from ddp_classification_pytorch_tpu_torch.train.steps import (
+        make_topk_predict_step,
+    )
+
+    copies = fused_abn.FusedBNLeakyReLU.layout_copies
+    check(copies == 0, f"{copies} gradients copied into y's layout")
+    argv = SERVE_ARGV[:SERVE_ARGV.index("--selfcheck")] + [
+        "--ckpt", ckpt, "--selfcheck", "8", "--device", "cuda"]
+    cfg = serve_cli.config_from_args(serve_cli.build_parser().parse_args(argv))
+    before = k1.launches
+    engine = serve_cli.build_engine(cfg, device)
+    engine.warmup()
+    preds = serve_cli.run_selfcheck(engine, cfg, 8)
+    forwards = len(engine.buckets) + engine.metrics.batches
+    check(len(preds) == 8 and all(
+        p.scores.shape == (5,) and np.isfinite(p.scores).all()
+        and (p.scores >= 0).all() and p.scores.sum() <= 1.0 + 1e-3
+        for p in preds), "served checkpoint: invalid probabilities")
+    check(k1.launches - before == ABN_SITES * forwards,
+          f"served checkpoint: K1 rose by {k1.launches - before} over "
+          f"{forwards} forwards")
+    predict = make_topk_predict_step(cfg, 5)
+    items = [trainer.val_ds[i] for i in range(8)]
+    imgs = torch.from_numpy(np.stack([im for im, _ in items])).to(device)
+    served_p, served_i = predict(engine._state, imgs)
+    own_p, own_i = predict(trainer.state.model.eval(), imgs)
+    torch.cuda.synchronize()
+    check(torch.equal(served_i, own_i), f"served top-5 {served_i.tolist()} "
+          f"!= the trainer's {own_i.tolist()}")
+    return {"layout_copies": copies, "served_requests": len(preds),
+            "served_forwards": forwards, "served_top5_equal": True,
+            "served_max_prob_diff": (served_p - own_p).abs().max().item()}
+
+
+def tresnet_train_slice(torch, fused_abn, device, cfg, train_ds, wrappers):
+    """Phase 13: one TResNet-M train step at batch 8 from the same weights
+    and batch, through K1, K1s, K1r and K1d and with the four wrappers
+    swapped for their plain versions on the same CUDA tensors, in f32 and
+    in bf16; with each BN site's output divergence between the two runs
+    (max |kernel − plain| / max |plain|) along the depth."""
+    import copy
+
+    from ddp_classification_pytorch_tpu_torch.models.tresnet import BatchNorm
+    from ddp_classification_pytorch_tpu_torch.train.state import create_train_state
+    from ddp_classification_pytorch_tpu_torch.train.steps import make_train_step
+
+    items = [train_ds[i] for i in range(8)]
+    images = torch.from_numpy(np.stack([im for im, _ in items])).to(device)
+    labels = torch.from_numpy(np.asarray([lb for _, lb in items],
+                                         np.int32)).to(device)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dcfg = copy.deepcopy(cfg)
+        dcfg.model.dtype = dtype
+        step = make_train_step(dcfg)
+        runs, kernel_outs, divergence = [], [], []
+        for plain in (False, True):
+            state = create_train_state(dcfg, device, TRAIN_STEPS)
+            start = {k: b.clone() for k, b in state.model.named_buffers()
+                     if k.endswith(("running_mean", "running_var"))}
+
+            def site(_m, _a, y, plain=plain):
+                if not plain:
+                    kernel_outs.append(y.detach().clone())
+                    return
+                k = kernel_outs[len(divergence)]
+                divergence.append(((k.float() - y.float()).abs().max()
+                                   / y.float().abs().max()).item())
+
+            hooks = [m.register_forward_hook(site)
+                     for m in state.model.modules() if isinstance(m, BatchNorm)]
+            before = [f.launches for f in wrappers]
+            if plain:
+                for name in ABN_WRAPPERS:
+                    setattr(fused_abn, name, getattr(fused_abn, name + "_ref"))
+            try:
+                m = step(state, images, labels)
+                torch.cuda.synchronize()
+            finally:
+                for name, f in zip(ABN_WRAPPERS, wrappers):
+                    setattr(fused_abn, name, f)
+                for hk in hooks:
+                    hk.remove()
+            grew = tuple(f.launches - b for f, b in zip(wrappers, before))
+            check(grew == ((0,) * 4 if plain else (ABN_SITES,) * 4),
+                  f"{'plain' if plain else 'kernel'} {dtype} step launched "
+                  f"{grew}")
+            check(float(m["step_ok"]) == 1.0, "slice step skipped")
+            moved = {k: b.float() - start[k].float()
+                     for k, b in state.model.named_buffers() if k in start}
+            runs.append(({k: float(m[k]) for k in ("loss", "grad_norm")}, moved))
+            del state
+        del kernel_outs
+        (kern, kmoved), (ref, rmoved) = runs
+        check(len(rmoved) == 2 * (ABN_SITES + 24) and len(divergence) == 60,
+              f"{len(rmoved)} running statistics, {len(divergence)} BN sites")
+        rel = {k: abs(kern[k] - ref[k]) / abs(ref[k]) for k in kern}
+        # each running statistic's update (ra after − ra before =
+        # 0.1·(batch − ra)) against the plain run's, relative to that
+        # update's largest value
+        rel["running_stats"] = max(
+            (kmoved[k] - rmoved[k]).abs().max().item()
+            / max(rmoved[k].abs().max().item(), 1e-12) for k in rmoved)
+        out[dtype] = {"kernel": kern, "plain": ref, "relative_diff": rel,
+                      "bn_output_divergence": divergence}
+        log(f"[tresnet-slice] {dtype}: kernel {json.dumps(kern)} plain "
+            f"{json.dumps(ref)} relative diff {json.dumps(rel)}; BN output "
+            f"divergence at sites 1, 20, 40, 60: "
+            f"{[divergence[i] for i in (0, 19, 39, 59)]}")
+        if dtype == "float32":
+            check(rel["loss"] <= 1e-5 and rel["grad_norm"] <= 1e-2
+                  and rel["running_stats"] <= 1e-3,
+                  f"TResNet-M f32 train slice disagrees: {rel}")
+        else:
+            check(rel["loss"] <= 1e-2,
+                  f"TResNet-M bf16 train slice: loss off by {rel['loss']}")
+    return out
 
 
 def main() -> int:
@@ -1012,6 +1423,7 @@ def main() -> int:
     log(f"[timing] clocks.sm, clocks.max.sm, power.draw: {clocks()}")
     report["k1_shapes"] = [row for row, *_ in per_shape]
     report["k1_forward_sequence"] = seq
+    seq_serve = seq
     report["forward"] = forward
     report["profiler_serve"] = timer.record()
     del model, engine, served
@@ -1023,8 +1435,12 @@ def main() -> int:
     flash_rows, flash_timed = flash_vs_plain(torch, fa, device)
 
     # -------------------------------------------- 8. the training path --
-    trainer, train_cfg, train_rec = train_main_path(torch, fa, device,
-                                                    train_cli, checkpoint)
+    trainer, train_cfg, train_rec = train_main_path(
+        torch, device, train_cli, checkpoint, TRAIN_ARGV,
+        {kind: getattr(fa, attr) for kind, attr, *_ in FLASH_KERNELS},
+        {"fwd": VIT_BLOCKS * (TRAIN_STEPS + EVAL_BATCHES),
+         "dq": VIT_BLOCKS * TRAIN_STEPS, "dkv": VIT_BLOCKS * TRAIN_STEPS},
+        "train")
     report["train"] = train_rec
 
     # ------------------------------- 9. the training slice, kernel vs plain --
@@ -1105,13 +1521,142 @@ def main() -> int:
     report["flash"] = flash_rows
     report["train_step"] = step_rec
     report["profiler_train"] = timer.record()
+    del trainer, flash_timed, images, labels, timer, res
+    torch.cuda.empty_cache()
+
+    # ------------------------- 11. kernel vs plain (K1s, K1r, K1d) --
+    # the ABN shapes of a batch-32 train step: the 36 sites of bucket 8
+    # (phase 3's hooks) at 4 times the batch
+    wrappers = [getattr(fused_abn, n) for n in ABN_WRAPPERS]
+
+    def abn_counts():
+        return tuple(f.launches for f in wrappers)
+
+    train_shapes = [(4 * s[0],) + s[1:] for s in shapes]
+    abn_rows, abn_timed, abn_err = abn_train_vs_plain(
+        torch, fused_abn, device, train_shapes, tresnet.SLOPE)
+
+    # ------------------------------ 12. the TResNet-M training path --
+    fused_abn.FusedBNLeakyReLU.layout_copies = 0
+    trainer, tres_cfg, tres_rec = train_main_path(
+        torch, device, train_cli, checkpoint, TRESNET_TRAIN_ARGV,
+        dict(zip(("k1", "k1s", "k1r", "k1d"), wrappers)),
+        {"k1": ABN_SITES * (TRAIN_STEPS + EVAL_BATCHES),
+         "k1s": ABN_SITES * TRAIN_STEPS, "k1r": ABN_SITES * TRAIN_STEPS,
+         "k1d": ABN_SITES * TRAIN_STEPS}, "tresnet-train",
+        lambda tr, ckpt: serve_trained_checkpoint(
+            torch, fused_abn, device, serve_cli, k1, tr, ckpt))
+    report["tresnet_train"] = tres_rec
+
+    # ----------------- 13. the TResNet-M training slice, kernel vs plain --
+    report["tresnet_train_slice"] = tresnet_train_slice(
+        torch, fused_abn, device, tres_cfg, trainer.train_ds, wrappers)
+
+    # ------------------------------------ 14. TResNet-M training timings --
+    log(f"[timing] clocks.sm, clocks.max.sm, power.draw: {clocks()}")
+    n = tres_cfg.data.batch_size
+    items = [trainer.train_ds[i] for i in range(n)]
+    images = torch.from_numpy(np.stack([im for im, _ in items])).to(device)
+    labels = torch.from_numpy(
+        np.asarray([lb for _, lb in items], np.int32)).to(device)
+
+    def tstep():
+        return trainer.train_step(trainer.state, images, labels)
+
+    # the 36 sites of one step in order, bf16: each kernel and its plain
+    # version in sequence, K1 on the batch statistics, and the yardsticks
+    gen = torch.Generator(device=device).manual_seed(4)
+    sites = []
+    for shape in train_shapes:
+        t = abn_train_inputs(torch, fused_abn, shape, torch.bfloat16, device,
+                             gen, tresnet.SLOPE)
+        ds, db = fused_abn.abn_grad_sums_ref(t[1], t[2], t[0], t[5], t[7],
+                                             tresnet.SLOPE)
+        sites.append(abn_train_closures(torch, fused_abn, t, tresnet.SLOPE,
+                                        ds, db) | {
+            "k1": lambda t=t: k1(t[0], t[3], t[4], t[5], t[6], 1e-5,
+                                 tresnet.SLOPE),
+            "p_k1": lambda t=t: fused_abn.fused_bn_leaky_relu_ref(
+                t[0], t[3], t[4], t[5], t[6], 1e-5, tresnet.SLOPE)})
+    step_wall = host_ms(torch, tstep)
+    with DeviceTimer(torch, abn_counts) as timer:
+        for i, (_, fns) in enumerate(abn_timed):
+            for key, fn in fns.items():
+                timer.run(f"{key} {i}", fn)
+        for key in sites[0]:
+            timer.run(f"{key} seq", lambda k=key: [f[k]() for f in sites],
+                      reps=FLASH_REPS)
+    res = timer.results()
+    del sites
+    # the step in a session of its own, away from the kernels' ≈ 80 regions
+    with DeviceTimer(torch, abn_counts) as step_timer:
+        step_timer.run("tresnet train step", tstep, reps=STEP_REPS)
+    step_dev = step_timer.results()["tresnet train step"][0]
+    check(step_timer.launched["tresnet train step"]
+          == (ABN_SITES * STEP_REPS,) * 4,
+          f"ABN launches over {STEP_REPS} train steps: "
+          f"{step_timer.launched['tresnet train step']}, expected "
+          f"{ABN_SITES * STEP_REPS} each")
+    kinds = {kind: (j, part) for j, (kind, _, part, *_) in
+             enumerate(ABN_TRAIN_KERNELS, start=1)}
+    for label, (_, names) in res.items():  # attribution: kernel regions
+        key = label.split()[0]                # hold exactly their launches
+        if key not in ("k_k1s", "k_k1r", "k_k1d", "k1"):
+            continue
+        j, part = (0, "fused_abn_fwd") if key == "k1" else kinds[key[2:]]
+        calls = (FLASH_REPS * ABN_SITES if label.endswith("seq") else REPS)
+        if names is None:  # timed with CUDA events: the counters speak
+            want = tuple(calls * (x == j) for x in range(4))
+            check(timer.launched[label] == want,
+                  f"region {label}: launches {timer.launched[label]}, "
+                  f"want {want}")
+        else:
+            per_call = 1 if j in (0, 3) else 2  # K1s, K1r: partial + finalize
+            check(len(names) == per_call * calls
+                  and all(part in nm for nm in names),
+                  f"profiler region {label}: {len(names)} kernels")
+    for i, (row, fns) in enumerate(abn_timed):
+        row.update({f"{key}_us": res[f"{key} {i}"][0] * 1e3 for key in fns})
+        log("[abn-train] " + json.dumps(row))
+    seq = {key: res[f"{key} seq"][0] for key in
+           ("k1", "p_k1", "k_k1s", "p_k1s", "k_k1r", "p_k1r", "k_k1d", "p_k1d",
+            "var_mean", "bn_bwd")}
+    step_rec2 = {"batch": n, "wall_ms": step_wall, "device_ms": step_dev,
+                 "device_busy": step_dev / step_wall,
+                 "images_per_s": n / step_wall * 1e3,
+                 "sequence_ms": seq}
+    bounds = {"k1": abn_bound_ms(train_shapes, 2)}
+    for kind, *_ in ABN_TRAIN_KERNELS:
+        bounds[kind] = abn_train_bound_ms(kind, train_shapes, 2)
+    for kind, part, counted in (("k1", "fused_abn_fwd", "fused_abn_fwd"),
+                                *((k, p, c) for k, _, p, c, *_ in
+                                  ABN_TRAIN_KERNELS)):
+        ms, _ = step_timer.kernel_ms("tresnet train step", part)
+        # the wrappers' counters are checked above; the profiler's own
+        # count (36 unless it lost a record) rides in the report
+        _, seen = step_timer.kernel_ms("tresnet train step", counted)
+        step_rec2[f"{kind}_x36_ms"] = ms
+        step_rec2[f"{kind}_launches_seen_per_step"] = seen
+        step_rec2[f"{kind}_x36_bound_ms"], step_rec2[f"{kind}_bound_by"] = \
+            bounds[kind]
+    breakdown = forward_families(*step_timer.per_kernel["tresnet train step"],
+                                 families=TRAIN_FAMILIES)
+    step_rec2["by_family"] = breakdown
+    log(f"[timing] {name}: TResNet-M train step, batch {n}, bf16 (the ABN "
+        f"kernels' x36_ms inside the step; sequence_ms: the 36 sites in a "
+        f"row outside it, with the plain versions, var_mean and the "
+        f"F.batch_norm backward as yardsticks): {json.dumps(step_rec2)}")
+    log(f"[timing] clocks.sm, clocks.max.sm, power.draw: {clocks()}")
+    report["abn_train"] = abn_rows
+    report["tresnet_train_step"] = step_rec2
+    report["profiler_tresnet_train"] = [timer.record(), step_timer.record()]
 
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
-    # ------------------------------------------------------- 7. summary --
+    # ------------------------------------------------------ 15. summary --
     log(json.dumps({"kernels": [{
         "name": "fused_bn_leaky_relu",
         "route": "cuda",
@@ -1121,16 +1666,20 @@ def main() -> int:
         "checked": True,
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": seq["ms"],
-        "plain_ms": seq["plain_ms"],
-        "bound_ms": seq["bound_ms"],
-        "bound_by": seq["bound_by"],
+        "ms": seq_serve["ms"],
+        "plain_ms": seq_serve["plain_ms"],
+        "bound_ms": seq_serve["bound_ms"],
+        "bound_by": seq_serve["bound_by"],
         # no PyTorch call computes BN + LeakyReLU; the two yardsticks (an
         # empty kernel per launch, Tensor.copy_ of each input) compute
         # something else and stand beside it, labelled
         "library_ms": None,
-        "yardstick_floor_ms": seq["floor_ms"],
-        "yardstick_copy_ms": seq["copy_ms"],
+        "yardstick_floor_ms": seq_serve["floor_ms"],
+        "yardstick_copy_ms": seq_serve["copy_ms"],
+        # its 36 launches on batch statistics inside a batch-32 train step
+        "train_step_ms": step_rec2["k1_x36_ms"],
+        "train_step_bound_ms": step_rec2["k1_x36_bound_ms"],
+        "train_step_launches": tres_rec["launches"]["k1"],
     }] + [{
         "name": attr,
         "route": "cuda",
@@ -1154,7 +1703,29 @@ def main() -> int:
         # K3 + K4 against the one call that computes dQ, dK and dV together
         "pair_ms": slice_row["k_dq_ms"] + slice_row["k_dkv_ms"],
         "library_pair_ms": slice_row["sdpa_bwd_ms"],
-    }) for kind, attr, _, tpu, source in FLASH_KERNELS]}))
+    }) for kind, attr, _, tpu, source in FLASH_KERNELS] + [{
+        "name": attr,
+        "route": "cuda",
+        "source": CSRC + "fused_abn_train.cu",
+        "replaces": lines,  # jnp around K1 in training, not a TPU kernel
+        "tpu": None,
+        "checked": True,
+        "launches": tres_rec["launches"][kind],
+        "max_abs_err": abn_err[kind],
+        # the 36 launches inside one batch-32 train step
+        "ms": step_rec2[f"{kind}_x36_ms"],
+        "plain_ms": seq[f"p_{kind}"],
+        "bound_ms": step_rec2[f"{kind}_x36_bound_ms"],
+        "bound_by": step_rec2[f"{kind}_bound_by"],
+        "sequence_ms": seq[f"k_{kind}"],
+        # K1s's mean and biased variance by torch.var_mean (without
+        # inv_std); K1r and K1d have no one PyTorch call: the F.batch_norm
+        # backward (no gate) stands beside the pair, labelled
+        "library_ms": seq["var_mean"] if kind == "k1s" else None,
+    } | ({} if kind == "k1s" else {
+        "pair_ms": step_rec2["k1r_x36_ms"] + step_rec2["k1d_x36_ms"],
+        "yardstick_bn_backward_ms": seq["bn_bwd"],
+    }) for kind, attr, _, _, lines, *_ in ABN_TRAIN_KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

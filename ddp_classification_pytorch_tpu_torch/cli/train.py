@@ -1,9 +1,16 @@
 """`train` entry point of the port — the JAX train CLI's flags for the
-paths ported so far (ViT on synthetic data), on the card.
+paths ported so far (TResNet-M and the ViT family on synthetic data), on
+the card.
 
+    python -m ddp_classification_pytorch_tpu_torch.cli.train baseline \
+        --dataset synthetic --model tresnet_m --image_size 224 \
+        --batchsize 32 --epochs 1 --out runs/tresnet
     python -m ddp_classification_pytorch_tpu_torch.cli.train baseline \
         --dataset synthetic --model vit_b16 --image_size 512 \
         --flash_attention --batchsize 32 --epochs 1 --out runs/vit
+
+A TResNet-M checkpoint it writes (`<out>/ckpt_e<N>.pt`) is what
+`cli/serve.py --ckpt` serves.
 
 Exit codes, as the JAX CLI's:
 
@@ -27,8 +34,8 @@ from ..config import Config, get_preset
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ddp_classification_pytorch_tpu_torch.cli.train",
-        description="classification training on the card (ported: ViT on "
-                    "synthetic data)")
+        description="classification training on the card (ported: "
+                    "TResNet-M and ViT on synthetic data)")
     p.add_argument("workload", choices=["baseline", "arcface", "cdr", "nested", "plc"],
                    help="which reference silo's recipe to run (ported: baseline)")
 
@@ -45,7 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     m = p.add_argument_group("model")
     m.add_argument("--model", "--arch", dest="model", default="",
-                   help="vit_t16 | vit_s16 | vit_b16 (ported for training)")
+                   help="tresnet_m | timm (TResNet-M) | vit_t16 | vit_s16 | "
+                        "vit_b16 (ported for training)")
     m.add_argument("--flash_attention", action="store_true",
                    help="ViT: the flash kernels for attention")
     m.add_argument("--flash_min_tokens", type=int, default=-1,

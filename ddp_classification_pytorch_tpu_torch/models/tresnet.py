@@ -11,16 +11,21 @@ anti-alias blur; `se.fc{1,2}` as 1×1 convs; `downsample.1.{0,1}`; `head.fc`.
 
 Tensors are NCHW in channels_last memory, which is NHWC as the JAX package
 lays it out. Dtype policy (the JAX model's): convs and the blur run in the
-compute dtype (bf16 by default); every ABN computes in f32 from f32
+compute dtype (bf16 by default), casting their f32 weights to the
+activation dtype on every call as flax's `nn.Conv(dtype=...)` does, so a
+trainer keeps f32 master weights; every ABN computes in f32 from f32
 parameters and statistics and writes the activation dtype; SE squeezes and
 excites in f32 and gates in the activation dtype; the pool and the fc head
-run in f32. `TResNet.cast_to_compute_dtype()` applies it to the weights once,
-at load.
+run in f32. The served model casts its conv weights once, at load
+(`TResNet.cast_to_compute_dtype()`), which makes the per-call cast a no-op.
 
 Every activated ABN (the stem, `abn1` of each block, `abn2` of each
-bottleneck: 36 sites in TResNet-M) runs K1 (`ops/fused_abn.py`) on its
-running statistics. This slice serves, so only eval mode exists: a module in
-training mode raises.
+bottleneck: 36 sites in TResNet-M) runs K1 (`ops/fused_abn.py`): in eval
+mode on its running statistics; in training mode on the batch statistics
+of K1s, with K1r and K1d as its backward (`batch_norm_leaky_relu`). The
+identity BNs (`bn2`, `bn3`, `bn_down`: 24 sites) are plain PyTorch. In
+training mode both update their running statistics as flax does:
+ra = 0.9·ra + 0.1·batch, with the biased batch variance.
 """
 
 from __future__ import annotations
@@ -32,19 +37,21 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.fused_abn import fused_bn_leaky_relu
+from ..ops.fused_abn import batch_norm_leaky_relu, fused_bn_leaky_relu
 
 SLOPE = 1e-3  # TResNet's leaky-relu slope (inplace_abn activation_param)
-_TRAINING = ("training mode is not ported yet: batch statistics and K1's "
-             "backward come with the TResNet-M training slice (ROADMAP.md, "
-             "queue 1, item 1)")
+MOMENTUM = 0.9  # flax BatchNorm's: ra = MOMENTUM·ra + (1 − MOMENTUM)·batch
 
 
 class BatchNorm(nn.Module):
-    """Identity-activation ABN (`bn2`, `bn3`, `bn_down` on the JAX side):
-    eval-mode BatchNorm on f32 running statistics, output in x's dtype.
-    Holds `weight`, `bias`, `running_mean` and `running_var` as
-    `BatchNorm2d` does (timm's layout: no `num_batches_tracked`)."""
+    """Identity-activation ABN (`bn2`, `bn3`, `bn_down` on the JAX side).
+    Eval mode: BatchNorm on the f32 running statistics, output in x's
+    dtype. Training mode: flax 0.12.3's `nn.BatchNorm` in plain PyTorch
+    (autograd through the statistics): f32 statistics with var =
+    max(mean(x²) − mean², 0), y = (x − mean)·(rsqrt(var + eps)·γ) + β in
+    x's dtype, and the running update. Holds `weight`, `bias`,
+    `running_mean` and `running_var` as `BatchNorm2d` does (timm's layout:
+    no `num_batches_tracked`)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -54,16 +61,32 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """ra = MOMENTUM·ra + (1 − MOMENTUM)·batch for mean and var (the
+        flax update, `tresnet.py:63-67` on the JAX side)."""
+        with torch.no_grad():
+            stats = [self.running_mean, self.running_var]
+            torch._foreach_mul_(stats, MOMENTUM)
+            torch._foreach_add_(stats, [mean.detach(), var.detach()],
+                                alpha=1 - MOMENTUM)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(_TRAINING)
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        self.update_running(mean, var)
+        return y.to(x.dtype)
 
 
 class FusedABN(BatchNorm):
-    """Activated ABN: BatchNorm + LeakyReLU as one K1 launch on the running
-    statistics (`tresnet.py:59-62` on the JAX side)."""
+    """Activated ABN: BatchNorm + LeakyReLU as one K1 launch, on the
+    running statistics in eval mode (`tresnet.py:59-62` on the JAX side)
+    and on the batch statistics in training mode (`:63-67`)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  slope: float = SLOPE):
@@ -71,11 +94,14 @@ class FusedABN(BatchNorm):
         self.slope = slope
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(_TRAINING)
-        return fused_bn_leaky_relu(x, self.weight, self.bias,
-                                   self.running_mean, self.running_var,
-                                   self.eps, self.slope)
+        if not self.training:
+            return fused_bn_leaky_relu(x, self.weight, self.bias,
+                                       self.running_mean, self.running_var,
+                                       self.eps, self.slope)
+        y, mean, var = batch_norm_leaky_relu(x, self.weight, self.bias,
+                                             self.eps, self.slope)
+        self.update_running(mean, var)
+        return y
 
 
 class SpaceToDepth(nn.Module):
@@ -107,7 +133,7 @@ class BlurPool(nn.Module):
         self.register_buffer("filt", blur_filter(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.filt, stride=2, padding=1,
+        return F.conv2d(x, self.filt.to(x.dtype), stride=2, padding=1,
                         groups=self.channels)
 
 
@@ -134,11 +160,22 @@ class SE(nn.Module):
         return x * s[:, :, None, None].to(x.dtype)
 
 
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` (same parameters and `state_dict` keys) that runs in the
+    activation's dtype: its weight is cast to x's dtype on every call, as
+    flax's `nn.Conv(dtype=...)` casts its f32 kernel (a no-op once the
+    served model has cast the weights)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 def _conv_bn(c_in: int, c_out: int, k: int, activated: bool,
              aa: bool = False) -> nn.Sequential:
     """timm's conv2d_iabn: conv (stride 1, 'SAME' padding) + ABN, wrapped
     with the blur when it downsamples."""
-    inner = nn.Sequential(nn.Conv2d(c_in, c_out, k, 1, k // 2, bias=False),
+    inner = nn.Sequential(Conv2d(c_in, c_out, k, 1, k // 2, bias=False),
                           FusedABN(c_out) if activated else BatchNorm(c_out))
     return nn.Sequential(inner, BlurPool(c_out)) if aa else inner
 
@@ -230,8 +267,9 @@ class TResNet(nn.Module):
         return x
 
     def cast_to_compute_dtype(self) -> "TResNet":
-        """Apply the dtype policy to the weights, once: conv kernels and the
-        blur filter to the compute dtype; ABN, SE and fc stay f32."""
+        """Apply the dtype policy to the weights once, for serving: conv
+        kernels and the blur filter to the compute dtype; ABN, SE and fc
+        stay f32. A trainer keeps them f32 (the convs cast per call)."""
         se_convs = {id(m) for se in self.modules() if isinstance(se, SE)
                     for m in (se.fc1, se.fc2)}
         for m in self.modules():

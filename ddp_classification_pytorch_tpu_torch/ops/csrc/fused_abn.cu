@@ -43,83 +43,19 @@
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes (ops/_build.py, ops/fused_abn.py). It launches on the caller's
-// stream, does not synchronise and allocates nothing.
+// stream, does not synchronise and allocates nothing. The vector types,
+// row loads and geometry check it shares with the training passes
+// (fused_abn_train.cu) are in fused_abn.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_abn.cuh"
 
 namespace {
-
-constexpr int kMaxThreads = 256;   // per block: MAX_THREADS in fused_abn.py
-constexpr int kMinBlocksPerSm = 4;  // RESIDENT_BLOCKS there: <= 64 registers
-constexpr unsigned kMaxGridY = 65535;
-// Channels per vector access, both dtypes: 16 bytes of f32, 8 of bf16. A
-// thread's constants are then one float4 of each kind (16 registers); with
-// 16-byte bf16 accesses its 8 channels' 32 constants cost occupancy (and
-// spilled at R >= 4), which measured slower on the H100 (PERF.md).
-constexpr int kVec = 4;  // VEC in ops/fused_abn.py
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // The per-channel constants of one thread's VEC channels.
 template <int VEC>
 struct Consts {
   float s[VEC], b[VEC], mu[VEC], inv[VEC];
 };
-
-template <int VEC>
-__device__ __forceinline__ void put4(float (&out)[VEC], int q, float4 v) {
-  out[4 * q] = v.x;
-  out[4 * q + 1] = v.y;
-  out[4 * q + 2] = v.z;
-  out[4 * q + 3] = v.w;
-}
-
-// VEC values of p from channel c0 on: float4 loads when VEC is a multiple
-// of 4 (the host takes the vector path only with every pointer 16-byte
-// aligned and C a multiple of VEC).
-template <int VEC>
-__device__ __forceinline__ void load_channels(const float* __restrict__ p,
-                                              int c0, float (&out)[VEC]) {
-  if constexpr (VEC % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < VEC / 4; ++q)
-      put4(out, q, __ldg(reinterpret_cast<const float4*>(p + c0) + q));
-  } else {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) out[j] = __ldg(p + c0 + j);
-  }
-}
-
-// Rows r, r + ty, ..., r + (R - 1) * ty of a thread's tile: a warp's loads
-// for one j are whole consecutive rows. Rows at or past m are masked.
-template <typename T, int VEC, int R>
-__device__ __forceinline__ void load_rows(const T* __restrict__ x, long long r,
-                                          int ty, long long m, int c, int c0,
-                                          Pack<T, VEC> (&in)[R]) {
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    const long long row = r + (long long)j * ty;
-    if (row < m)
-      in[j] = *reinterpret_cast<const Pack<T, VEC>*>(x + row * c + c0);
-  }
-}
 
 template <typename T, int VEC, int R>
 __device__ __forceinline__ void store_rows(T* __restrict__ y, long long r,
@@ -182,31 +118,6 @@ fused_abn_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
 // no work (chip_smoke.py's launch-floor yardstick).
 __global__ void abn_launch_floor_kernel() {}
 
-// The launch geometry the host chose (ops/fused_abn.py::geometry).
-struct Geometry {
-  int vec, rows, tx, ty, gx, gy;
-};
-
-// Whether the kernel takes geometry g for (m, c): the vector width on a C
-// it divides and on 16-byte aligned pointers, or the scalar path; R of 1,
-// 2, 4 or 8; at most kMaxThreads threads; every channel group and every
-// row tile covered, and no block without work.
-bool takes(const Geometry& g, long long m, int c, const void* const* ptrs) {
-  if (g.vec != 1 && g.vec != kVec) return false;
-  if (g.vec == kVec) {
-    if (c % kVec != 0) return false;
-    for (int i = 0; i < 6; ++i)
-      if ((uintptr_t)ptrs[i] % 16 != 0) return false;
-  }
-  if (g.rows != 1 && g.rows != 2 && g.rows != 4 && g.rows != 8) return false;
-  if (g.tx < 1 || g.ty < 1 || g.tx * g.ty > kMaxThreads) return false;
-  if (g.gx < 1 || g.gy < 1 || (unsigned)g.gy > kMaxGridY) return false;
-  const long long groups = (c + g.vec - 1) / g.vec;
-  if ((long long)g.gx * g.tx < groups || (long long)(g.gx - 1) * g.tx >= groups)
-    return false;
-  return (long long)(g.gy - 1) * g.ty * g.rows < m;
-}
-
 template <typename T, int VEC>
 cudaError_t launch(const Geometry& g, const void* x, void* y,
                    const float* scale, const float* bias, const float* mean,
@@ -241,7 +152,7 @@ cudaError_t dispatch(const Geometry& g, const void* x, void* y,
                      const float* var, long long m, int c, float eps,
                      float slope, cudaStream_t stream) {
   const void* ptrs[6] = {x, y, scale, bias, mean, var};
-  if (!takes(g, m, c, ptrs)) return cudaErrorInvalidValue;
+  if (!takes(g, m, c, ptrs, 6)) return cudaErrorInvalidValue;
   if (g.vec == kVec)
     return launch<T, kVec>(g, x, y, scale, bias, mean, var, m, c, eps, slope,
                            stream);
@@ -262,8 +173,7 @@ extern "C" int fused_abn_forward(const void* x, void* y, const float* scale,
                                  const int* geometry, void* stream) {
   if (m <= 0 || c <= 0 || geometry == nullptr)
     return (int)cudaErrorInvalidValue;
-  const Geometry g{geometry[0], geometry[1], geometry[2],
-                   geometry[3], geometry[4], geometry[5]};
+  const Geometry g = unpack(geometry);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

@@ -1,24 +1,32 @@
-"""K1: fused BatchNorm + LeakyReLU forward, the port of the JAX package's
-Pallas kernel `ops/pallas_kernels.py::_fused_kernel` (public entry point
+"""K1: fused BatchNorm + LeakyReLU, the port of the JAX package's Pallas
+kernel `ops/pallas_kernels.py::_fused_kernel` (public entry point
 `fused_bn_leaky_relu`), as a CUDA kernel for Hopper
-(`ops/csrc/fused_abn.cu`).
+(`ops/csrc/fused_abn.cu`), and the training passes around it
+(`ops/csrc/fused_abn_train.cu`).
 
     y = leaky_relu(scale * (x - mean) * rsqrt(var + eps) + bias)
 
 over the channel axis; the math is f32 and y has x's dtype.
 
-`fused_bn_leaky_relu` takes a tensor on the CPU to the plain version
-`fused_bn_leaky_relu_ref` (the CPU tests' path) and a tensor on the card to
-the kernel, or raises: there is no fallback from the card to the plain
-version. Each launch adds one to `fused_bn_leaky_relu.launches`, so a run can
-show that its main path went through the kernel.
+Training mode (`batch_norm_leaky_relu`, the autograd Function
+`FusedBNLeakyReLU`) is the JAX package's `batch_norm_leaky_relu` with its
+custom VJP (`pallas_kernels.py:88-151`), in three more kernels:
+
+- K1s `bn_stats`: the batch statistics mean, var = E[x²] − E[x]² (f32,
+  not clamped) and inv_std, which feed K1's forward;
+- K1r `abn_grad_sums`: the backward's per-channel sums Σdy·x̂ and Σdy
+  (dscale and dbias);
+- K1d `abn_grad_input`: the exact batch-statistic dx of `_bwd`.
+
+Every wrapper takes a tensor on the CPU to its plain version (`*_ref`, the
+CPU tests' path and the card's oracle) and a tensor on the card to its
+kernel, or raises: there is no fallback from the card to the plain
+version. Each launch adds one to the wrapper's `launches`, so a run can
+show that its main path went through the kernels.
 
 The launch geometry (vector width, rows per thread, block and grid) is
 computed here by `geometry`, cached per shape, and checked by the C side,
 which refuses one it does not take; the CPU tests hold its arithmetic.
-
-Only the forward exists: training mode (batch statistics and the exact
-backward of `pallas_kernels.py:95-123`) comes with the training slice.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ import torch
 
 from . import _build
 
-SOURCE = os.path.join(_build.CSRC, "fused_abn.cu")
+SOURCES = [os.path.join(_build.CSRC, name)
+           for name in ("fused_abn.cu", "fused_abn_train.cu")]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 VEC = 4  # channels per vector access, both dtypes (kVec in fused_abn.cu)
 ALIGN = 16  # bytes every pointer must be aligned to for the vector path
@@ -42,6 +51,7 @@ RESIDENT_BLOCKS = 4  # blocks per SM the kernel is built to fit (kMinBlocksPerSm
 MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y
 ROWS_PER_THREAD = (1, 2, 4, 8)  # the R the kernel is instantiated for
 TILES_PER_SM = 2  # R grows only while every SM still gets this many row tiles
+GRAD_INPUT_MAX_ROWS = 4  # the R K1d is built for (kGradInputMaxRows)
 _lib: Optional[ctypes.CDLL] = None
 _raw_stream: Optional[Callable[[int], int]] = None
 _sms: Dict[int, int] = {}
@@ -94,17 +104,22 @@ def _packed(g: Geometry) -> ctypes.Array:
 
 
 def build() -> str:
-    """Build (or find) the kernel's library and load it; returns its path."""
+    """Build (or find) the kernels' library and load it; returns its path."""
     global _lib, _raw_stream
-    path = _build.build("fused_abn", [SOURCE])
+    path = _build.build("fused_abn", SOURCES)
     if _lib is None:
         lib = ctypes.CDLL(path)
-        lib.fused_abn_forward.argtypes = (
-            [ctypes.c_void_p] * 6
-            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-               ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-        lib.fused_abn_forward.restype = ctypes.c_int
-        lib.fused_abn_launch_floor.argtypes = [ctypes.c_void_p] * 2
+        ptr, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                              ctypes.c_float)
+        # each: pointers, m, c, then its scalars, dtype, geometry, stream
+        for name, n_ptrs, scalars in (("fused_abn_forward", 6, (f32, f32)),
+                                      ("abn_stats", 5, (f32,)),
+                                      ("abn_grad_sums", 8, (f32,)),
+                                      ("abn_grad_input", 9, (f32,))):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr] * n_ptrs + [i64, i32, *scalars, i32, ptr, ptr]
+            fn.restype = ctypes.c_int
+        lib.fused_abn_launch_floor.argtypes = [ptr] * 2
         lib.fused_abn_launch_floor.restype = ctypes.c_int
         # the current stream's handle without building a Stream object (the
         # accessor torch's own generated code uses)
@@ -136,32 +151,47 @@ def fused_bn_leaky_relu_ref(x: torch.Tensor, scale: torch.Tensor,
     return torch.where(y >= 0, y, y * negative_slope).to(x.dtype)
 
 
-def _check(x: torch.Tensor, vecs) -> int:
-    """C of x, after refusing what the kernel does not take."""
+_K1_VECS = ("scale", "bias", "mean", "var")
+
+
+def _check(x: torch.Tensor, vecs, names=_K1_VECS,
+           op: str = "fused_bn_leaky_relu") -> int:
+    """C of x, after refusing what the kernel `op` does not take: x on a
+    card, f32 or bf16, channels_last (4-D) or row-major (2-D), not empty;
+    each of `vecs` (named by `names`) a contiguous f32 (C,) tensor on x's
+    card."""
     if not x.is_cuda:
-        raise ValueError(f"fused_bn_leaky_relu: no kernel for device "
-                         f"{x.device}")
+        raise ValueError(f"{op}: no kernel for device {x.device}")
     if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"fused_bn_leaky_relu: x must be float32 or bfloat16, "
-                        f"got {x.dtype}")
+        raise TypeError(f"{op}: x must be float32 or bfloat16, got {x.dtype}")
     c = _channels(x)
     if x.dim() == 4:
         if not x.is_contiguous(memory_format=torch.channels_last):
-            raise ValueError("fused_bn_leaky_relu: x must be channels_last "
-                             "contiguous (NHWC in memory)")
+            raise ValueError(f"{op}: x must be channels_last contiguous (NHWC "
+                             "in memory)")
     elif not x.is_contiguous():
-        raise ValueError("fused_bn_leaky_relu: (M, C) x must be contiguous")
+        raise ValueError(f"{op}: (M, C) x must be contiguous")
     index = x.get_device()
-    for name, v in zip(("scale", "bias", "mean", "var"), vecs):
+    for name, v in zip(names, vecs):
         if (v.get_device() != index or v.dtype != torch.float32
                 or v.shape != (c,) or not v.is_contiguous()):
             raise ValueError(
-                f"fused_bn_leaky_relu: {name} must be a contiguous float32 "
-                f"({c},) tensor on {x.device}, got {v.dtype} "
-                f"{tuple(v.shape)} on {v.device}")
+                f"{op}: {name} must be a contiguous float32 ({c},) tensor on "
+                f"{x.device}, got {v.dtype} {tuple(v.shape)} on {v.device}")
     if x.numel() == 0:
-        raise ValueError("fused_bn_leaky_relu: empty input")
+        raise ValueError(f"{op}: empty input")
     return c
+
+
+def _check_like(op: str, x: torch.Tensor, **others: torch.Tensor) -> None:
+    """Refuse a tensor that does not share x's device, dtype, shape and
+    strides (g and y beside x in the backward: no silent relayout)."""
+    want = (x.device, x.dtype, x.shape, x.stride())
+    for name, t in others.items():
+        if (t.device, t.dtype, t.shape, t.stride()) != want:
+            raise ValueError(
+                f"{op}: {name} must match x's device, dtype, shape and "
+                f"layout {want}, got {(t.device, t.dtype, t.shape, t.stride())}")
 
 
 def sm_count(index: int) -> int:
@@ -176,24 +206,29 @@ def launch_geometry(x: torch.Tensor, ptrs) -> Geometry:
     the six pointers it passes (x, y, scale, bias, mean, var)."""
     c = x.shape[1]
     return geometry(x.numel() // c, c, sm_count(x.get_device()),
-                    not functools.reduce(operator.or_, ptrs) % ALIGN)
+                    _aligned(ptrs))
 
 
-def _launch(x: torch.Tensor, ptrs, eps: float, negative_slope: float,
-            g: Geometry) -> None:
+def _aligned(ptrs) -> bool:
+    """Whether every pointer allows the vector path (ALIGN bytes)."""
+    return not functools.reduce(operator.or_, ptrs) % ALIGN
+
+
+def _invoke(name: str, x: torch.Tensor, args, g: Geometry) -> None:
+    """Call the C entry point `name` with `args`, x's dtype code, geometry
+    g and the current stream of x's card; raise if it did not launch."""
     if _lib is None:
         build()
     index = x.get_device()
-    c = x.shape[1]
-    args = (*ptrs, x.numel() // c, c, eps, negative_slope,
-            _DTYPE_CODES[x.dtype], _packed(g))
+    fn = getattr(_lib, name)
+    args = (*args, _DTYPE_CODES[x.dtype], _packed(g))
     if index == torch.cuda.current_device():  # no device switch to pay for
-        rc = _lib.fused_abn_forward(*args, _raw_stream(index))
+        rc = fn(*args, _raw_stream(index))
     else:
         with torch.cuda.device(index):
-            rc = _lib.fused_abn_forward(*args, _raw_stream(index))
+            rc = fn(*args, _raw_stream(index))
     if rc != 0:
-        raise RuntimeError(f"fused_abn_forward launch failed: CUDA error {rc} "
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
                            f"(x {tuple(x.shape)} {x.dtype}, {g})")
 
 
@@ -209,8 +244,10 @@ def launch(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
                                                     x.shape, x.stride()):
         raise ValueError("fused_abn launch: y must match x's device, dtype, "
                          "shape and layout")
-    _launch(x, [t.data_ptr() for t in (x, y, scale, bias, mean, var)], eps,
-            negative_slope, g)
+    c = x.shape[1]
+    _invoke("fused_abn_forward", x,
+            ([t.data_ptr() for t in (x, y, scale, bias, mean, var)]
+             + [x.numel() // c, c, eps, negative_slope]), g)
 
 
 def launch_floor(x: torch.Tensor, g: Geometry) -> None:
@@ -239,13 +276,234 @@ def fused_bn_leaky_relu(x: torch.Tensor, scale: torch.Tensor,
     if x.device.type == "cpu":
         return fused_bn_leaky_relu_ref(x, scale, bias, mean, var, eps,
                                        negative_slope)
-    _check(x, (scale, bias, mean, var))
+    c = _check(x, (scale, bias, mean, var))
     y = torch.empty_like(x)
     ptrs = (x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             mean.data_ptr(), var.data_ptr())
-    _launch(x, ptrs, eps, negative_slope, launch_geometry(x, ptrs))
+    _invoke("fused_abn_forward", x,
+            (*ptrs, x.numel() // c, c, eps, negative_slope),
+            launch_geometry(x, ptrs))
     fused_bn_leaky_relu.launches += 1
     return y
 
 
 fused_bn_leaky_relu.launches = 0
+
+
+# ---------------------------------------------------------------- training --
+# The batch statistics and K1's exact backward, as the JAX package computes
+# them around the Pallas kernel (`pallas_kernels.py:95-151`).
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """(M, C) f32 rows of (N, C, H, W) activations (NHWC order) or of (M, C)."""
+    if t.dim() == 4:
+        t = t.permute(0, 2, 3, 1)
+    return t.reshape(-1, t.shape[-1]).float()
+
+
+def _unrows(rows: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(M, C) rows back to `like`'s shape (channels_last for 4-D) and dtype."""
+    if like.dim() == 4:
+        n, c, h, w = like.shape
+        rows = rows.reshape(n, h, w, c).permute(0, 3, 1, 2)
+    return rows.to(like.dtype)
+
+
+def bn_stats_ref(x: torch.Tensor, eps: float = 1e-5):
+    """The plain version of K1s: (mean, var, inv_std), f32 (C,), with
+    var = mean(x²) − mean² not clamped (`pallas_kernels.py:140-143`) and
+    inv_std = rsqrt(var + eps) (`_fwd`, :90)."""
+    _channels(x)
+    xf = _rows(x)
+    mean = xf.mean(0)
+    var = (xf * xf).mean(0) - mean * mean
+    return mean, var, torch.rsqrt(var + eps)
+
+
+def _gated(g2: torch.Tensor, y2: torch.Tensor, negative_slope: float):
+    """dy = g · gate, the gate from the output's sign (`_bwd`, :104-106)."""
+    return g2 * torch.where(y2 >= 0, 1.0, negative_slope)
+
+
+def abn_grad_sums_ref(g: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
+                      mean: torch.Tensor, inv_std: torch.Tensor,
+                      negative_slope: float = 0.01):
+    """The plain version of K1r: (dscale, dbias) = (Σdy·x̂, Σdy) per
+    channel (`_bwd`, :102-109)."""
+    x_hat = (_rows(x) - mean) * inv_std
+    dy = _gated(_rows(g), _rows(y), negative_slope)
+    return (dy * x_hat).sum(0), dy.sum(0)
+
+
+def abn_grad_input_ref(g: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
+                       scale: torch.Tensor, mean: torch.Tensor,
+                       inv_std: torch.Tensor, dscale: torch.Tensor,
+                       dbias: torch.Tensor,
+                       negative_slope: float = 0.01) -> torch.Tensor:
+    """The plain version of K1d: `_bwd`'s dx (:111-117) with its two sums
+    taken from K1r's, as the kernel takes them: Σdx̂ = scale·dbias and
+    Σ(dx̂·x̂) = scale·dscale. x's layout and dtype."""
+    x2 = _rows(x)
+    m = x2.shape[0]
+    x_hat = (x2 - mean) * inv_std
+    dxhat = _gated(_rows(g), _rows(y), negative_slope) * scale
+    dx2 = (inv_std / m) * (m * dxhat - scale * dbias - x_hat * (scale * dscale))
+    return _unrows(dx2, x)
+
+
+def fused_bn_leaky_relu_backward_ref(g: torch.Tensor, x: torch.Tensor,
+                                     y: torch.Tensor, scale: torch.Tensor,
+                                     mean: torch.Tensor, inv_std: torch.Tensor,
+                                     negative_slope: float = 0.01):
+    """The JAX package's `_bwd` (`pallas_kernels.py:95-123`), line for
+    line: (dx, dscale, dbias) for the cotangent g of y. The oracle the
+    K1r + K1d pair is held against."""
+    x2, g2, y2 = _rows(x), _rows(g), _rows(y)
+    m = x2.shape[0]
+
+    x_hat = (x2 - mean) * inv_std
+    gate = torch.where(y2 >= 0, 1.0, negative_slope)
+    dy = g2 * gate
+
+    dscale = torch.sum(dy * x_hat, 0)
+    dbias = torch.sum(dy, 0)
+
+    dxhat = dy * scale
+    dx2 = (inv_std / m) * (
+        m * dxhat - torch.sum(dxhat, 0) - x_hat * torch.sum(dxhat * x_hat, 0))
+    return _unrows(dx2, x), dscale, dbias
+
+
+def _empty_vecs(n: int, c: int, like: torch.Tensor):
+    return [torch.empty(c, dtype=torch.float32, device=like.device)
+            for _ in range(n)]
+
+
+def bn_stats(x: torch.Tensor, eps: float = 1e-5):
+    """K1s on the card, the plain version on the CPU: (mean, var, inv_std)
+    of x's channels, f32 (C,). inv_std is 1 / sqrt(var + eps) as K1's
+    forward forms it from var. x as `fused_bn_leaky_relu` takes it."""
+    if x.device.type == "cpu":
+        return bn_stats_ref(x, eps)
+    c = _check(x, (), op="bn_stats")
+    m = x.numel() // c
+    g = geometry(m, c, sm_count(x.get_device()), _aligned([x.data_ptr()]), 1)
+    ws = torch.empty(g.gy * 2 * c, dtype=torch.float32, device=x.device)
+    mean, var, inv_std = _empty_vecs(3, c, x)
+    _invoke("abn_stats", x, (x.data_ptr(), ws.data_ptr(), mean.data_ptr(),
+                             var.data_ptr(), inv_std.data_ptr(), m, c, eps), g)
+    bn_stats.launches += 1
+    return mean, var, inv_std
+
+
+bn_stats.launches = 0
+
+
+def abn_grad_sums(g: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
+                  mean: torch.Tensor, inv_std: torch.Tensor,
+                  negative_slope: float = 0.01):
+    """K1r on the card, the plain version on the CPU: (dscale, dbias), f32
+    (C,). g and y share x's dtype, shape and layout."""
+    if x.device.type == "cpu":
+        return abn_grad_sums_ref(g, y, x, mean, inv_std, negative_slope)
+    c = _check(x, (mean, inv_std), ("mean", "inv_std"), "abn_grad_sums")
+    _check_like("abn_grad_sums", x, g=g, y=y)
+    m = x.numel() // c
+    ptrs = [t.data_ptr() for t in (g, y, x, mean, inv_std)]
+    geo = geometry(m, c, sm_count(x.get_device()), _aligned(ptrs), 1)
+    ws = torch.empty(geo.gy * 2 * c, dtype=torch.float32, device=x.device)
+    dscale, dbias = _empty_vecs(2, c, x)
+    _invoke("abn_grad_sums", x, (*ptrs, ws.data_ptr(), dscale.data_ptr(),
+                                 dbias.data_ptr(), m, c, negative_slope), geo)
+    abn_grad_sums.launches += 1
+    return dscale, dbias
+
+
+abn_grad_sums.launches = 0
+
+
+def grad_input_geometry(m: int, c: int, sms: int,
+                        aligned: bool = True) -> Geometry:
+    """K1d's geometry: K1's rule with R at most GRAD_INPUT_MAX_ROWS (a
+    thread holds g, y and x of each of its rows)."""
+    g = geometry(m, c, sms, aligned)
+    if g.rows <= GRAD_INPUT_MAX_ROWS:
+        return g
+    return geometry(m, c, sms, aligned, GRAD_INPUT_MAX_ROWS)
+
+
+def abn_grad_input(g: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
+                   scale: torch.Tensor, mean: torch.Tensor,
+                   inv_std: torch.Tensor, dscale: torch.Tensor,
+                   dbias: torch.Tensor,
+                   negative_slope: float = 0.01) -> torch.Tensor:
+    """K1d on the card, the plain version on the CPU: dx in x's dtype and
+    layout, from K1r's (dscale, dbias)."""
+    if x.device.type == "cpu":
+        return abn_grad_input_ref(g, y, x, scale, mean, inv_std, dscale, dbias,
+                                  negative_slope)
+    vecs = (scale, mean, inv_std, dscale, dbias)
+    c = _check(x, vecs, ("scale", "mean", "inv_std", "dscale", "dbias"),
+               "abn_grad_input")
+    _check_like("abn_grad_input", x, g=g, y=y)
+    m = x.numel() // c
+    dx = torch.empty_like(x)
+    ptrs = [t.data_ptr() for t in (g, y, x, dx, *vecs)]
+    geo = grad_input_geometry(m, c, sm_count(x.get_device()), _aligned(ptrs))
+    _invoke("abn_grad_input", x, (*ptrs, m, c, negative_slope), geo)
+    abn_grad_input.launches += 1
+    return dx
+
+
+abn_grad_input.launches = 0
+
+
+class FusedBNLeakyReLU(torch.autograd.Function):
+    """Training-mode activated ABN with the exact batch-statistic
+    backward: the JAX package's `fused_bn_leaky_relu` custom VJP fed by
+    `batch_norm_leaky_relu`'s statistics (`pallas_kernels.py:65-151`).
+
+    forward(x, scale, bias, eps, slope) -> (y, mean, var): K1s, then K1 on
+    the statistics. It saves `_fwd`'s residuals (x, y, scale, mean,
+    inv_std). The statistics are outputs without a gradient: they enter K1
+    as stop-gradient values and the dx formula carries their dependence on
+    x. backward: K1r, then K1d → (dx, dscale, dbias).
+
+    Autograd may hand the backward a g in another layout than y's; it is
+    copied into y's layout and counted in `layout_copies` (the kernels
+    refuse a mismatch rather than read it wrongly)."""
+
+    layout_copies = 0
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, negative_slope):
+        mean, var, inv_std = bn_stats(x, eps)
+        y = fused_bn_leaky_relu(x, scale, bias, mean, var, eps, negative_slope)
+        ctx.save_for_backward(x, y, scale, mean, inv_std)
+        ctx.negative_slope = negative_slope
+        ctx.mark_non_differentiable(mean, var)
+        ctx.set_materialize_grads(False)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, g, _mean_grad, _var_grad):
+        if g is None:
+            return None, None, None, None, None
+        x, y, scale, mean, inv_std = ctx.saved_tensors
+        if g.stride() != y.stride():
+            g = torch.empty_like(y).copy_(g)
+            FusedBNLeakyReLU.layout_copies += 1
+        slope = ctx.negative_slope
+        dscale, dbias = abn_grad_sums(g, y, x, mean, inv_std, slope)
+        dx = abn_grad_input(g, y, x, scale, mean, inv_std, dscale, dbias, slope)
+        return dx, dscale, dbias, None, None
+
+
+def batch_norm_leaky_relu(x: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor, eps: float = 1e-5,
+                          negative_slope: float = 0.01):
+    """Training-mode fused ABN (`pallas_kernels.py:129`): batch statistics
+    over every axis but C, then K1 on them. Returns (y, mean, var), the
+    statistics f32 and without a gradient, for the caller's running
+    update. Differentiable in x, scale and bias."""
+    return FusedBNLeakyReLU.apply(x, scale, bias, eps, negative_slope)

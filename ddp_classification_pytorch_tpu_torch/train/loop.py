@@ -1,6 +1,8 @@
 """The trainer — the port of the JAX package's `train/loop.py::Trainer` for
 one process on one device: datasets → loaders → state → steps →
 `train_epoch` / `evaluate` → records → a verified checkpoint per epoch.
+Trains TResNet-M (whose checkpoints `cli/serve.py --ckpt` serves) and the
+ViT family, on synthetic data.
 
 Not ported yet (ROADMAP.md): image-folder, CIFAR and PLC data and the
 native dataplane, device-side prefetch, `--resume`/`--auto_resume`,

@@ -59,18 +59,27 @@ class TrainState:
                 for p in group["params"]]
 
 
+TRESNET_ARCHS = ("tresnet_m", "timm")
+TRAIN_ARCHS = (*TRESNET_ARCHS, *VIT_CONFIGS)
+
+
 def create_train_state(cfg: Config, device: torch.device,
                        steps_per_epoch: int) -> TrainState:
     """Model with fresh f32 master weights from `run.seed` on `device`, its
-    optimizer and LR schedule. Training is ported for the ViT family only;
-    anything else is a ValueError."""
-    if cfg.model.arch not in VIT_CONFIGS:
+    optimizer and LR schedule. Training is ported for TResNet-M and the ViT
+    family; anything else is a ValueError. TResNet-M goes to the device in
+    channels_last, as K1 and its training passes take their activations
+    (weights in NCHW could lead cuDNN to hand back NCHW outputs)."""
+    if cfg.model.arch not in TRAIN_ARCHS:
         raise ValueError(f"training arch {cfg.model.arch!r} not yet ported "
                          f"to the torch package (ported: "
-                         f"{', '.join(VIT_CONFIGS)}; ROADMAP.md)")
+                         f"{', '.join(TRAIN_ARCHS)}; ROADMAP.md)")
     model = build_model(cfg.model, cfg.data.num_classes, cfg.data.image_size)
     init_weights_(model, torch.Generator().manual_seed(cfg.run.seed))
-    model.to(device)
+    if cfg.model.arch in TRESNET_ARCHS:
+        model.to(device=device, memory_format=torch.channels_last)
+    else:
+        model.to(device)
     return TrainState(model=model,
                       optimizer=build_optimizer(cfg.optim, model.parameters()),
                       schedule=build_schedule(cfg.optim, steps_per_epoch))
@@ -87,7 +96,7 @@ def create_served_model(cfg: Config, device: torch.device,
     (or load `state_dict`, e.g. a verified checkpoint), then apply the
     dtype policy once, move to the device in channels_last, and set eval
     mode. Raises ValueError for an arch or head not ported yet."""
-    if cfg.model.arch not in ("tresnet_m", "timm"):
+    if cfg.model.arch not in TRESNET_ARCHS:
         raise ValueError(f"serving arch {cfg.model.arch!r} not yet ported to "
                          "the torch package (ported: tresnet_m, timm; "
                          "ROADMAP.md)")

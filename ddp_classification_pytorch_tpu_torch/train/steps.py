@@ -34,8 +34,9 @@ def device_input_epilogue(images: torch.Tensor, mean: torch.Tensor,
     memory); `mean`/`std` are the ImageNet constants as (1, 3, 1, 1) f32 on
     the same device. `(x/255 − μ)/σ` in f32 in the op order of the JAX
     epilogue (`steps.py:86-87`). float32 inputs pass through untouched (the
-    host-normalized wire). Serving never flips, so the train-time flip waits
-    for the training slice."""
+    host-normalized wire). Serving never flips, and training flips only
+    image data, which the port does not load yet (ROADMAP.md): synthetic
+    data has no transform, so no flip."""
     if images.dtype != torch.uint8:
         return images
     x = images.float() / 255.0
@@ -104,10 +105,11 @@ def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
     gate: `step_ok = isfinite(loss) & isfinite(grad_norm)`. A passing step
     sets the lr from the schedule at the count of updates applied so far
     and steps the optimizer; a failing one leaves the parameters, the
-    optimizer state and that count as they were. The step counter always
-    advances. The gate reads `step_ok` on the host once per step (the JAX
-    step selects on the device instead). Metrics are 0-d tensors: loss,
-    top1, top3, step_ok, grad_norm."""
+    optimizer state, that count and the model's buffers (the BN running
+    statistics, which the forward updates) as they were. The step counter
+    always advances. The gate reads `step_ok` on the host once per step
+    (the JAX step selects on the device instead). Metrics are 0-d tensors:
+    loss, top1, top3, step_ok, grad_norm."""
     if cfg.model.head != "fc":
         raise ValueError(f"head {cfg.model.head!r} not yet ported to the "
                          "torch package (ported: fc)")
@@ -122,6 +124,10 @@ def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
                                   *consts[images.device])
         model.train()
         opt.zero_grad(set_to_none=True)
+        # the buffers as they were, for a skipped step (x·1 is a bitwise
+        # copy; one multi-tensor launch per dtype, not one per buffer)
+        buffers = list(model.buffers())
+        kept = torch._foreach_mul(buffers, 1.0) if buffers else []
         logits = model(x)
         loss = _cross_entropy(logits, labels)
         loss.backward()
@@ -135,6 +141,9 @@ def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
                 group["lr"] = lr
             opt.step()
             state.opt_count += 1
+        elif buffers:
+            with torch.no_grad():
+                torch._foreach_copy_(buffers, kept)
         state.step += 1
         metrics = _train_metrics(loss, logits.detach(), labels)
         metrics["step_ok"] = ok.float()

@@ -1,11 +1,12 @@
-"""On-card tests of the torch port: K1's CUDA kernel and the flash
-attention kernels K2-K4 against their plain PyTorch versions (which the CPU
-tests hold against the JAX package), the bf16 comparisons' power to refuse
-near misses, the kernels' bitwise determinism, the wrappers' refusals and
-launch counts, K1 at every rows-per-thread on ragged row counts and its
-refusal of a launch geometry it does not take, the flash autograd Function
-against the plain versions' autograd, and the served model on the card
-against the same model on the CPU.
+"""On-card tests of the torch port: K1's CUDA kernel, its training passes
+K1s/K1r/K1d and the flash attention kernels K2-K4 against their plain
+PyTorch versions (which the CPU tests hold against the JAX package), the
+bf16 comparisons' power to refuse near misses, the kernels' bitwise
+determinism, the wrappers' refusals and launch counts, K1 at every
+rows-per-thread on ragged row counts and its refusal of a launch geometry
+it does not take, the ABN and flash autograd Functions against the plain
+versions' autograd, and the served model on the card against the same
+model on the CPU.
 
 Marked `cuda`; each test skips (inside a fixture, never at import) where
 `torch.cuda.is_available()` is false. On the card, without JAX installed:
@@ -15,7 +16,7 @@ Marked `cuda`; each test skips (inside a fixture, never at import) where
 Tolerances, K1: f32 1e-5; bf16 compared in f32 at 1e-2 (one bf16 ulp of
 slack: the kernel may fuse x_hat * scale + bias into one FMA where the
 plain version rounds twice, which moves a bf16 result across a tie).
-K2-K4: at FLASH_TOL below.
+K1s/K1r/K1d: at TRAIN_TOL and SUM_ULPS below. K2-K4: at FLASH_TOL below.
 """
 
 import pytest
@@ -227,6 +228,171 @@ def test_served_model_on_card_matches_cpu(cuda):
     assert fused_abn.fused_bn_leaky_relu.launches == before + 7  # stem + 2 basic + 2 x 2 bottleneck
     torch.testing.assert_close(got_i.cpu(), want_i)
     torch.testing.assert_close(got_p.cpu(), want_p, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------ K1s, K1r, K1d: the training passes --
+# three TResNet-M ABN shapes at the training batch (32 images, 224 px), and
+# rows of an odd M and a C off every vector width (the scalar path)
+TRAIN_ABN = [(32, 64, 56, 56), (32, 256, 14, 14), (32, 512, 7, 7), (1001, 37)]
+# f32 sums over up to 1e5 rows in another order than the plain version's:
+# per channel within SUM_ULPS f32 ulps (2^-24 each) of the sum of the
+# terms' magnitudes (a row dropped or counted twice moves a sum by about
+# that sum / M, more than this below M = 2^24 / SUM_ULPS ≈ 1e6)
+SUM_ULPS = 16
+# (statistics, dx): f32 1e-5 (sums in another order, then a few roundings);
+# dx in bf16 compared in f32 at 1e-2, one bf16 ulp
+TRAIN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 1e-2)}
+
+
+def _train_args(shape, dtype, device, seed=0):
+    """x, g (y's gradient, in y's layout), y = K1's plain version on x's
+    batch statistics, scale, mean, inv_std."""
+    x, scale, bias = _args(shape, dtype, device, seed)[:3]
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    g = torch.empty_like(x).normal_(generator=gen)  # x's (and y's) layout
+    mean, var, inv = fused_abn.bn_stats_ref(x)
+    y = fused_abn.fused_bn_leaky_relu_ref(x, scale, bias, mean, var, 1e-5, 1e-3)
+    return x, g, y, scale, mean, inv
+
+
+def _assert_sums_close(got, want, terms, name):
+    """Per channel: |got − want| <= SUM_ULPS · 2^-24 · Σ|term|."""
+    atol = SUM_ULPS * 2.0 ** -24 * terms.abs().sum(0)
+    err = (got - want).abs()
+    assert (err <= atol).all(), (
+        f"{name}: max |err| {err.max().item()}, where the limit is "
+        f"{atol[err.argmax()].item()}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", TRAIN_ABN,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_training_kernels_match_plain_versions(cuda, shape, dtype):
+    stats_tol, dx_tol = TRAIN_TOL[dtype]
+    x, g, y, scale, mean, inv = _train_args(shape, dtype, cuda)
+    got = fused_abn.bn_stats(x)
+    for a, b, name in zip(got, fused_abn.bn_stats_ref(x),
+                          ("mean", "var", "inv_std")):
+        torch.testing.assert_close(a, b, atol=stats_tol, rtol=stats_tol,
+                                   msg=name)
+
+    ds, db = fused_abn.abn_grad_sums(g, y, x, mean, inv, 1e-3)
+    ds_ref, db_ref = fused_abn.abn_grad_sums_ref(g, y, x, mean, inv, 1e-3)
+    rows = fused_abn._rows
+    dy = fused_abn._gated(rows(g), rows(y), 1e-3)
+    _assert_sums_close(db, db_ref, dy, "dbias")
+    _assert_sums_close(ds, ds_ref, dy * (rows(x) - mean) * inv, "dscale")
+
+    # K1d on K1r's sums, against its plain version on the same sums
+    dx = fused_abn.abn_grad_input(g, y, x, scale, mean, inv, ds, db, 1e-3)
+    dx_ref = fused_abn.abn_grad_input_ref(g, y, x, scale, mean, inv, ds, db,
+                                          1e-3)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and dx.stride() == x.stride()
+    torch.testing.assert_close(dx.float(), dx_ref.float(), atol=dx_tol,
+                               rtol=dx_tol)
+    # and the pair against the line-for-line `_bwd` oracle
+    want = fused_abn.fused_bn_leaky_relu_backward_ref(g, x, y, scale, mean,
+                                                      inv, 1e-3)
+    torch.testing.assert_close(dx.float(), want[0].float(), atol=dx_tol,
+                               rtol=dx_tol)
+    _assert_sums_close(ds, want[1], dy * (rows(x) - mean) * inv, "dscale")
+    _assert_sums_close(db, want[2], dy, "dbias")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_training_kernels_give_the_same_bits(cuda, dtype):
+    """No floating-point atomics: a second launch of K1s, K1r and K1d on
+    the same inputs gives the same bits."""
+    for shape in [(32, 128, 56, 56), (1001, 37)]:
+        x, g, y, scale, mean, inv = _train_args(shape, dtype, cuda, seed=4)
+        runs = []
+        for _ in range(2):
+            ds, db = fused_abn.abn_grad_sums(g, y, x, mean, inv, 1e-3)
+            runs.append((*fused_abn.bn_stats(x), ds, db,
+                         fused_abn.abn_grad_input(g, y, x, scale, mean, inv,
+                                                  ds, db, 1e-3)))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), shape
+
+
+def test_training_kernels_refuse_what_they_do_not_take(cuda):
+    x, g, y, scale, mean, inv = _train_args((2, 64, 4, 4), torch.bfloat16, cuda)
+    meta = torch.zeros((4, 8), device="meta")
+    with pytest.raises(ValueError, match="bn_stats: no kernel"):
+        fused_abn.bn_stats(meta)
+    with pytest.raises(ValueError, match="channels_last"):
+        fused_abn.bn_stats(x.contiguous())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_abn.bn_stats(x.half())
+    with pytest.raises(ValueError, match="g must match x's"):  # layout
+        fused_abn.abn_grad_sums(g.contiguous(), y, x, mean, inv)
+    with pytest.raises(ValueError, match="y must match x's"):  # dtype
+        fused_abn.abn_grad_sums(g, y.float(), x, mean, inv)
+    with pytest.raises(ValueError, match="inv_std must be"):
+        fused_abn.abn_grad_sums(g, y, x, mean, inv[:32])
+    ds, db = fused_abn.abn_grad_sums(g, y, x, mean, inv)
+    with pytest.raises(ValueError, match="g must match x's"):
+        fused_abn.abn_grad_input(g.contiguous(), y, x, scale, mean, inv, ds, db)
+    with pytest.raises(ValueError, match="dbias must be"):
+        fused_abn.abn_grad_input(g, y, x, scale, mean, inv, ds, db.cpu())
+
+
+def test_training_launch_counts(cuda):
+    x, g, y, scale, mean, inv = _train_args((2, 64, 4, 4), torch.bfloat16, cuda)
+    counters = (fused_abn.bn_stats, fused_abn.abn_grad_sums,
+                fused_abn.abn_grad_input)
+    before = [f.launches for f in counters]
+    fused_abn.bn_stats(x)
+    ds, db = fused_abn.abn_grad_sums(g, y, x, mean, inv)
+    fused_abn.abn_grad_input(g, y, x, scale, mean, inv, ds, db)
+    fused_abn.abn_grad_input(g, y, x, scale, mean, inv, ds, db)
+    fused_abn.bn_stats_ref(x)  # the plain versions count nothing
+    fused_abn.bn_stats(x.cpu())  # CPU tensors: the plain version
+    assert [f.launches for f in counters] == [before[0] + 1, before[1] + 1,
+                                              before[2] + 2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_abn_autograd_matches_the_plain_versions_autograd(cuda, monkeypatch,
+                                                          dtype):
+    """`batch_norm_leaky_relu` forward and gradients through K1s, K1, K1r
+    and K1d against the same autograd Function with the four wrappers
+    swapped for their plain versions, on the same CUDA tensors, at
+    (32, 128, 28, 28); then the layout copy is not needed."""
+    stats_tol, dx_tol = TRAIN_TOL[dtype]
+    x0, scale0, bias0 = _args((32, 128, 28, 28), dtype, cuda, seed=5)[:3]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    weight = torch.randn((32, 28, 28, 128), device=cuda,
+                         generator=gen).permute(0, 3, 1, 2)
+
+    def run():
+        x, scale, bias = (t.clone().requires_grad_() for t in (x0, scale0, bias0))
+        y, mean, var = fused_abn.batch_norm_leaky_relu(x, scale, bias, 1e-5, 1e-3)
+        (y.float() * weight).sum().backward()
+        return [y.detach(), mean, var, x.grad, scale.grad, bias.grad]
+
+    wrappers = [getattr(fused_abn, n) for n in (
+        "fused_bn_leaky_relu", "bn_stats", "abn_grad_sums", "abn_grad_input")]
+    before = [f.launches for f in wrappers]
+    copies = fused_abn.FusedBNLeakyReLU.layout_copies
+    got = run()
+    assert [f.launches for f in wrappers] == [b + 1 for b in before]
+    assert fused_abn.FusedBNLeakyReLU.layout_copies == copies
+    for f in wrappers:
+        monkeypatch.setattr(fused_abn, f.__name__,
+                            getattr(fused_abn, f.__name__ + "_ref"))
+    want = run()
+    assert [f.launches for f in wrappers] == [b + 1 for b in before]
+    for i, (a, b) in enumerate(zip(got, want)):
+        tol = dx_tol if i in (0, 3) else stats_tol
+        if i in (4, 5):  # dscale and dbias: sums over 25,088 rows
+            tol = 1e-3
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                   msg=f"output {i}")
 
 
 # ----------------------------------------------- K2-K4: flash attention --

@@ -43,11 +43,10 @@ from ddp_classification_pytorch_tpu_torch.train.sentinel import (
 from ddp_classification_pytorch_tpu_torch.train.state import TrainState
 from ddp_classification_pytorch_tpu_torch.utils.metrics import topk_hits
 
+from torch_port_helpers import OPTIM
+
 REDUCED = dict(patch=16, dim=64, depth=2, heads=2, num_classes=10)
 IMAGE, BATCH = 64, 4
-OPTIM = dict(optimizer="sgd", lr=0.05, momentum=0.9, weight_decay=1e-4,
-             schedule="step", step_size=1, gamma=0.5, warmup_iters=2,
-             warmup_start_lr=0.01)
 
 
 def _cfgs(input_dtype):
@@ -277,7 +276,7 @@ def test_cli_without_a_card_exits_3(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--model", "tresnet_m"],          # arch not ported for training
+    ["--model", "resnet50"],           # arch not ported for training
     ["--dataset", "imagefolder"],      # dataset not ported
     ["--resume", "x.pt"],              # flag not taken yet
     ["--optimizer", "lamb"],           # unknown optimizer

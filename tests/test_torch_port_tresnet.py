@@ -93,12 +93,15 @@ def test_tresnet_m_has_36_activated_abn_sites():
 
 
 def test_training_mode_raises():
-    port = tresnet.TResNet(dtype=torch.float32, **REDUCED)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port.train()(torch.zeros(1, 3, 32, 32))
+    """Training mode has no fallback either: on a device that is neither
+    the CPU nor a card, the activated ABN's batch statistics (K1s's
+    wrapper) raise, as its eval mode does."""
+    port = tresnet.TResNet(dtype=torch.float32, **REDUCED).train()
+    with pytest.raises(ValueError, match="bn_stats: no kernel for device meta"):
+        port.to("meta")(torch.zeros(1, 3, 32, 32, device="meta"))
     abn = tresnet.FusedABN(8).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        abn(torch.zeros(1, 8, 2, 2))
+    with pytest.raises(ValueError, match="no kernel"):
+        abn(torch.zeros(1, 8, 2, 2, device="meta"))
 
 
 def test_cast_to_compute_dtype_follows_the_jax_policy():

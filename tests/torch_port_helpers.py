@@ -6,8 +6,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# the reduced TResNet both sides build for forward parity on the CPU
+# the reduced TResNet both sides build for parity on the CPU
 REDUCED = dict(num_classes=10, stages=(1, 1, 1, 1), width=0.5)
+# the train-step parity tests' recipe: SGD with momentum and weight decay
+# under a linear warmup and a StepLR decay
+OPTIM = dict(optimizer="sgd", lr=0.05, momentum=0.9, weight_decay=1e-4,
+             schedule="step", step_size=1, gamma=0.5, warmup_iters=2,
+             warmup_start_lr=0.01)
 
 
 def init_variables(model, image_size: int):
