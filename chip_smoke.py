@@ -127,9 +127,14 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    launches each of K1, K1s, K1r and K1d inside the step against their
    byte bounds; the step's device time by kernel family; per bf16 shape
    of phase 11 and over the 36 sites in a row: each kernel, its plain
-   version, and two yardsticks: `torch.var_mean(correction=0)` beside
-   K1s and the backward of `F.batch_norm(training=True)` (no gate) beside
-   K1r + K1d;
+   version, and the yardsticks: `torch.batch_norm_stats` (mean and
+   inv_std in one call) and `torch.var_mean(correction=0)` beside K1s,
+   `torch.batch_norm_backward_reduce` (K1r's two sums without the gate, in
+   one call) beside K1r, the backward of `F.batch_norm(training=True)` (no
+   gate) beside K1r + K1d; one kernel a call of K1s and K1r (each a single
+   launch that finalizes its own sums), in the timed regions and at most
+   36 each in the step; the host µs of one K1s and one K1r wrapper call
+   (36 in a row, nothing synchronized);
 15. a `{"kernels": [...]}` line (K1-K4, K1s, K1r, K1d), then
    `{"ok": true, "device": {...}}` last.
 
@@ -199,9 +204,9 @@ PALLAS = "ddp_classification_pytorch_tpu/ops/pallas_kernels.py"
 # its launches, part of its one counted launch a call, the jnp they stand
 # for, f32 operations an element, (M×C tensors, f32 (C,) vectors) moved)
 ABN_TRAIN_KERNELS = (
-    ("k1s", "bn_stats", "abn_stats_", "abn_stats_partial",
+    ("k1s", "bn_stats", "abn_stats_", "abn_stats_kernel",
      PALLAS + ":140-143", 3, (1, 3)),
-    ("k1r", "abn_grad_sums", "abn_grad_sums_", "abn_grad_sums_partial",
+    ("k1r", "abn_grad_sums", "abn_grad_sums_", "abn_grad_sums_kernel",
      PALLAS + ":103-109", 7, (3, 4)),
     ("k1d", "abn_grad_input", "abn_grad_input", "abn_grad_input",
      PALLAS + ":113-117", 10, (4, 5)),
@@ -898,10 +903,14 @@ def abn_train_inputs(torch, fused_abn, shape, dtype, device, gen, slope):
 
 def abn_train_closures(torch, fused_abn, t, slope, ds, db):
     """What phase 14 times at one site: each kernel, its plain version, and
-    two PyTorch calls: `torch.var_mean(correction=0)` (K1s's mean and
-    biased variance by another formula, without inv_std) and the backward
-    of `F.batch_norm(training=True)` (a BN's dx, dγ and dβ without the
-    LeakyReLU gate: a yardstick beside K1r + K1d, not the same function)."""
+    four PyTorch calls beside them: `torch.batch_norm_stats` (K1s's mean
+    and inv_std in one call, without var) and `torch.var_mean(correction=0)`
+    (its mean and biased variance by another formula, without inv_std);
+    `torch.batch_norm_backward_reduce` (Σg and Σg·(x − mean) in one call:
+    K1r's sums without the LeakyReLU gate, reading g and x but not y) and
+    the backward of `F.batch_norm(training=True)` (a BN's dx, dγ and dβ
+    without the gate: a yardstick beside K1r + K1d, not the same
+    function)."""
     import torch.nn.functional as F
 
     x, g, y, scale, bias, mean, var, inv = t
@@ -919,6 +928,9 @@ def abn_train_closures(torch, fused_abn, t, slope, ds, db):
         "p_k1d": lambda: fused_abn.abn_grad_input_ref(g, y, x, scale, mean, inv,
                                                       ds, db, slope),
         "var_mean": lambda: torch.var_mean(x, dim=dims, correction=0),
+        "bn_stats": lambda: torch.batch_norm_stats(x, 1e-5),
+        "bn_bwd_reduce": lambda: torch.batch_norm_backward_reduce(
+            g, x, mean, inv, scale, False, True, True),
         "bn_bwd": lambda: torch.autograd.grad(out, (xr, w, b), g,
                                               retain_graph=True),
     }
@@ -1579,6 +1591,19 @@ def main() -> int:
             "p_k1": lambda t=t: fused_abn.fused_bn_leaky_relu_ref(
                 t[0], t[3], t[4], t[5], t[6], 1e-5, tresnet.SLOPE)})
     step_wall = host_ms(torch, tstep)
+    # host time of one K1s and one K1r wrapper call: the 36 sites in a row
+    # with nothing synchronized (the median of 5 such rows), as phase 6
+    host_us = {}
+    for key in ("k_k1s", "k_k1r"):
+        rows_us = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in sites:
+                f[key]()
+            rows_us.append((time.perf_counter() - t0) / ABN_SITES * 1e6)
+        torch.cuda.synchronize()
+        host_us[key[2:]] = statistics.median(rows_us)
     with DeviceTimer(torch, abn_counts) as timer:
         for i, (_, fns) in enumerate(abn_timed):
             for key, fn in fns.items():
@@ -1610,21 +1635,19 @@ def main() -> int:
             check(timer.launched[label] == want,
                   f"region {label}: launches {timer.launched[label]}, "
                   f"want {want}")
-        else:
-            per_call = 1 if j in (0, 3) else 2  # K1s, K1r: partial + finalize
-            check(len(names) == per_call * calls
-                  and all(part in nm for nm in names),
+        else:  # one kernel a call, K1s and K1r included
+            check(len(names) == calls and all(part in nm for nm in names),
                   f"profiler region {label}: {len(names)} kernels")
     for i, (row, fns) in enumerate(abn_timed):
         row.update({f"{key}_us": res[f"{key} {i}"][0] * 1e3 for key in fns})
         log("[abn-train] " + json.dumps(row))
     seq = {key: res[f"{key} seq"][0] for key in
            ("k1", "p_k1", "k_k1s", "p_k1s", "k_k1r", "p_k1r", "k_k1d", "p_k1d",
-            "var_mean", "bn_bwd")}
+            "var_mean", "bn_stats", "bn_bwd_reduce", "bn_bwd")}
     step_rec2 = {"batch": n, "wall_ms": step_wall, "device_ms": step_dev,
                  "device_busy": step_dev / step_wall,
                  "images_per_s": n / step_wall * 1e3,
-                 "sequence_ms": seq}
+                 "sequence_ms": seq, "host_us_per_call": host_us}
     bounds = {"k1": abn_bound_ms(train_shapes, 2)}
     for kind, *_ in ABN_TRAIN_KERNELS:
         bounds[kind] = abn_train_bound_ms(kind, train_shapes, 2)
@@ -1635,6 +1658,10 @@ def main() -> int:
         # the wrappers' counters are checked above; the profiler's own
         # count (36 unless it lost a record) rides in the report
         _, seen = step_timer.kernel_ms("tresnet train step", counted)
+        _, seen_all = step_timer.kernel_ms("tresnet train step", part)
+        # one kernel a wrapper call: a lost record gives fewer, never more
+        check(seen_all <= ABN_SITES, f"{seen_all} {part} kernels a train "
+              f"step, more than one a call of its {ABN_SITES} sites")
         step_rec2[f"{kind}_x36_ms"] = ms
         step_rec2[f"{kind}_launches_seen_per_step"] = seen
         step_rec2[f"{kind}_x36_bound_ms"], step_rec2[f"{kind}_bound_by"] = \
@@ -1644,8 +1671,10 @@ def main() -> int:
     step_rec2["by_family"] = breakdown
     log(f"[timing] {name}: TResNet-M train step, batch {n}, bf16 (the ABN "
         f"kernels' x36_ms inside the step; sequence_ms: the 36 sites in a "
-        f"row outside it, with the plain versions, var_mean and the "
-        f"F.batch_norm backward as yardsticks): {json.dumps(step_rec2)}")
+        f"row outside it, with the plain versions, batch_norm_stats, "
+        f"var_mean, batch_norm_backward_reduce and the F.batch_norm "
+        f"backward as yardsticks; host_us_per_call: K1s's and K1r's "
+        f"wrappers): {json.dumps(step_rec2)}")
     log(f"[timing] clocks.sm, clocks.max.sm, power.draw: {clocks()}")
     report["abn_train"] = abn_rows
     report["tresnet_train_step"] = step_rec2
@@ -1718,14 +1747,20 @@ def main() -> int:
         "bound_ms": step_rec2[f"{kind}_x36_bound_ms"],
         "bound_by": step_rec2[f"{kind}_bound_by"],
         "sequence_ms": seq[f"k_{kind}"],
-        # K1s's mean and biased variance by torch.var_mean (without
-        # inv_std); K1r and K1d have no one PyTorch call: the F.batch_norm
-        # backward (no gate) stands beside the pair, labelled
-        "library_ms": seq["var_mean"] if kind == "k1s" else None,
-    } | ({} if kind == "k1s" else {
+        # the nearest one PyTorch call over the same 36 inputs:
+        # torch.batch_norm_stats for K1s (its mean and inv_std, not var);
+        # torch.batch_norm_backward_reduce for K1r (its two sums without
+        # the LeakyReLU gate: it reads g and x, not y); K1d has none
+        "library_ms": {"k1s": seq["bn_stats"],
+                       "k1r": seq["bn_bwd_reduce"]}.get(kind),
+        "library_call": {"k1s": "torch.batch_norm_stats",
+                         "k1r": "torch.batch_norm_backward_reduce"}.get(kind),
+    } | ({"yardstick_var_mean_ms": seq["var_mean"],
+          "host_us_per_call": host_us["k1s"]} if kind == "k1s" else {
         "pair_ms": step_rec2["k1r_x36_ms"] + step_rec2["k1d_x36_ms"],
         "yardstick_bn_backward_ms": seq["bn_bwd"],
-    }) for kind, attr, _, _, lines, *_ in ABN_TRAIN_KERNELS]}))
+    } | ({"host_us_per_call": host_us["k1r"]} if kind == "k1r" else {}))
+        for kind, attr, _, _, lines, *_ in ABN_TRAIN_KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -21,16 +21,29 @@
 // bf16), K1r reads g, y and x (6), K1d reads those and writes dx (8), at
 // 3.35 TB/s on an H100 SXM.
 //
-// What the design does about it (a simple kernel first):
-//  - the two reductions share one partial-sum body over (row tile x channel
-//    group), with K1's vector accesses along C and K1's geometry rule at
-//    one row a thread: each thread keeps f32 sums of its VEC channels over
-//    a row-stride loop with the loads of kUnroll rows in flight, the block
-//    adds its rows' sums in shared memory in row order and writes one
-//    partial per channel to a workspace of (gy, 2, C) f32; a second small
-//    kernel adds each channel's gy partials, again in a fixed order. No
-//    floating-point atomics, so two launches give the same bits. The
-//    workspace comes from PyTorch's allocator: nothing here allocates;
+// What the design does about it:
+//  - K1s and K1r are one launch each, on a geometry of their own
+//    (ops/fused_abn.py::sums_geometry): blocks of kSumThreads threads, tx
+//    channel groups (a channel tile of at most 32 channels) by ty row lanes,
+//    and few, long partials: a grid of gx channel tiles by gy row blocks,
+//    at most one block an SM, where each lane sums at least kSumMinRows
+//    rows when M allows, with kInFlight rows of loads in flight (16 bytes
+//    of f32 or 8 of bf16 an access; 256 bytes a thread for K1s, 3 x 192 for
+//    K1r), the row offset stepped by one add a row;
+//  - each thread keeps f32 sums of its VEC channels over its rows in row
+//    order; the block adds its lanes' sums in a fixed order with two
+//    barriers (block_sums) and writes one partial of 2 x its channels to a
+//    workspace of (gy, 2, C) f32;
+//  - the same launch finalizes: one thread of each block bumps its channel
+//    tile's integer counter with one acquire-release atomic; the block
+//    that sees gy - 1 adds the tile's gy partials in block order, writes
+//    the outputs and puts the counter back to 0. The order of every sum is
+//    fixed by the geometry, never by which block finishes last, and there
+//    are no floating-point atomics, so two launches give the same bits;
+//  - the counters (one unsigned int a channel tile) and the workspace come
+//    from the caller, who keeps them per card: nothing here allocates. Every
+//    launch leaves the counters at 0. Launches that share them must run on
+//    one stream, in order;
 //  - K1d is an elementwise pass like K1's forward: R rows a thread, all
 //    loads of g, y and x issued before the per-channel constants.
 // Products that jnp rounds before a sum or difference are kept unfused
@@ -44,23 +57,22 @@
 
 namespace {
 
-constexpr int kUnroll = 4;        // rows whose loads a thread keeps in flight
-constexpr int kFinalChannels = 32;  // the finalize block: channels ...
-constexpr int kFinalLanes = 8;      // ... by lanes that split the partials
+constexpr int kSumThreads = 256;  // a K1s/K1r block: SUM_THREADS in fused_abn.py
+constexpr int kSumMinRows = 16;   // rows a lane sums, at least: SUM_MIN_ROWS
 constexpr int kGradInputMaxRows = 4;  // R of K1d (3 row packs a row)
 
 // The two terms K1s sums per channel: x and x².
 template <typename T, int VEC>
 struct StatsTerm {
+  static constexpr int kInFlight = 64 / sizeof(T);  // rows of loads in flight
   const T* __restrict__ x;
-  int c;
   struct Elem {
     Pack<T, VEC> x;
   };
   __device__ __forceinline__ void prepare(int) {}
-  __device__ __forceinline__ Elem load(long long row, int c0) const {
+  __device__ __forceinline__ Elem load(long long o) const {  // o = row*C + c0
     Elem e;
-    e.x = *reinterpret_cast<const Pack<T, VEC>*>(x + row * c + c0);
+    e.x = *reinterpret_cast<const Pack<T, VEC>*>(x + o);
     return e;
   }
   __device__ __forceinline__ void add(const Elem& e, float (&s1)[VEC],
@@ -77,12 +89,12 @@ struct StatsTerm {
 // The two terms K1r sums per channel: dy and dy·x̂.
 template <typename T, int VEC>
 struct GradTerm {
+  static constexpr int kInFlight = 48 / sizeof(T);  // rows: 3 loads each
   const T* __restrict__ g;
   const T* __restrict__ y;
   const T* __restrict__ x;
   const float* __restrict__ mean;
   const float* __restrict__ inv;
-  int c;
   float slope;
   float mu[VEC], iv[VEC];
   struct Elem {
@@ -92,8 +104,7 @@ struct GradTerm {
     load_channels<VEC>(mean, c0, mu);
     load_channels<VEC>(inv, c0, iv);
   }
-  __device__ __forceinline__ Elem load(long long row, int c0) const {
-    const long long o = row * c + c0;
+  __device__ __forceinline__ Elem load(long long o) const {
     Elem e;
     e.g = *reinterpret_cast<const Pack<T, VEC>*>(g + o);
     e.y = *reinterpret_cast<const Pack<T, VEC>*>(y + o);
@@ -114,134 +125,200 @@ struct GradTerm {
   }
 };
 
-// Block (tx, ty) of K1's geometry at one row a thread: threadIdx.x walks
-// VEC-wide channel groups, threadIdx.y rows; block (bx, by) takes rows
-// by*ty + threadIdx.y, then every ty*gridDim.y rows on. Writes the block's
-// two sums per channel to ws[by][0][c] and ws[by][1][c].
+// Adds the block's ty lanes of (s1, s2) for every channel of its tile, in
+// an order fixed by the geometry, with two barriers: the lanes' values go
+// to shared memory as rows of V = 2 * W (kind 0, s1, then kind 1, s2, of
+// the tile's W = tx * VEC channels); H = tx * ty / V runs of threads each
+// add a run of ceil(ty / H) consecutive lanes of one value, in lane order;
+// then thread v < V adds the H runs of value v in order. Returns that total
+// on thread v (t = ty_i * tx + tx_i), 0 elsewhere. Every thread of the block
+// calls it; `sh` holds (2 * VEC + 1) * tx * ty floats and is free again
+// after the caller's next __syncthreads(). The C side takes only blocks
+// with V <= tx * ty (2 * VEC <= ty).
+template <int VEC>
+__device__ __forceinline__ float block_sums(const float (&s1)[VEC],
+                                            const float (&s2)[VEC],
+                                            float* __restrict__ sh) {
+  const int tx = blockDim.x, ty = blockDim.y, n = tx * ty;
+  const int w = tx * VEC, values = 2 * w, t = threadIdx.y * tx + threadIdx.x;
+  float* row = sh + threadIdx.y * values + threadIdx.x * VEC;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    row[i] = s1[i];
+    row[w + i] = s2[i];
+  }
+  __syncthreads();
+  const int runs = n / values, len = (ty + runs - 1) / runs;
+  float* part = sh + ty * values;  // runs x V, after the lanes' rows
+  if (t < runs * values) {
+    const int v = t % values, r = t / values;
+    const int hi = min(ty, (r + 1) * len);
+    float a = 0.0f;
+    for (int l = r * len; l < hi; ++l) a += sh[l * values + v];
+    part[r * values + v] = a;
+  }
+  __syncthreads();
+  float total = 0.0f;
+  if (t < values)
+    for (int r = 0; r < runs; ++r) total += part[r * values + t];
+  return total;
+}
+
+// Adds one to *counter and returns what it held, as one atomic at GPU
+// scope with acquire-release semantics: called by one thread after a
+// __syncthreads(), it releases the block's earlier stores (before anyone
+// who sees the new count) and acquires those of the blocks counted before
+// it (for the block's reads after the next __syncthreads()). One
+// instruction: a relaxed atomic between two fences measured ≈ 0.35 µs a
+// launch slower on the H100 (PERF.md).
+__device__ __forceinline__ unsigned count_in(unsigned* counter) {
+  unsigned seen;
+  asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;"
+               : "=r"(seen)
+               : "l"(counter)
+               : "memory");
+  return seen;
+}
+
+// acc += VEC floats at p, read from L2 (written by other blocks of this
+// launch: never through the non-coherent path).
+template <int VEC>
+__device__ __forceinline__ void add_floats(const float* __restrict__ p,
+                                           float (&acc)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(p) + q);
+      acc[4 * q] += v.x;
+      acc[4 * q + 1] += v.y;
+      acc[4 * q + 2] += v.z;
+      acc[4 * q + 3] += v.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[j] += __ldcg(p + j);
+  }
+}
+
+// The body of K1s and K1r, one launch: block (bx, by) of sums_geometry
+// takes channel groups bx*tx .. bx*tx + tx - 1 and, on lane ty_i, the rows
+// by*ty + ty_i + k*ty*gy for k < rows (those at or past m masked); writes
+// its partial to ws[by][0][c] and ws[by][1][c]; the last block of channel
+// tile bx to count in adds the tile's gy partials (lane l a run of
+// ceil(gy / ty) consecutive ones, in block order, then block_sums). On
+// that block only, returns shared memory holding the tile's two sums a
+// channel, s1 of tile channel j at [j] and s2 at [tx * VEC + j], visible to
+// every thread; nullptr on the others.
 template <int VEC, class Term>
-__device__ __forceinline__ void partial_sums(Term t, long long m, int c,
-                                             float* __restrict__ ws) {
-  const int tx = blockDim.x, ty = blockDim.y;
+__device__ __forceinline__ const float* column_sums(
+    Term t, long long m, int c, int rows, float* __restrict__ ws,
+    unsigned* __restrict__ counters) {
+  constexpr int U = Term::kInFlight;
+  const int tx = blockDim.x, ty = blockDim.y, parts = gridDim.y;
   const int c0 = (blockIdx.x * tx + threadIdx.x) * VEC;
+  const bool live = c0 < c;  // else only in a ragged last channel tile
   float s1[VEC], s2[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) s1[i] = s2[i] = 0.0f;
-  if (c0 < c) {  // else only in a ragged last channel tile
+  const long long first = (long long)blockIdx.y * ty + threadIdx.y;
+  if (live && first < m) {
     t.prepare(c0);
-    const long long stride = (long long)ty * gridDim.y;
-    for (long long r = (long long)blockIdx.y * ty + threadIdx.y; r < m;
-         r += kUnroll * stride) {
-      typename Term::Elem e[kUnroll];
+    const long long stride = (long long)ty * parts;
+    // the lane's rows below m, in order: whole runs of U loads in flight,
+    // then the rest masked; o steps from row to row as an element offset
+    const int n = (int)min((long long)rows, (m - 1 - first) / stride + 1);
+    const long long step = stride * c;
+    long long o = first * c + c0;
+    int k = 0;
+    for (; k + U <= n; k += U) {
+      typename Term::Elem e[U];
 #pragma unroll
-      for (int j = 0; j < kUnroll; ++j)
-        if (r + j * stride < m) e[j] = t.load(r + j * stride, c0);
+      for (int j = 0; j < U; ++j) e[j] = t.load(o + j * step);
 #pragma unroll
-      for (int j = 0; j < kUnroll; ++j)
-        if (r + j * stride < m) t.add(e[j], s1, s2);
+      for (int j = 0; j < U; ++j) t.add(e[j], s1, s2);
+      o += U * step;
+    }
+    if (k < n) {
+      typename Term::Elem e[U];
+#pragma unroll
+      for (int j = 0; j < U; ++j)
+        if (k + j < n) e[j] = t.load(o + j * step);
+#pragma unroll
+      for (int j = 0; j < U; ++j)
+        if (k + j < n) t.add(e[j], s1, s2);
     }
   }
-  __shared__ float sh[2][kMaxThreads * kVec];
-  const int slot = (threadIdx.y * tx + threadIdx.x) * VEC;
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    sh[0][slot + i] = s1[i];
-    sh[1][slot + i] = s2[i];
-  }
+  __shared__ __align__(16) float sh[(2 * kVec + 1) * kSumThreads];
+  __shared__ bool last;
+  const int w = tx * VEC, v = threadIdx.y * tx + threadIdx.x;
+  const int tile0 = blockIdx.x * w, kind = v / w, j = v - kind * w;
+  const float total = block_sums<VEC>(s1, s2, sh);
+  if (v < 2 * w && tile0 + j < c)
+    ws[(long long)blockIdx.y * 2 * c + (long long)kind * c + tile0 + j] = total;
   __syncthreads();
-  if (threadIdx.y != 0 || c0 >= c) return;
+  if (v == 0)  // the tile's count, with the release and acquire it needs
+    last = count_in(counters + blockIdx.x) == (unsigned)parts - 1;
+  __syncthreads();
+  if (!last) return nullptr;
+  // the tile's partials, read past L1
 #pragma unroll
   for (int i = 0; i < VEC; ++i) s1[i] = s2[i] = 0.0f;
-  for (int j = 0; j < ty; ++j) {  // the block's rows, in order
-    const int from = (j * tx + threadIdx.x) * VEC;
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      s1[i] += sh[0][from + i];
-      s2[i] += sh[1][from + i];
+  if (live) {
+    const int run = (parts + ty - 1) / ty, lane = threadIdx.y;
+    const int hi = min(parts, (lane + 1) * run);
+#pragma unroll 8
+    for (int p = lane * run; p < hi; ++p) {
+      const float* in = ws + (long long)p * 2 * c + c0;
+      add_floats<VEC>(in, s1);
+      add_floats<VEC>(in + c, s2);
     }
   }
-  float* out = ws + (long long)blockIdx.y * 2 * c;
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    out[c0 + i] = s1[i];
-    out[c + c0 + i] = s2[i];
-  }
-}
-
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kMaxThreads)
-abn_stats_partial_kernel(const T* __restrict__ x, long long m, int c,
-                         float* __restrict__ ws) {
-  partial_sums<VEC>(StatsTerm<T, VEC>{x, c}, m, c, ws);
-}
-
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kMaxThreads)
-abn_grad_sums_partial_kernel(const T* __restrict__ g, const T* __restrict__ y,
-                             const T* __restrict__ x,
-                             const float* __restrict__ mean,
-                             const float* __restrict__ inv, long long m, int c,
-                             float slope, float* __restrict__ ws) {
-  partial_sums<VEC>(GradTerm<T, VEC>{g, y, x, mean, inv, c, slope}, m, c, ws);
-}
-
-// The sums of channel blockIdx.x * kFinalChannels + threadIdx.x over the
-// `parts` partials of ws: lane l (threadIdx.y) adds partials l, l +
-// kFinalLanes, ..., then lane 0 adds the lanes' sums in lane order. True on
-// the thread that holds a channel's result.
-__device__ __forceinline__ bool final_sums(const float* __restrict__ ws,
-                                           int parts, int c, float& s1,
-                                           float& s2) {
-  const int ch = blockIdx.x * kFinalChannels + threadIdx.x;
-  float a = 0.0f, b = 0.0f;
-  if (ch < c)
-    for (int j = threadIdx.y; j < parts; j += kFinalLanes) {
-      a += ws[(long long)j * 2 * c + ch];
-      b += ws[(long long)j * 2 * c + c + ch];
-    }
-  __shared__ float sh[2][kFinalLanes][kFinalChannels];
-  sh[0][threadIdx.y][threadIdx.x] = a;
-  sh[1][threadIdx.y][threadIdx.x] = b;
+  const float sum = block_sums<VEC>(s1, s2, sh);
+  if (v < 2 * w) sh[v] = sum;  // lane 0's row: read for the last time above
+  if (v == 0) counters[blockIdx.x] = 0u;
   __syncthreads();
-  if (threadIdx.y != 0 || ch >= c) return false;
-  s1 = s2 = 0.0f;
-#pragma unroll
-  for (int l = 0; l < kFinalLanes; ++l) {
-    s1 += sh[0][l][threadIdx.x];
-    s2 += sh[1][l][threadIdx.x];
-  }
-  return true;
+  return sh;
 }
 
-// K1s's second pass: mean = Σx / m and var = Σx² / m − mean² (jnp.mean's
-// division, mean² rounded before the difference, not clamped), and
-// inv_std = 1 / sqrt(var + eps) with IEEE division and square root, as
-// K1's forward forms it from var.
-__global__ void __launch_bounds__(kFinalChannels * kFinalLanes)
-abn_stats_finalize_kernel(const float* __restrict__ ws, int parts,
-                          long long m, int c, float eps,
-                          float* __restrict__ mean, float* __restrict__ var,
-                          float* __restrict__ inv) {
-  float s1, s2;
-  if (!final_sums(ws, parts, c, s1, s2)) return;
-  const int ch = blockIdx.x * kFinalChannels + threadIdx.x;
+// K1s: mean = Σx / m and var = Σx² / m − mean² (jnp.mean's division, mean²
+// rounded before the difference, not clamped), and inv_std = 1 / sqrt(var
+// + eps) with IEEE division and square root, as K1's forward forms it.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kSumThreads)
+abn_stats_kernel(const T* __restrict__ x, long long m, int c, int rows,
+                 float eps, float* __restrict__ ws,
+                 unsigned* __restrict__ counters,
+                 float* __restrict__ mean, float* __restrict__ var,
+                 float* __restrict__ inv) {
+  const float* sums =
+      column_sums<VEC>(StatsTerm<T, VEC>{x}, m, c, rows, ws, counters);
+  const int w = blockDim.x * VEC, j = threadIdx.y * blockDim.x + threadIdx.x;
+  const int ch = blockIdx.x * w + j;
+  if (sums == nullptr || j >= w || ch >= c) return;
   const float n = (float)m;
-  const float mu = s1 / n;
-  const float v = s2 / n - __fmul_rn(mu, mu);
+  const float mu = sums[j] / n;
+  const float v = sums[w + j] / n - __fmul_rn(mu, mu);
   mean[ch] = mu;
   var[ch] = v;
   inv[ch] = 1.0f / sqrtf(v + eps);
 }
 
-// K1r's second pass: dbias = Σdy, dscale = Σdy·x̂.
-__global__ void __launch_bounds__(kFinalChannels * kFinalLanes)
-abn_grad_sums_finalize_kernel(const float* __restrict__ ws, int parts, int c,
-                              float* __restrict__ dscale,
-                              float* __restrict__ dbias) {
-  float s1, s2;
-  if (!final_sums(ws, parts, c, s1, s2)) return;
-  const int ch = blockIdx.x * kFinalChannels + threadIdx.x;
-  dbias[ch] = s1;
-  dscale[ch] = s2;
+// K1r: dbias = Σdy, dscale = Σdy·x̂.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kSumThreads)
+abn_grad_sums_kernel(const T* __restrict__ g, const T* __restrict__ y,
+                     const T* __restrict__ x, const float* __restrict__ mean,
+                     const float* __restrict__ inv, long long m, int c,
+                     int rows, float slope, float* __restrict__ ws,
+                     unsigned* __restrict__ counters,
+                     float* __restrict__ dscale, float* __restrict__ dbias) {
+  const float* sums = column_sums<VEC>(
+      GradTerm<T, VEC>{g, y, x, mean, inv, slope}, m, c, rows, ws, counters);
+  const int w = blockDim.x * VEC, j = threadIdx.y * blockDim.x + threadIdx.x;
+  const int ch = blockIdx.x * w + j;
+  if (sums == nullptr || j >= w || ch >= c) return;
+  dbias[ch] = sums[j];
+  dscale[ch] = sums[w + j];
 }
 
 // K1d: K1's block, grid and row-stride loop (R rows a thread), with
@@ -307,51 +384,73 @@ abn_grad_input_kernel(const T* __restrict__ g, const T* __restrict__ y,
   }
 }
 
-dim3 final_grid(int c) {
-  return dim3((c + kFinalChannels - 1) / kFinalChannels);
+// Whether K1s and K1r take geometry g for (m, c) (sums_geometry): the
+// vector width on a C it divides and on 16-byte aligned pointers (the n
+// pointers given), or the scalar path; the block they are built for (tx
+// channel groups by kSumThreads / tx lanes); every channel group covered by
+// gx channel tiles, each with a counter among the `tiles` given; gy row
+// blocks whose lanes cover every row in `rows` steps (rows = ceil(m / (ty *
+// gy))), none idle; and long partials: each lane at least kSumMinRows rows,
+// unless one row block takes them all. K1's geometry is never taken.
+bool sums_takes(const Geometry& g, long long m, int c, const void* const* ptrs,
+                int n, int tiles) {
+  if (g.vec != 1 && g.vec != kVec) return false;
+  if (g.vec == kVec) {
+    if (c % kVec != 0) return false;
+    for (int i = 0; i < n; ++i)
+      if ((uintptr_t)ptrs[i] % 16 != 0) return false;
+  }
+  if (g.tx < 1 || g.tx > kSumThreads || g.ty != kSumThreads / g.tx ||
+      2 * g.vec > g.ty)
+    return false;
+  if (g.gx < 1 || g.gx > tiles || g.gy < 1 || (unsigned)g.gy > kMaxGridY)
+    return false;
+  const long long groups = (c + g.vec - 1) / g.vec;
+  if ((long long)g.gx * g.tx < groups || (long long)(g.gx - 1) * g.tx >= groups)
+    return false;
+  const long long lanes = (long long)g.ty * g.gy;
+  if ((long long)(g.gy - 1) * g.ty >= m) return false;  // an idle row block
+  if (g.rows < 1 || lanes * g.rows < m || lanes * (g.rows - 1) >= m)
+    return false;
+  return g.gy == 1 || lanes * kSumMinRows <= m;
 }
 
 template <typename T>
-cudaError_t stats(const Geometry& g, const void* x, float* ws, float* mean,
-                  float* var, float* inv, long long m, int c, float eps,
-                  cudaStream_t s) {
-  const void* ptrs[1] = {x};
-  if (g.rows != 1 || !takes(g, m, c, ptrs, 1)) return cudaErrorInvalidValue;
+cudaError_t stats(const Geometry& g, const void* x, float* ws,
+                  unsigned* counters, int tiles, float* mean, float* var,
+                  float* inv, long long m, int c, float eps, cudaStream_t s) {
+  const void* ptrs[2] = {x, ws};
+  if (!sums_takes(g, m, c, ptrs, 2, tiles)) return cudaErrorInvalidValue;
   const dim3 grid(g.gx, g.gy), block(g.tx, g.ty);
   const T* xt = static_cast<const T*>(x);
   if (g.vec == kVec)
-    abn_stats_partial_kernel<T, kVec><<<grid, block, 0, s>>>(xt, m, c, ws);
+    abn_stats_kernel<T, kVec><<<grid, block, 0, s>>>(
+        xt, m, c, g.rows, eps, ws, counters, mean, var, inv);
   else
-    abn_stats_partial_kernel<T, 1><<<grid, block, 0, s>>>(xt, m, c, ws);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  abn_stats_finalize_kernel<<<final_grid(c), dim3(kFinalChannels, kFinalLanes),
-                              0, s>>>(ws, g.gy, m, c, eps, mean, var, inv);
+    abn_stats_kernel<T, 1><<<grid, block, 0, s>>>(
+        xt, m, c, g.rows, eps, ws, counters, mean, var, inv);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t grad_sums(const Geometry& geo, const void* g, const void* y,
                       const void* x, const float* mean, const float* inv,
-                      float* ws, float* dscale, float* dbias, long long m,
-                      int c, float slope, cudaStream_t s) {
-  const void* ptrs[5] = {g, y, x, mean, inv};
-  if (geo.rows != 1 || !takes(geo, m, c, ptrs, 5))
-    return cudaErrorInvalidValue;
+                      float* ws, unsigned* counters, int tiles, float* dscale,
+                      float* dbias, long long m, int c, float slope,
+                      cudaStream_t s) {
+  const void* ptrs[6] = {g, y, x, mean, inv, ws};
+  if (!sums_takes(geo, m, c, ptrs, 6, tiles)) return cudaErrorInvalidValue;
   const dim3 grid(geo.gx, geo.gy), block(geo.tx, geo.ty);
   const T *gt = static_cast<const T*>(g), *yt = static_cast<const T*>(y),
           *xt = static_cast<const T*>(x);
   if (geo.vec == kVec)
-    abn_grad_sums_partial_kernel<T, kVec><<<grid, block, 0, s>>>(
-        gt, yt, xt, mean, inv, m, c, slope, ws);
+    abn_grad_sums_kernel<T, kVec><<<grid, block, 0, s>>>(
+        gt, yt, xt, mean, inv, m, c, geo.rows, slope, ws, counters, dscale,
+        dbias);
   else
-    abn_grad_sums_partial_kernel<T, 1><<<grid, block, 0, s>>>(
-        gt, yt, xt, mean, inv, m, c, slope, ws);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  abn_grad_sums_finalize_kernel<<<final_grid(c),
-                                  dim3(kFinalChannels, kFinalLanes), 0, s>>>(
-      ws, geo.gy, c, dscale, dbias);
+    abn_grad_sums_kernel<T, 1><<<grid, block, 0, s>>>(
+        gt, yt, xt, mean, inv, m, c, geo.rows, slope, ws, counters, dscale,
+        dbias);
   return cudaGetLastError();
 }
 
@@ -400,24 +499,29 @@ cudaError_t grad_input(const Geometry& geo, const void* g, const void* y,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. geometry: {vec, rows, tx, ty, gx, gy}
-// (ops/fused_abn.py::geometry; rows 1 for the two reductions, at most 4 for
-// K1d). ws: gy * 2 * c floats. Each returns cudaGetLastError() after its
-// launches (0 = launched), or cudaErrorInvalidValue for a dtype code, a
-// shape or a geometry it does not take.
+// (K1s, K1r: ops/fused_abn.py::sums_geometry; K1d: its grad_input_geometry,
+// K1's rule with rows at most 4). ws: gy * 2 * c floats; counters: `tiles`
+// unsigned ints, all 0, of which the launch uses gx and leaves them 0. Each
+// returns cudaGetLastError() after its launch (0 = launched), or
+// cudaErrorInvalidValue for a dtype code, a shape or a geometry it does not
+// take.
 
 // K1s: mean, var and inv_std of x's columns.
-extern "C" int abn_stats(const void* x, float* ws, float* mean, float* var,
-                         float* inv, long long m, int c, float eps, int dtype,
+extern "C" int abn_stats(const void* x, float* ws, unsigned* counters,
+                         float* mean, float* var, float* inv, long long m,
+                         int c, float eps, int tiles, int dtype,
                          const int* geometry, void* stream) {
-  if (m <= 0 || c <= 0 || geometry == nullptr)
+  if (m <= 0 || c <= 0 || geometry == nullptr || counters == nullptr)
     return (int)cudaErrorInvalidValue;
   const Geometry g = unpack(geometry);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)stats<float>(g, x, ws, mean, var, inv, m, c, eps, s);
+      return (int)stats<float>(g, x, ws, counters, tiles, mean, var, inv, m,
+                               c, eps, s);
     case 1:
-      return (int)stats<__nv_bfloat16>(g, x, ws, mean, var, inv, m, c, eps, s);
+      return (int)stats<__nv_bfloat16>(g, x, ws, counters, tiles, mean, var,
+                                       inv, m, c, eps, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -426,20 +530,21 @@ extern "C" int abn_stats(const void* x, float* ws, float* mean, float* var,
 // K1r: dscale = Σdy·x̂ and dbias = Σdy per channel.
 extern "C" int abn_grad_sums(const void* g, const void* y, const void* x,
                              const float* mean, const float* inv, float* ws,
-                             float* dscale, float* dbias, long long m, int c,
-                             float slope, int dtype, const int* geometry,
-                             void* stream) {
-  if (m <= 0 || c <= 0 || geometry == nullptr)
+                             unsigned* counters, float* dscale, float* dbias,
+                             long long m, int c, float slope, int tiles,
+                             int dtype, const int* geometry, void* stream) {
+  if (m <= 0 || c <= 0 || geometry == nullptr || counters == nullptr)
     return (int)cudaErrorInvalidValue;
   const Geometry geo = unpack(geometry);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)grad_sums<float>(geo, g, y, x, mean, inv, ws, dscale, dbias,
-                                   m, c, slope, s);
+      return (int)grad_sums<float>(geo, g, y, x, mean, inv, ws, counters,
+                                   tiles, dscale, dbias, m, c, slope, s);
     case 1:
-      return (int)grad_sums<__nv_bfloat16>(geo, g, y, x, mean, inv, ws, dscale,
-                                           dbias, m, c, slope, s);
+      return (int)grad_sums<__nv_bfloat16>(geo, g, y, x, mean, inv, ws,
+                                           counters, tiles, dscale, dbias, m,
+                                           c, slope, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

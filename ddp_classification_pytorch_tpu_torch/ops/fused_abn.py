@@ -25,8 +25,12 @@ version. Each launch adds one to the wrapper's `launches`, so a run can
 show that its main path went through the kernels.
 
 The launch geometry (vector width, rows per thread, block and grid) is
-computed here by `geometry`, cached per shape, and checked by the C side,
-which refuses one it does not take; the CPU tests hold its arithmetic.
+computed here, cached per shape, and checked by the C side, which refuses
+one it does not take; the CPU tests hold its arithmetic. K1 and K1d use
+`geometry` (K1d through `grad_input_geometry`); the two reductions K1s and
+K1r use `sums_geometry`: one launch a call, whose last block per channel
+tile adds the tile's partials, with per-card counters and workspace kept
+here (`_sums_scratch`).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import ctypes
 import functools
 import operator
 import os
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -52,9 +56,15 @@ MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y
 ROWS_PER_THREAD = (1, 2, 4, 8)  # the R the kernel is instantiated for
 TILES_PER_SM = 2  # R grows only while every SM still gets this many row tiles
 GRAD_INPUT_MAX_ROWS = 4  # the R K1d is built for (kGradInputMaxRows)
+SUM_THREADS = 256  # per block of K1s and K1r (kSumThreads in fused_abn_train.cu)
+SUM_MIN_ROWS = 16  # rows each lane of K1s/K1r sums at least, where M allows
+SUM_TILE = 32  # channels of a K1s/K1r channel tile at most: 64 bytes of bf16
+SUM_BLOCKS_PER_SM = 1  # K1s/K1r blocks the grid holds per SM at most
+SUM_COUNTERS = 1024  # channel tiles the per-card counters cover at first
 _lib: Optional[ctypes.CDLL] = None
 _raw_stream: Optional[Callable[[int], int]] = None
 _sms: Dict[int, int] = {}
+_scratch: Dict[int, List[torch.Tensor]] = {}  # card -> [counters, workspace]
 
 
 class Geometry(NamedTuple):
@@ -99,6 +109,29 @@ def geometry(m: int, c: int, sms: int, aligned: bool = True,
 
 
 @functools.lru_cache(maxsize=4096)
+def sums_geometry(m: int, c: int, sms: int, aligned: bool = True) -> Geometry:
+    """The launch geometry of the reductions K1s and K1r for (m, c) rows on
+    a card of `sms` SMs: few, long partials. A block is SUM_THREADS
+    threads, `tx` channel groups of a channel tile of at most SUM_TILE
+    channels by `ty` = SUM_THREADS // tx row lanes; `gx` channel tiles by
+    `gy` row blocks, gy at most SUM_BLOCKS_PER_SM * sms // gx and small
+    enough that each lane sums at least SUM_MIN_ROWS rows where M allows
+    (a small M narrows nothing further: the tile is already narrow, and
+    the rows stay long). Lane ty_i of row block by sums rows by * ty +
+    ty_i + k * ty * gy for k < `rows` = ceil(m / (ty * gy)); the last
+    block of a channel tile adds its gy partials. The vector path as in
+    `geometry`."""
+    vec = VEC if aligned and c % VEC == 0 else 1
+    groups = -(-c // vec)
+    tx = min(groups, SUM_TILE // vec)
+    ty = SUM_THREADS // tx
+    gx = -(-groups // tx)
+    gy = max(1, min(m // (SUM_MIN_ROWS * ty), SUM_BLOCKS_PER_SM * sms // gx))
+    rows = -(-m // (ty * gy))
+    return Geometry(vec, rows, tx, ty, gx, gy)
+
+
+@functools.lru_cache(maxsize=4096)
 def _packed(g: Geometry) -> ctypes.Array:
     return (ctypes.c_int * len(g))(*g)
 
@@ -113,8 +146,8 @@ def build() -> str:
                               ctypes.c_float)
         # each: pointers, m, c, then its scalars, dtype, geometry, stream
         for name, n_ptrs, scalars in (("fused_abn_forward", 6, (f32, f32)),
-                                      ("abn_stats", 5, (f32,)),
-                                      ("abn_grad_sums", 8, (f32,)),
+                                      ("abn_stats", 6, (f32, i32)),
+                                      ("abn_grad_sums", 9, (f32, i32)),
                                       ("abn_grad_input", 9, (f32,))):
             fn = getattr(lib, name)
             fn.argtypes = [ptr] * n_ptrs + [i64, i32, *scalars, i32, ptr, ptr]
@@ -374,26 +407,56 @@ def fused_bn_leaky_relu_backward_ref(g: torch.Tensor, x: torch.Tensor,
     return _unrows(dx2, x), dscale, dbias
 
 
-def _empty_vecs(n: int, c: int, like: torch.Tensor):
-    return [torch.empty(c, dtype=torch.float32, device=like.device)
-            for _ in range(n)]
+def _sums_scratch(x: torch.Tensor, g: Geometry):
+    """(workspace, counters, count of counters) for K1s or K1r on x's card
+    with geometry g: pointers to a (gy, 2, C) f32 workspace and to int32
+    counters, one a channel tile, all 0 between launches (each launch puts
+    back the ones it used). Both live in `_scratch` per card, grown to the
+    need, and are shared by every launch there, so those launches must run
+    on one stream, in order (as autograd runs a train step); the counters'
+    staying 0 also lets a CUDA graph capture the launches."""
+    index = x.get_device()
+    scratch = _scratch.get(index)
+    if scratch is None:
+        scratch = _scratch[index] = [
+            torch.zeros(SUM_COUNTERS, dtype=torch.int32, device=x.device),
+            torch.empty(0, dtype=torch.float32, device=x.device)]
+    if scratch[0].numel() < g.gx:
+        scratch[0] = torch.zeros(g.gx, dtype=torch.int32, device=x.device)
+    need = g.gy * 2 * x.shape[1]
+    if scratch[1].numel() < need:
+        scratch[1] = torch.empty(need, dtype=torch.float32, device=x.device)
+    counters, ws = scratch
+    return ws.data_ptr(), counters.data_ptr(), counters.numel()
 
 
-def bn_stats(x: torch.Tensor, eps: float = 1e-5):
+def bn_stats(x: torch.Tensor, eps: float = 1e-5,
+             geometry: Optional[Geometry] = None):
     """K1s on the card, the plain version on the CPU: (mean, var, inv_std)
-    of x's channels, f32 (C,). inv_std is 1 / sqrt(var + eps) as K1's
-    forward forms it from var. x as `fused_bn_leaky_relu` takes it."""
+    of x's channels, f32 (C,) (three rows of one allocation). inv_std is
+    1 / sqrt(var + eps) as K1's forward forms it from var. x as
+    `fused_bn_leaky_relu` takes it.
+
+    One launch: the kernel's last block per channel tile adds the tile's
+    partials, with counters and a workspace kept per card
+    (`_sums_scratch`): launches on one card run on one stream, in order.
+    `geometry` forces a launch geometry (for tests and measurements; the
+    wrapper's own is `sums_geometry`); the C side refuses one it does not
+    take, and this raises."""
     if x.device.type == "cpu":
         return bn_stats_ref(x, eps)
     c = _check(x, (), op="bn_stats")
     m = x.numel() // c
-    g = geometry(m, c, sm_count(x.get_device()), _aligned([x.data_ptr()]), 1)
-    ws = torch.empty(g.gy * 2 * c, dtype=torch.float32, device=x.device)
-    mean, var, inv_std = _empty_vecs(3, c, x)
-    _invoke("abn_stats", x, (x.data_ptr(), ws.data_ptr(), mean.data_ptr(),
-                             var.data_ptr(), inv_std.data_ptr(), m, c, eps), g)
+    if geometry is None:
+        geometry = sums_geometry(m, c, sm_count(x.get_device()),
+                                 _aligned([x.data_ptr()]))
+    ws, counters, tiles = _sums_scratch(x, geometry)
+    out = torch.empty((3, c), dtype=torch.float32, device=x.device)
+    base = out.data_ptr()
+    _invoke("abn_stats", x, (x.data_ptr(), ws, counters, base, base + 4 * c,
+                             base + 8 * c, m, c, eps, tiles), geometry)
     bn_stats.launches += 1
-    return mean, var, inv_std
+    return out.unbind(0)
 
 
 bn_stats.launches = 0
@@ -401,22 +464,28 @@ bn_stats.launches = 0
 
 def abn_grad_sums(g: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
                   mean: torch.Tensor, inv_std: torch.Tensor,
-                  negative_slope: float = 0.01):
+                  negative_slope: float = 0.01,
+                  geometry: Optional[Geometry] = None):
     """K1r on the card, the plain version on the CPU: (dscale, dbias), f32
-    (C,). g and y share x's dtype, shape and layout."""
+    (C,) (two rows of one allocation). g and y share x's dtype, shape and
+    layout. One launch, as `bn_stats`, whose contract and `geometry` it
+    shares."""
     if x.device.type == "cpu":
         return abn_grad_sums_ref(g, y, x, mean, inv_std, negative_slope)
     c = _check(x, (mean, inv_std), ("mean", "inv_std"), "abn_grad_sums")
     _check_like("abn_grad_sums", x, g=g, y=y)
     m = x.numel() // c
     ptrs = [t.data_ptr() for t in (g, y, x, mean, inv_std)]
-    geo = geometry(m, c, sm_count(x.get_device()), _aligned(ptrs), 1)
-    ws = torch.empty(geo.gy * 2 * c, dtype=torch.float32, device=x.device)
-    dscale, dbias = _empty_vecs(2, c, x)
-    _invoke("abn_grad_sums", x, (*ptrs, ws.data_ptr(), dscale.data_ptr(),
-                                 dbias.data_ptr(), m, c, negative_slope), geo)
+    if geometry is None:
+        geometry = sums_geometry(m, c, sm_count(x.get_device()),
+                                 _aligned(ptrs))
+    ws, counters, tiles = _sums_scratch(x, geometry)
+    out = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    base = out.data_ptr()
+    _invoke("abn_grad_sums", x, (*ptrs, ws, counters, base, base + 4 * c, m,
+                                 c, negative_slope, tiles), geometry)
     abn_grad_sums.launches += 1
-    return dscale, dbias
+    return out.unbind(0)
 
 
 abn_grad_sums.launches = 0

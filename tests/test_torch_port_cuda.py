@@ -2,9 +2,11 @@
 K1s/K1r/K1d and the flash attention kernels K2-K4 against their plain
 PyTorch versions (which the CPU tests hold against the JAX package), the
 bf16 comparisons' power to refuse near misses, the kernels' bitwise
-determinism, the wrappers' refusals and launch counts, K1 at every
-rows-per-thread on ragged row counts and its refusal of a launch geometry
-it does not take, the ABN and flash autograd Functions against the plain
+determinism (K1s and K1r also interleaved over shapes and dtypes, their
+per-card counters left at 0), the wrappers' refusals and launch counts,
+K1 at every rows-per-thread on ragged row counts and its refusal of a
+launch geometry it does not take, the reductions' refusal of K1's
+geometry and of any other they do not take, the ABN and flash autograd Functions against the plain
 versions' autograd, and the served model on the card against the same
 model on the CPU.
 
@@ -305,8 +307,10 @@ def test_training_kernels_match_plain_versions(cuda, shape, dtype):
                          ids=["f32", "bf16"])
 def test_training_kernels_give_the_same_bits(cuda, dtype):
     """No floating-point atomics: a second launch of K1s, K1r and K1d on
-    the same inputs gives the same bits."""
-    for shape in [(32, 128, 56, 56), (1001, 37)]:
+    the same inputs gives the same bits, also at the stem's (32, 64, 56,
+    56), the shape with the most partials a channel tile (one a row block
+    of `sums_geometry`, whose last block adds them)."""
+    for shape in [(32, 128, 56, 56), (32, 64, 56, 56), (1001, 37)]:
         x, g, y, scale, mean, inv = _train_args(shape, dtype, cuda, seed=4)
         runs = []
         for _ in range(2):
@@ -316,6 +320,89 @@ def test_training_kernels_give_the_same_bits(cuda, dtype):
                                                   ds, db, 1e-3)))
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(*runs)), shape
+
+
+def _counters_are_zero(device):
+    counters, _ = fused_abn._scratch[device.index or 0]
+    return not counters.any().item()
+
+
+def test_reductions_interleaved_give_the_same_bits_and_leave_counters_zero(
+        cuda):
+    """K1s and K1r on several shapes and both dtypes, interleaved (each
+    launch reuses the per-card counters and workspace the one before
+    used), then the first calls again: the same bits; and the counters are
+    all 0 after every launch."""
+    shapes = [(32, 256, 14, 14), (1001, 37), (32, 64, 56, 56), (393, 48),
+              (32, 512, 7, 7)]
+    cases = [_train_args(s, d, cuda, seed=7)
+             for s in shapes for d in (torch.bfloat16, torch.float32)]
+
+    def both(x, g, y, scale, mean, inv):
+        return (*fused_abn.bn_stats(x),
+                *fused_abn.abn_grad_sums(g, y, x, mean, inv, 1e-3))
+
+    first = [both(*t) for t in cases]
+    torch.cuda.synchronize()
+    assert _counters_are_zero(cuda)
+    for t, want in zip(reversed(cases), reversed(first)):
+        got = both(*t)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), t[0].shape
+        assert _counters_are_zero(cuda)
+
+
+def test_reductions_refuse_a_geometry_they_do_not_take(cuda):
+    """The C side checks the reductions' geometry on its own and refuses,
+    with cudaErrorInvalidValue, K1's geometry and any that would leave a
+    row or a channel out, launch an idle row block, a block of another
+    size, lanes shorter than SUM_MIN_ROWS rows, or the vector path on a
+    misaligned input; nothing launches,
+    the counters stay 0, and the wrapper's own geometry still works."""
+    x, g, y, scale, mean, inv = _train_args((32, 128, 28, 28), torch.float32,
+                                            cuda)
+    m, c = x.numel() // 128, 128
+    sms = fused_abn.sm_count(x.get_device())
+    good = fused_abn.sums_geometry(m, c, sms)
+    assert good.gy > 1 and good.gx > 1
+    lanes = good.ty * good.gy
+    bad = {
+        "K1's geometry": fused_abn.geometry(m, c, sms, True, 1),
+        "K1's geometry, one row block":
+            fused_abn.geometry(m, c, sms, True, 1)._replace(gy=1),
+        "a row left out": good._replace(rows=good.rows - 1),
+        "a channel tile left out": good._replace(gx=good.gx - 1),
+        "idle channel tile": good._replace(gx=good.gx + 1),
+        "idle row block": good._replace(gy=-(-m // good.ty) + 1,
+                                        rows=1),
+        "another block size": good._replace(ty=good.ty // 2),
+        "short lanes": good._replace(gy=good.gy * 2,
+                                     rows=-(-m // (lanes * 2))),
+        "no block": good._replace(gy=0),
+    }
+    want = (fused_abn.bn_stats(x),
+            fused_abn.abn_grad_sums(g, y, x, mean, inv, 1e-3))
+    for why, geo in bad.items():
+        for call in (lambda: fused_abn.bn_stats(x, geometry=geo),
+                     lambda: fused_abn.abn_grad_sums(g, y, x, mean, inv, 1e-3,
+                                                     geometry=geo)):
+            with pytest.raises(RuntimeError,
+                               match=f"CUDA error {CUDA_ERROR_INVALID_VALUE} "):
+                call()
+                pytest.fail(f"launched with {why}: {geo}")
+    buf = torch.randn(m * c + 1, device=cuda)
+    xm = buf[1:].view(m, c)
+    with pytest.raises(RuntimeError,
+                       match=f"CUDA error {CUDA_ERROR_INVALID_VALUE} "):
+        fused_abn.bn_stats(xm, geometry=fused_abn.sums_geometry(m, c, sms))
+    assert fused_abn.bn_stats(xm)[0].shape == (c,)  # the scalar path
+    torch.cuda.synchronize()
+    assert _counters_are_zero(cuda)
+    again = (fused_abn.bn_stats(x),
+             fused_abn.abn_grad_sums(g, y, x, mean, inv, 1e-3))
+    torch.cuda.synchronize()
+    for a, b in zip(want, again):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 def test_training_kernels_refuse_what_they_do_not_take(cuda):
