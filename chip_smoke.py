@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """On-card smoke of the torch port: builds its kernels, holds each against
 its plain PyTorch version, and drives the port's main paths — serving
-TResNet-M at full width and depth, training ViT-B/16 at 512 px, and
-training TResNet-M at 224 px, then serving its checkpoint — on one NVIDIA
-GPU.
+TResNet-M at full width and depth, training ViT-B/16 at 512 px, training
+TResNet-M at 224 px and serving its checkpoint, and training TResNet-M on
+real-data input (an image folder through the native dataplane, or CIFAR
+pickles where the dataplane cannot be built), resuming it and serving the
+resumed checkpoint — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -11,7 +13,14 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
 
 1. device — CUDA is required (no CPU fallback); prints the card's name and
    power limit as nvidia-smi gives them;
-2. build — K1, K1s, K1r and K1d from `ops/csrc/fused_abn.cu` +
+2. build — the native dataplane's toolchain probed first (g++, jpeglib.h,
+   png.h, -ljpeg, -lpng; printed, with os.cpu_count()): where libjpeg can
+   be built against, `native/dataplane.cpp` is built with g++ beside the
+   nvcc builds and phases 16-19 run on an image folder; where it cannot,
+   they run on CIFAR-10's pickle layout instead (raw pixels, no decoder)
+   and the train CLI on an image folder must exit rc 2 naming what is
+   missing (the gate is the probe, never a caught exception). K1, K1s,
+   K1r and K1d from `ops/csrc/fused_abn.cu` +
    `ops/csrc/fused_abn_train.cu` (with their header `fused_abn.cuh`), and
    K2-K4 from `ops/csrc/flash_attention.cu` + `ops/csrc/flash_fwd_sm90.cu` +
    `ops/csrc/flash_bwd_sm90.cu` (with their header `flash_sm90.cuh`), one
@@ -88,16 +97,24 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    bound, with the SM clock and power draw read beside them; and the host
    time of issuing one K2, K3 and K4 launch through its wrapper (12 in a
    row, no synchronize: checks, output allocation, tensor maps, launch);
-11. kernel vs plain (K1s, K1r, K1d) — the training passes around K1
-   (batch statistics; the backward's sums; dx) against `bn_stats_ref`,
-   `abn_grad_sums_ref` and `abn_grad_input_ref` at every ABN shape of a
-   batch-32 TResNet-M train step at 224 px, plus a ragged C and an odd M,
-   in f32 and bf16: statistics within 1e-5; dscale and dbias per channel
-   within SUM_ULPS f32 ulps of the sum of the terms' magnitudes (sums in
-   another order); dx within 1e-5 in f32 and 1e-2 in bf16 (compared in
-   f32: one bf16 ulp); K1r + K1d also against the line-for-line `_bwd`
-   (`fused_bn_leaky_relu_backward_ref`); a second launch of each gives
-   the same bits (no floating-point atomics);
+   then the wall of one ViT train epoch (8 steps), with the synthetic
+   images made on the step loop's thread and copied inside it, and with
+   them made on the loader's threads and staged by the prefetcher, in
+   turns (synchronous, threaded, threaded, synchronous);
+11. kernel vs plain (K1s, K1r, K1d, and K1 in training) — the training
+   passes around K1 (batch statistics; the backward's sums; dx) against
+   `bn_stats_ref`, `abn_grad_sums_ref` and `abn_grad_input_ref`, and K1
+   on those batch statistics against `fused_bn_leaky_relu_ref`, at every
+   ABN shape of a batch-32 TResNet-M train step at 224 px, plus a ragged
+   C and an odd M, then at every ABN shape of the real-data path's train
+   step (phase 17: 256-px crops on an image folder, 32 px on CIFAR; their
+   shapes recorded by hooks on one forward, as phase 3's), in f32 and
+   bf16: statistics within 1e-5; dscale and dbias per channel within
+   SUM_ULPS f32 ulps of the sum of the terms' magnitudes (sums in
+   another order); dx and K1's y within 1e-5 in f32 and 1e-2 in bf16
+   (compared in f32: one bf16 ulp); K1r + K1d also against the
+   line-for-line `_bwd` (`fused_bn_leaky_relu_backward_ref`); a second
+   launch of each gives the same bits (no floating-point atomics);
 12. the TResNet-M training path — `cli/train.py`'s sequence in process:
    TResNet-M at full width and depth, 224 px, 2173 classes, batch 32,
    bf16, SGD momentum 0.9 at lr 0.01, synthetic data of 256 images: 8
@@ -135,7 +152,38 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    launch that finalizes its own sums), in the timed regions and at most
    36 each in the step; the host µs of one K1s and one K1r wrapper call
    (36 in a row, nothing synchronized);
-15. a `{"kernels": [...]}` line (K1-K4, K1s, K1r, K1d), then
+15. (the dataplane's probe and build run with phase 2)
+16. loader — the input's images/s with 1 and 4 threads: on an image
+   folder, the dataplane's native threads over a 4-class fixture tree of
+   256 train and 64 val JPEGs (copies of the 8 committed ~500x375 fixtures
+   in `tests/data/torch_port_jpeg/`), batches of 32, RandomResizedCrop
+   (256), uint8; on CIFAR, the loader's worker threads over 256 train and
+   64 test images written from a seed;
+17. the real-data training path — `cli/train.py`'s sequence in process on
+   that data: TResNet-M at full width (2173 classes on the folder, with
+   train crops at 256 px and eval at 224, the baseline preset; 10 classes
+   at 32 px on CIFAR), batch 32, bf16, loader threads, device prefetch, the
+   train-time flip, tensorboard, 2 epochs of 8 steps and 2 eval batches.
+   K1 rose by 36 × (8 + 2) × 2 and K1s, K1r and K1d by 36 × 8 × 2; the loss
+   is finite, no step was skipped, the flip is on and its masks
+   (`flip_mask` of the run's seed and step) flip some samples, not all,
+   `ckpt_e0`, `ckpt_e1`, `ckpt_best` with sidecars, `meta.json` and
+   the `tb/` events are written and the last checkpoint restores to the
+   trained state; then its step on a staged batch: wall, device time,
+   busy share, the four ABN kernels 36 launches each a step and their
+   device ms, the step by kernel family, and the time the step loop
+   waited on the prefetch queue per step. On CIFAR the same step is also
+   timed at the folder's shapes (256-px uint8 crops of random pixels,
+   flip on, 2173 classes);
+18. resume — a run stopped after epoch 0, then `--resume` its `ckpt_e0.pt`
+   into a new directory: the state restored equals the saved one bitwise
+   (weights, momentum on the card in f32, step, opt_count), it continues
+   at epoch 1, and the first batch and flip mask it trains on equal those
+   the uninterrupted run of phase 17 saw at the same step;
+19. the resumed checkpoint served — `cli/serve.py`'s selfcheck over it (8
+   requests, K1 36 a forward) and the same top-5 as the trainer's own eval
+   forward on 8 val images;
+20. a `{"kernels": [...]}` line (K1-K4, K1s, K1r, K1d), then
    `{"ok": true, "device": {...}}` last.
 
 Numerics on the card: `torch.backends.cudnn.allow_tf32 = False` and
@@ -765,17 +813,33 @@ def flash_vs_plain(torch, fa, device):
     return rows, timed
 
 
+def same_state(torch, a, b) -> bool:
+    """Two train states (`TrainState.state_dict()` layouts) hold the same
+    bits: model tensors, the optimizer's momentum, step and opt_count."""
+    def equal(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(equal(x[k], y[k]) for k in x)
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x.cpu(), y.cpu())
+        return x == y
+
+    return all(equal(a[k], b[k]) for k in ("model", "optimizer", "step",
+                                           "opt_count"))
+
+
 def train_main_path(torch, device, train_cli, checkpoint, argv, counters,
-                    want, tag, then=None):
-    """Phases 8 and 12: cli/train.py's sequence for `argv` in process, into
-    a temporary directory (a checkpoint is hundreds of MB): one epoch of
+                    want, tag, then=None, before=None, files=()):
+    """Phases 8, 12 and 17: cli/train.py's sequence for `argv` in process,
+    into a temporary directory (a checkpoint is hundreds of MB): epochs of
     TRAIN_STEPS steps and EVAL_BATCHES eval batches. `counters` names the
     wrappers whose launches the run must raise by exactly `want` (set to 0
-    just before it). The loss is finite, no step was skipped, the records
-    and the checkpoint with its sidecar are written and the checkpoint
-    restores to the trained weights. `then(trainer, ckpt)` runs
-    before the directory goes and returns more of the record. Returns the
-    trainer, its config and the record (with the small records' text)."""
+    just before it). The loss is finite, no step was skipped, the records,
+    the last epoch's checkpoint with its sidecar and `files` are written,
+    and the checkpoint restores to the trained state (weights, momentum,
+    counters). `before(trainer)` runs just before the run, `then(trainer,
+    ckpt)` after it, before the directory goes, and returns more of the
+    record. Returns the trainer, its config and the record (with the small
+    records' text)."""
     from ddp_classification_pytorch_tpu_torch.train.loop import Trainer
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
@@ -788,6 +852,8 @@ def train_main_path(torch, device, train_cli, checkpoint, argv, counters,
               f"{trainer.steps_per_epoch} train steps / "
               f"{len(trainer.val_loader)} eval batches, expected "
               f"{TRAIN_STEPS} / {EVAL_BATCHES}")
+        if before:
+            before(trainer)
         for f in counters.values():  # count only the main path's
             f.launches = 0
         t0 = time.perf_counter()
@@ -795,28 +861,26 @@ def train_main_path(torch, device, train_cli, checkpoint, argv, counters,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: f.launches for k, f in counters.items()}
-        log(f"[{tag}] epoch 0: {json.dumps(last)}")
+        log(f"[{tag}] epoch {cfg.run.epochs - 1}: {json.dumps(last)}")
         check(np.isfinite(last["loss"]) and np.isfinite(last["val_loss"]),
               "non-finite loss")
         check(last["step_ok"] == 1.0 and trainer.sentinel.skipped_total == 0,
               f"skipped steps: step_ok mean {last['step_ok']}")
         check(launches == want, f"launches {launches}, expected {want}")
-        names = ("output.txt", "history.json", "meta.json", "ckpt_e0.pt",
-                 "ckpt_e0.pt.sha256")
+        ckpt_name = f"ckpt_e{cfg.run.epochs - 1}.pt"
+        names = ("output.txt", "history.json", "meta.json", ckpt_name,
+                 ckpt_name + ".sha256", *files)
         for n in names:
-            check(os.path.isfile(os.path.join(tmp, n)), f"train wrote no {n}")
-        ckpt = os.path.join(tmp, "ckpt_e0.pt")
-        restored = checkpoint.restore(ckpt)
-        trained = trainer.state.model.state_dict()
-        check(restored.keys() == trained.keys()
-              and all(torch.equal(restored[k], trained[k].cpu())
-                      for k in trained), "checkpoint does not restore the "
-              "trained weights")
+            check(os.path.exists(os.path.join(tmp, n)), f"train wrote no {n}")
+        ckpt = os.path.join(tmp, ckpt_name)
+        check(same_state(torch, checkpoint.restore(ckpt),
+                         trainer.state.state_dict()),
+              "checkpoint does not restore the trained state")
         more = then(trainer, ckpt) if then else {}
-        files = {}
+        records = {}
         for n in names[:3]:  # the small records ride in the report
             with open(os.path.join(tmp, n)) as f:
-                files[n] = f.read()
+                records[n] = f.read()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     record = {"argv": argv, "epoch": last, "launches": launches,
@@ -824,7 +888,7 @@ def train_main_path(torch, device, train_cli, checkpoint, argv, counters,
               "images_per_s": TRAIN_STEPS * cfg.data.batch_size
               / last["epoch_time"]} | more
     log(f"[{tag}] {json.dumps(record)}")
-    record["records"] = files
+    record["records"] = records
     return trainer, cfg, record
 
 
@@ -896,7 +960,10 @@ def abn_train_inputs(torch, fused_abn, shape, dtype, device, gen, slope):
     scale = torch.rand(c, device=device, generator=gen) + 0.5
     bias = torch.rand(c, device=device, generator=gen) - 0.5
     mean, var, inv = fused_abn.bn_stats_ref(x)
-    y = fused_abn.fused_bn_leaky_relu_ref(x, scale, bias, mean, var, 1e-5, slope)
+    # in x's strides, as K1's output has them (at 1x1 spatial the plain
+    # version's differ in the size-1 dims, which the wrappers refuse)
+    y = torch.empty_like(x).copy_(fused_abn.fused_bn_leaky_relu_ref(
+        x, scale, bias, mean, var, 1e-5, slope))
     g = torch.empty_like(x).normal_(generator=gen)
     return x, g, y, scale, bias, mean, var, inv
 
@@ -936,30 +1003,35 @@ def abn_train_closures(torch, fused_abn, t, slope, ds, db):
     }
 
 
-def abn_train_vs_plain(torch, fused_abn, device, shapes, slope):
-    """Phase 11: K1s, K1r and K1d against their plain versions at every
-    distinct ABN shape of a batch-32 TResNet-M train step, a ragged C and
-    an odd M, in f32 and bf16; a second launch must give the same bits.
-    Returns per-case rows, the bf16 cases' closures for phase 14, and each
-    kernel's largest error."""
+def abn_train_vs_plain(torch, fused_abn, device, shapes, slope, ragged=True):
+    """Phase 11: K1s, K1r, K1d and K1 (on the batch statistics, as training
+    calls it) against their plain versions at every distinct ABN shape of
+    `shapes` (those of one TResNet-M train step), plus a ragged C and an
+    odd M where `ragged`, in f32 and bf16; a second launch must give the
+    same bits. Returns per-case rows, the bf16 cases' closures for phase
+    14, and each kernel's largest error."""
     gen = torch.Generator(device=device).manual_seed(3)
     rows_of = fused_abn._rows
-    cases = sorted(set(shapes), key=lambda s: (-s[2], s[1])) + [(393, 48),
-                                                                 (1001, 37)]
+    cases = sorted(set(shapes), key=lambda s: (-s[2], s[1]))
+    if ragged:
+        cases += [(393, 48), (1001, 37)]
     rows, timed = [], []
-    max_err = {"k1s": 0.0, "k1r": 0.0, "k1d": 0.0}
+    max_err = {"k1": 0.0, "k1s": 0.0, "k1r": 0.0, "k1d": 0.0}
     for shape in cases:
         for dtype, stats_tol, dx_tol in ((torch.float32, 1e-5, 1e-5),
                                          (torch.bfloat16, 1e-5, 1e-2)):
             dname = str(dtype).split(".")[-1]
             t = abn_train_inputs(torch, fused_abn, shape, dtype, device, gen,
                                  slope)
-            x, g, y, scale, _, mean, _, inv = t
+            x, g, y, scale, bias, mean, var, inv = t
+            fwd = (x, scale, bias, mean, var, 1e-5, slope)
+            yk = fused_abn.fused_bn_leaky_relu(*fwd)
             stats = fused_abn.bn_stats(x)
             ds, db = fused_abn.abn_grad_sums(g, y, x, mean, inv, slope)
             dx = fused_abn.abn_grad_input(g, y, x, scale, mean, inv, ds, db,
                                           slope)
-            again = (*fused_abn.bn_stats(x),
+            again = (fused_abn.fused_bn_leaky_relu(*fwd),
+                     *fused_abn.bn_stats(x),
                      *fused_abn.abn_grad_sums(g, y, x, mean, inv, slope),
                      fused_abn.abn_grad_input(g, y, x, scale, mean, inv, ds, db,
                                               slope))
@@ -972,10 +1044,15 @@ def abn_train_vs_plain(torch, fused_abn, device, shapes, slope):
                 g, x, y, scale, mean, inv, slope)
             torch.cuda.synchronize()
             check(all(torch.equal(a, b) for a, b in
-                      zip(again, (*stats, ds, db, dx))),
-                  f"K1s/K1r/K1d {shape} {dname}: a second launch gave other "
-                  f"bits")
-            errs = {}
+                      zip(again, (yk, *stats, ds, db, dx))),
+                  f"K1/K1s/K1r/K1d {shape} {dname}: a second launch gave "
+                  f"other bits")
+            # K1 within phase 3's tolerances, dx's (y: its plain version)
+            check(yk.dtype == dtype and yk.shape == x.shape,
+                  f"K1 output {yk.dtype} {yk.shape}")
+            errs = {"y": (yk.float() - y.float()).abs().max().item()}
+            torch.testing.assert_close(yk.float(), y.float(), atol=dx_tol,
+                                       rtol=dx_tol)
             for name, a, b in zip(("mean", "var", "inv_std"), stats, want_stats):
                 errs[name] = (a - b).abs().max().item()
                 torch.testing.assert_close(a, b, atol=stats_tol, rtol=stats_tol)
@@ -996,7 +1073,7 @@ def abn_train_vs_plain(torch, fused_abn, device, shapes, slope):
                 errs[name] = (dx.float() - want.float()).abs().max().item()
                 torch.testing.assert_close(dx.float(), want.float(),
                                            atol=dx_tol, rtol=dx_tol)
-            for kind, keys in (("k1s", ("mean", "var", "inv_std")),
+            for kind, keys in (("k1", ("y",)), ("k1s", ("mean", "var", "inv_std")),
                                ("k1r", ("dscale", "dbias")), ("k1d", ("dx",))):
                 max_err[kind] = max(max_err[kind], *(errs[k] for k in keys))
             row = {"shape": list(shape), "dtype": dname, "max_abs_err": errs,
@@ -1009,24 +1086,25 @@ def abn_train_vs_plain(torch, fused_abn, device, shapes, slope):
             if dtype == torch.bfloat16:
                 timed.append((row, abn_train_closures(torch, fused_abn, t,
                                                       slope, ds, db)))
-        log(f"[abn-train] {shape}: K1s, K1r, K1d agree with the plain versions "
-            f"and with _bwd (f32, bf16); a second launch gives the same bits")
+        log(f"[abn-train] {shape}: K1, K1s, K1r, K1d agree with the plain "
+            f"versions, K1r and K1d with _bwd (f32, bf16); a second launch "
+            f"gives the same bits")
     return rows, timed, max_err
 
 
 def serve_trained_checkpoint(torch, fused_abn, device, serve_cli, k1,
-                             trainer, ckpt):
-    """Phase 12's second half: cli/serve.py's selfcheck over the TResNet-M
+                             trainer, ckpt, images, serve_argv=SERVE_ARGV):
+    """Phases 12 and 19: cli/serve.py's selfcheck over the TResNet-M
     checkpoint the trainer wrote (8 requests with finite probabilities, K1
-    36 times a forward), then one val batch through the served model and
-    the trainer's own eval forward: the same top-5."""
+    36 times a forward), then `images` (8 uint8 val images) through the
+    served model and the trainer's own eval forward: the same top-5."""
     from ddp_classification_pytorch_tpu_torch.train.steps import (
         make_topk_predict_step,
     )
 
     copies = fused_abn.FusedBNLeakyReLU.layout_copies
     check(copies == 0, f"{copies} gradients copied into y's layout")
-    argv = SERVE_ARGV[:SERVE_ARGV.index("--selfcheck")] + [
+    argv = serve_argv[:serve_argv.index("--selfcheck")] + [
         "--ckpt", ckpt, "--selfcheck", "8", "--device", "cuda"]
     cfg = serve_cli.config_from_args(serve_cli.build_parser().parse_args(argv))
     before = k1.launches
@@ -1042,8 +1120,7 @@ def serve_trained_checkpoint(torch, fused_abn, device, serve_cli, k1,
           f"served checkpoint: K1 rose by {k1.launches - before} over "
           f"{forwards} forwards")
     predict = make_topk_predict_step(cfg, 5)
-    items = [trainer.val_ds[i] for i in range(8)]
-    imgs = torch.from_numpy(np.stack([im for im, _ in items])).to(device)
+    imgs = torch.from_numpy(np.ascontiguousarray(images)).to(device)
     served_p, served_i = predict(engine._state, imgs)
     own_p, own_i = predict(trainer.state.model.eval(), imgs)
     torch.cuda.synchronize()
@@ -1139,6 +1216,388 @@ def tresnet_train_slice(torch, fused_abn, device, cfg, train_ds, wrappers):
     return out
 
 
+def vit_epoch_walls(torch, trainer) -> dict:
+    """Phase 10's last part: the wall of one ViT train epoch (8 steps, no
+    eval) with the synthetic images made on the step loop's thread and
+    copied inside it (the loader at 0 workers, prefetch depth 0: the path
+    before the loader had threads), and with them made on the loader's
+    threads and staged by the prefetcher (the trainer's settings), in
+    turns: synchronous, threaded, threaded, synchronous."""
+    loader, staged = trainer.train_loader, trainer.train_prefetch
+    setting = {"synchronous": (0, 0),
+               "threaded": (loader.num_workers, staged.depth)}
+    walls = {k: [] for k in setting}
+    for i, label in enumerate(("synchronous", "threaded", "threaded",
+                               "synchronous")):
+        loader.num_workers, staged.depth = setting[label]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_epoch(1 + i)
+        torch.cuda.synchronize()
+        walls[label].append(time.perf_counter() - t0)
+    loader.num_workers, staged.depth = setting["threaded"]
+    rec = {"steps": TRAIN_STEPS, "wall_s": walls,
+           "loader_workers": setting["threaded"][0],
+           "prefetch_depth": setting["threaded"][1]}
+    log(f"[vit-epoch] ViT-B/16 train epoch wall, synthetic data made on the "
+        f"step loop's thread vs on the loader's threads: {json.dumps(rec)}")
+    return rec
+
+
+FIXTURE_JPEGS = os.path.join("tests", "data", "torch_port_jpeg")
+IF_CLASSES, IF_TRAIN, IF_VAL = 4, 64, 16  # per class: 256 train, 64 val files
+# the image-folder path: batch 32, train crops RandomResizedCrop(256), eval
+# resize 256 + center 224 (the baseline preset's quirk), bf16
+IF_BATCH, IF_CROP, IF_IMAGE = 32, 256, 224
+IF_ARGV = ["baseline", "--dataset", "imagefolder", "--model", "tresnet_m",
+           "--image_size", str(IF_IMAGE), "--crop_size", str(IF_CROP),
+           "--batchsize", str(IF_BATCH), "--dtype", "bfloat16", "--lr", "0.01",
+           "--device", "cuda"]
+# where the probe finds no libjpeg: the same path on CIFAR-10's pickle
+# layout (raw pixels, no decoder), 32 px and 10 classes
+CIFAR_ARGV = ["baseline", "--dataset", "cifar10", "--model", "tresnet_m",
+              "--batchsize", str(IF_BATCH), "--dtype", "bfloat16", "--lr",
+              "0.01", "--device", "cuda"]
+
+
+def fixture_tree(root: str):
+    """A 4-class image folder of 256 train and 64 val JPEGs, copies of the
+    8 committed photo-sized fixtures (the port writes no JPEG). Returns
+    (train_dir, val_dir)."""
+    import glob
+
+    files = sorted(glob.glob(os.path.join(REPO, FIXTURE_JPEGS, "*.jpg")))
+    check(len(files) == 8, f"{len(files)} JPEG fixtures, expected 8")
+    for split, n in (("train", IF_TRAIN), ("val", IF_VAL)):
+        for c in range(IF_CLASSES):
+            d = os.path.join(root, split, f"class{c}")
+            os.makedirs(d)
+            for i in range(n):
+                shutil.copy(files[(c * n + i) % len(files)],
+                            os.path.join(d, f"{i:03d}.jpg"))
+    return os.path.join(root, "train"), os.path.join(root, "val")
+
+
+def first_batch_recorder(trainer, seen: dict):
+    """Wrap the trainer's train step to keep, for the first step of epoch 1
+    (state.step == TRAIN_STEPS), a digest of its uint8 batch and the flip
+    mask that step draws (`flip_mask` of the run's seed and that step)."""
+    import hashlib
+
+    from ddp_classification_pytorch_tpu_torch.train.steps import flip_mask
+
+    inner = trainer.train_step
+
+    def step(state, images, labels, flip=None):
+        if state.step == TRAIN_STEPS:
+            seen["batch_sha256"] = hashlib.sha256(
+                images.cpu().numpy().tobytes()).hexdigest()
+            seen["labels"] = labels.cpu().tolist()
+            seen["flip"] = flip_mask(trainer.cfg.run.seed, state.step,
+                                     images.shape[0]).astype(int).tolist()
+        return inner(state, images, labels, flip)
+
+    trainer.train_step = step
+
+
+def cli_refuses_folders(train_cli) -> dict:
+    """Where the probe found no libjpeg: the train CLI on an image folder
+    exits rc 2 and names what is missing (the fixture tree is there; the
+    dataplane is not)."""
+    import contextlib
+    import io
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_nojpeg_")
+    err = io.StringIO()
+    try:
+        train_dir, val_dir = fixture_tree(root)
+        with contextlib.redirect_stderr(err):
+            try:
+                train_cli.main(IF_ARGV + ["--train_dir", train_dir, "--val_dir",
+                                          val_dir, "--epochs", "1", "--out",
+                                          os.path.join(root, "out")])
+                rc = 0
+            except SystemExit as e:
+                rc = e.code
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    msg = err.getvalue().strip().splitlines()[0] if err.getvalue() else ""
+    check(rc == 2 and "-ljpeg" in msg and "jpeglib.h" in msg,
+          f"train CLI on a folder without libjpeg: rc {rc}, {msg!r}")
+    log(f"[dataplane] the train CLI on an image folder: rc {rc}: {msg}")
+    return {"rc": rc, "message": msg}
+
+
+def time_train_step(torch, step_fn, state, images, labels, abn_counts,
+                    what: str):
+    """The train step on one staged batch: wall (host clock, median of 5),
+    device time, busy share, images/s; the four ABN kernels 36 launches
+    each a step and their device ms; the step by kernel family. Returns the
+    record and the profiler's."""
+    def rstep():
+        return step_fn(state, images, labels)
+
+    log(f"[timing] clocks.sm, clocks.max.sm, power.draw: {clocks()}")
+    wall = host_ms(torch, rstep)
+    label = "real-data train step"
+    with DeviceTimer(torch, abn_counts) as timer:
+        timer.run(label, rstep, reps=STEP_REPS)
+    dev = timer.results()[label][0]
+    check(timer.launched[label] == (ABN_SITES * STEP_REPS,) * 4,
+          f"ABN launches over {STEP_REPS} steps: {timer.launched[label]}")
+    bsz = images.shape[0]
+    step = {"batch": bsz, "train_px": images.shape[1], "wall_ms": wall,
+            "device_ms": dev, "device_busy": dev / wall,
+            "images_per_s": bsz / wall * 1e3, "launches_per_step": ABN_SITES}
+    for kind, part in (("k1", "fused_abn_fwd"),
+                       *((k, p) for k, _, p, *_ in ABN_TRAIN_KERNELS)):
+        ms, seen = timer.kernel_ms(label, part)
+        check(seen <= ABN_SITES, f"{seen} {part} kernels a step")
+        step[f"{kind}_x36_ms"] = ms
+        step[f"{kind}_launches_seen_per_step"] = seen
+    step["by_family"] = forward_families(*timer.per_kernel[label],
+                                         families=TRAIN_FAMILIES)
+    log(f"[timing] {what}: {json.dumps(step)}")
+    log(f"[timing] clocks.sm, clocks.max.sm, power.draw: {clocks()}")
+    return step, timer.record()
+
+
+def write_cifar10(root: str, seed: int) -> str:
+    """CIFAR-10's pickle layout (`cifar-10-batches-py/`: five train batches
+    and `test_batch`) holding IF_CLASSES·IF_TRAIN train and IF_CLASSES·IF_VAL
+    test images of random uint8 pixels with labels 0-9, made from `seed`.
+    Returns the directory to pass as --train_dir."""
+    import pickle
+
+    d = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(d)
+    rng = np.random.default_rng(seed)
+    n_train = IF_CLASSES * IF_TRAIN
+    sizes = [n_train // 5 + (i < n_train % 5) for i in range(5)]
+    for name, n in [(f"data_batch_{i + 1}", k) for i, k in enumerate(sizes)] + [
+            ("test_batch", IF_CLASSES * IF_VAL)]:
+        with open(os.path.join(d, name), "wb") as f:
+            pickle.dump({"data": rng.integers(0, 256, (n, 3072), dtype=np.uint8),
+                         "labels": rng.integers(0, 10, n).tolist()}, f)
+    return root
+
+
+def real_data_phases(torch, device, native, train_cli, serve_cli, checkpoint,
+                     fused_abn, k1, wrappers, abn_counts, name,
+                     source: str) -> dict:
+    """Phases 16-19 on real-data input: `source` "imagefolder" (a fixture
+    tree through the native dataplane) where the probe found libjpeg,
+    else "cifar10" (CIFAR-10's pickle layout: raw uint8 pixels, no
+    decoder; 32 px, 10 classes). The loader's images/s, the training path
+    (2 epochs, then its step timed), a run stopped after epoch 0 and
+    resumed, and the resumed checkpoint served."""
+    from ddp_classification_pytorch_tpu_torch.train.loop import Trainer
+    from ddp_classification_pytorch_tpu_torch.train.steps import (
+        _train_flip_enabled,
+        flip_mask,
+        make_train_step,
+    )
+
+    out = {"source": source}
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        bsz = IF_BATCH
+        if source == "imagefolder":
+            from ddp_classification_pytorch_tpu_torch.data.imagefolder import (
+                ImageFolderDataset,
+            )
+
+            train_dir, val_dir = fixture_tree(root)
+            argv = IF_ARGV + ["--train_dir", train_dir, "--val_dir", val_dir]
+            serve_argv = SERVE_ARGV
+            ds = ImageFolderDataset.from_root(train_dir)
+            px, what = IF_CROP, (f"native dataplane, JPEGs of ~500x375 to "
+                                 f"RandomResizedCrop({IF_CROP})")
+
+            def batcher(threads):
+                b = native.NativeBatcher(ds, "baseline", True, IF_IMAGE,
+                                         IF_CROP, seed=999, num_threads=threads,
+                                         out_dtype="uint8")
+                return lambda idx, k: b(idx, 0, k)
+        else:
+            from ddp_classification_pytorch_tpu_torch.data.cifar import (
+                CIFARDataset,
+            )
+            from ddp_classification_pytorch_tpu_torch.data.loader import Loader
+            from ddp_classification_pytorch_tpu_torch.data.transforms import (
+                build_transform,
+            )
+
+            argv = CIFAR_ARGV + ["--train_dir", write_cifar10(root, 999)]
+            serve_argv = [{"224": "32", "2173": "10"}.get(a, a)
+                          for a in SERVE_ARGV]
+            ds = CIFARDataset(root, True, build_transform(
+                "cifar", True, 32, out_dtype="uint8"))
+            px, what = 32, "CIFAR pickles, pad-4 random crop 32, numpy"
+
+            def batcher(threads):
+                ld = Loader(ds, bsz, num_workers=threads)
+                return lambda idx, k: ld._load_batch(k, idx)
+
+        # ------------------------------------------------ 16. loader --
+        idx = np.random.default_rng(0).permutation(len(ds))
+        rates = {}
+        for threads, n in ((1, 4), (4, 8)):
+            load = batcher(threads)
+            images, _ = load(idx[:bsz], 0)
+            check(images.shape == (bsz, px, px, 3) and images.dtype == np.uint8
+                  and images.reshape(bsz, -1).any(axis=1).all(),
+                  f"{source} batch {images.shape} {images.dtype}")
+            t0 = time.perf_counter()
+            for k in range(n):
+                load(np.roll(idx, -bsz * k)[:bsz], k)
+            rates[threads] = bsz * n / (time.perf_counter() - t0)
+        out["loader"] = {"images_per_s_by_threads": rates,
+                         "cpu_count": os.cpu_count(),
+                         "what": f"{what}, uint8 wire, batch {bsz}"}
+        log(f"[loader] {json.dumps(out['loader'])}")
+
+        # ------------------------------- 17. the real-data training path --
+        seen_straight = {}
+        want = {"k1": 2 * ABN_SITES * (TRAIN_STEPS + EVAL_BATCHES),
+                "k1s": 2 * ABN_SITES * TRAIN_STEPS,
+                "k1r": 2 * ABN_SITES * TRAIN_STEPS,
+                "k1d": 2 * ABN_SITES * TRAIN_STEPS}
+
+        def then(trainer, ckpt):
+            import glob
+
+            d = os.path.dirname(ckpt)
+            events = glob.glob(os.path.join(d, "tb", "events.out.tfevents.*"))
+            check(len(events) == 1, f"tensorboard events: {events}")
+            with open(os.path.join(d, "output.txt")) as f:
+                check(("# native C++ dataplane active" in f.read())
+                      == (source == "imagefolder"),
+                      "output.txt and the dataplane line disagree")
+            with open(os.path.join(d, "meta.json")) as f:
+                meta = json.load(f)
+            check(meta["last_epoch"] == 1, f"meta.json {meta}")
+            # the masks the run's 16 steps drew (flip_mask of its seed)
+            check(_train_flip_enabled(trainer.cfg), "the train flip is off")
+            flipped = int(sum(flip_mask(trainer.cfg.run.seed, k, bsz).sum()
+                              for k in range(2 * TRAIN_STEPS)))
+            total = 2 * TRAIN_STEPS * bsz
+            check(0 < flipped < total, f"{flipped} of {total} samples flipped")
+            staged = trainer.train_prefetch
+            return {"meta": meta, "flipped": flipped, "samples": total,
+                    "input_wait_ms_per_step":
+                        staged.waited_s / staged.batches * 1e3,
+                    "first_batch_epoch1": seen_straight}
+
+        fused_abn.FusedBNLeakyReLU.layout_copies = 0
+        trainer, cfg, rec = train_main_path(
+            torch, device, train_cli, checkpoint,
+            argv + ["--epochs", "2", "--tensorboard"],
+            dict(zip(("k1", "k1s", "k1r", "k1d"), wrappers)), want,
+            f"{source}-train", then=then,
+            before=lambda tr: first_batch_recorder(tr, seen_straight),
+            files=("ckpt_e0.pt", "ckpt_best.pt", "ckpt_best.pt.sha256", "tb"))
+        check(len(seen_straight) == 3, "the first step of epoch 1 not seen")
+        # gradients copied into y's layout by the ABN Function (reported)
+        rec["layout_copies"] = fused_abn.FusedBNLeakyReLU.layout_copies
+
+        # the real-data step: wall, device time, the four ABN kernels
+        it = iter(trainer.train_prefetch)
+        images, labels = next(it)
+        it.close()
+        check(tuple(images.shape) == (bsz, px, px, 3), f"{images.shape}")
+        rec["step"], rec["profiler"] = time_train_step(
+            torch, trainer.train_step, trainer.state, images, labels,
+            abn_counts, f"{name}: TResNet-M train step on {source} data, "
+            f"batch {bsz} at {px} px, bf16")
+        out["train"] = rec
+        del trainer, images, labels
+        if source != "imagefolder":
+            # the main path's step shapes without a decoder: 256-px uint8
+            # train crops of random pixels, the flip on (an image-folder
+            # config), a fresh TResNet-M train state
+            from ddp_classification_pytorch_tpu_torch.train.state import (
+                create_train_state,
+            )
+
+            cfg = train_cli.config_from_args(train_cli.build_parser(
+            ).parse_args(IF_ARGV + ["--train_dir", "unused"]))
+            check(_train_flip_enabled(cfg), f"no flip at {IF_CROP} px")
+            state = create_train_state(cfg, device, TRAIN_STEPS)
+            gen = torch.Generator(device=device).manual_seed(5)
+            images = torch.randint(0, 256, (bsz, IF_CROP, IF_CROP, 3),
+                                   dtype=torch.uint8, device=device,
+                                   generator=gen)
+            labels = torch.randint(0, cfg.data.num_classes, (bsz,),
+                                   device=device, generator=gen).int()
+            step_fn = make_train_step(cfg)
+            out["step_at_main_path_shapes"], out["profiler_main_shapes"] = \
+                time_train_step(torch, step_fn, state, images, labels,
+                                abn_counts, f"{name}: TResNet-M train step at "
+                                f"the image-folder shapes (batch {bsz}, "
+                                f"{IF_CROP}-px uint8 crops of random pixels, "
+                                f"flip), bf16")
+            del state, images, labels
+
+        # ---------------------------------------------------- 18. resume --
+        stopped, resumed = (tempfile.mkdtemp(prefix="chip_smoke_resume_")
+                            for _ in range(2))
+        try:
+            def trainer_for(extra):
+                return Trainer(train_cli.config_from_args(
+                    train_cli.build_parser().parse_args(argv + extra)), device)
+
+            t0 = time.perf_counter()
+            trainer_for(["--epochs", "1", "--out", stopped]).run()
+            ckpt0 = os.path.join(stopped, "ckpt_e0.pt")
+            saved = checkpoint.restore(ckpt0)
+            tr = trainer_for(["--epochs", "2", "--resume", ckpt0,
+                              "--out", resumed])
+            check(tr.start_epoch == 1, f"resumed at epoch {tr.start_epoch}")
+            check(same_state(torch, tr.state.state_dict(), saved),
+                  "the resumed state is not the saved one, bitwise")
+            check(all(t.device.type == "cuda" and t.dtype == torch.float32
+                      for st in tr.state.optimizer.state.values()
+                      for t in st.values() if isinstance(t, torch.Tensor)),
+                  "momentum not restored on the card in f32")
+            seen_resumed = {}
+            first_batch_recorder(tr, seen_resumed)
+            last = tr.run()
+            torch.cuda.synchronize()
+            check(seen_resumed == seen_straight,
+                  f"first batch after resume {seen_resumed} != the "
+                  f"uninterrupted run's {seen_straight}")
+            check(np.isfinite(last["loss"]) and last["step_ok"] == 1.0,
+                  f"resumed epoch: {last}")
+            with open(os.path.join(resumed, "history.json")) as f:
+                hist = json.load(f)
+            check(hist["loss"][0] is None and hist["loss"][1] is not None,
+                  f"resumed history {hist['loss']}")
+            ckpt1 = os.path.join(resumed, "ckpt_e1.pt")
+            check(same_state(torch, checkpoint.restore(ckpt1),
+                             tr.state.state_dict()), "ckpt_e1 after resume")
+            out["resume"] = {"start_epoch": tr.start_epoch, "epoch1": last,
+                             "restored_bitwise": True,
+                             "first_batch_and_flip_equal": True,
+                             "wall_s": time.perf_counter() - t0}
+            log(f"[resume] {json.dumps(out['resume'])}")
+
+            # ------------------------ 19. serving the resumed checkpoint --
+            it = iter(tr.val_loader)
+            val_images = next(it)[0][:8]
+            it.close()
+            out["serve"] = serve_trained_checkpoint(
+                torch, fused_abn, device, serve_cli, k1, tr, ckpt1, val_images,
+                serve_argv)
+            log(f"[resume] served {json.dumps(out['serve'])}")
+        finally:
+            shutil.rmtree(stopped, ignore_errors=True)
+            shutil.rmtree(resumed, ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1147,6 +1606,7 @@ def main() -> int:
               "card only, with no CPU fallback", file=sys.stderr)
         return 1
     from ddp_classification_pytorch_tpu_torch.cli import serve as serve_cli
+    from ddp_classification_pytorch_tpu_torch.data import native
     from ddp_classification_pytorch_tpu_torch.models import tresnet
     from ddp_classification_pytorch_tpu_torch.ops import fused_abn
     from ddp_classification_pytorch_tpu_torch.ops import flash_attention as fa
@@ -1183,16 +1643,37 @@ def main() -> int:
         t0 = time.perf_counter()
         return build(), time.perf_counter() - t0
 
+    # the dataplane's toolchain, probed before anything relies on it:
+    # phases 16-19 take an image folder only where libjpeg can be built
+    # against, else CIFAR pickles
+    probe = native.probe_toolchain()
+    dataplane_ok = bool(probe["g++"] and probe["jpeglib.h"] and probe["-ljpeg"])
+    where = ("an image folder" if dataplane_ok else
+             "CIFAR pickles: no libjpeg to build the dataplane against, "
+             "image-folder training SKIPPED")
+    log(f"[dataplane] probe: {json.dumps(probe)}; os.cpu_count() "
+        f"{os.cpu_count()}; phases 16-19 on {where}")
+    report["dataplane"] = {"probe": probe, "cpu_count": os.cpu_count(),
+                           "image_folder_phases": dataplane_ok}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(3) as pool:  # one compiler per source, together
+        dp_build = (pool.submit(timed_build, native.get_lib)
+                    if dataplane_ok else None)
         builds = list(pool.map(timed_build, (fused_abn.build, fa.build)))
+        if dp_build is not None:
+            dp_lib, dp_s = dp_build.result()
+            report["dataplane"].update(
+                library=os.path.relpath(dp_lib._name, REPO), build_s=dp_s,
+                png=bool(dp_lib.dp_has_png()))
+            log(f"[dataplane] built {report['dataplane']['library']} in "
+                f"{dp_s:.2f} s (PNG decode: {report['dataplane']['png']})")
     build_s = time.perf_counter() - t0
     for lib, secs in builds:
         log(f"[build] {os.path.relpath(lib, REPO)} in {secs:.2f} s")
         with open(lib + ".log") as f:
             for line in f.read().splitlines():
                 log(f"[build] nvcc: {line}")
-    log(f"[build] both in {build_s:.2f} s")
+    log(f"[build] all in {build_s:.2f} s")
     report["build_s"] = build_s
     from ddp_classification_pytorch_tpu_torch.ops import _build
 
@@ -1206,23 +1687,32 @@ def main() -> int:
         f"{json.dumps(resources)}")
     report["kernel_resources"] = resources
 
-    # ABN shapes at bucket 8 come from the model itself: hooks on one
-    # forward of a second instance of the served model (phases 5 and 6
-    # reuse it), outside the counted run
+    # ABN shapes come from the model itself: hooks on one forward of a
+    # second instance of the served model (phases 5 and 6 reuse it),
+    # outside the counted run; at bucket 8 and 224 px here, and at batch
+    # 32 on the real-data path's train crops for phase 11
     cfg = serve_cli.config_from_args(serve_cli.build_parser().parse_args(SERVE_ARGV))
     model = create_served_model(cfg, device)
     predict = make_topk_predict_step(cfg, cfg.serve.topk)
-    shapes = []
-    hooks = [m.register_forward_pre_hook(
-        lambda _m, args: shapes.append(tuple(args[0].shape)))
-        for m in model.modules() if isinstance(m, tresnet.FusedABN)]
+
+    def abn_shapes(n, px):
+        seen = []
+        hooks = [m.register_forward_pre_hook(
+            lambda _m, args: seen.append(tuple(args[0].shape)))
+            for m in model.modules() if isinstance(m, tresnet.FusedABN)]
+        predict(model, torch.zeros((n, px, px, 3), dtype=torch.uint8,
+                                   device=device))
+        for hk in hooks:
+            hk.remove()
+        check(len(seen) == ABN_SITES,
+              f"{len(seen)} ABN sites in one forward, expected {ABN_SITES}")
+        return seen
+
     h = cfg.data.image_size
-    probe = torch.zeros((8, h, h, 3), dtype=torch.uint8, device=device)
-    predict(model, probe)
-    for hk in hooks:
-        hk.remove()
-    check(len(shapes) == ABN_SITES,
-          f"{len(shapes)} ABN sites in one forward, expected {ABN_SITES}")
+    shapes = abn_shapes(8, h)
+    # the train crops of phase 17: RandomResizedCrop(256) on an image
+    # folder, 32 px on CIFAR
+    real_data_shapes = {px: abn_shapes(IF_BATCH, px) for px in (IF_CROP, 32)}
 
     # ------------------------------------------ 3. kernel vs plain (K1) --
     gen = torch.Generator(device=device).manual_seed(0)
@@ -1533,6 +2023,7 @@ def main() -> int:
     report["flash"] = flash_rows
     report["train_step"] = step_rec
     report["profiler_train"] = timer.record()
+    report["vit_epoch"] = vit_epoch_walls(torch, trainer)
     del trainer, flash_timed, images, labels, timer, res
     torch.cuda.empty_cache()
 
@@ -1547,6 +2038,16 @@ def main() -> int:
     train_shapes = [(4 * s[0],) + s[1:] for s in shapes]
     abn_rows, abn_timed, abn_err = abn_train_vs_plain(
         torch, fused_abn, device, train_shapes, tresnet.SLOPE)
+    # and at the real-data path's train shapes (new launch geometries):
+    # checked with the same tolerances, not timed here (phase 17 times
+    # the step)
+    report["abn_train_real_data"] = {}
+    for px, main_shapes in real_data_shapes.items():
+        rows, _, err = abn_train_vs_plain(torch, fused_abn, device,
+                                          main_shapes, tresnet.SLOPE,
+                                          ragged=False)
+        report["abn_train_real_data"][f"{px}px"] = rows
+        abn_err = {k: max(v, err[k]) for k, v in abn_err.items()}
 
     # ------------------------------ 12. the TResNet-M training path --
     fused_abn.FusedBNLeakyReLU.layout_copies = 0
@@ -1557,7 +2058,8 @@ def main() -> int:
          "k1s": ABN_SITES * TRAIN_STEPS, "k1r": ABN_SITES * TRAIN_STEPS,
          "k1d": ABN_SITES * TRAIN_STEPS}, "tresnet-train",
         lambda tr, ckpt: serve_trained_checkpoint(
-            torch, fused_abn, device, serve_cli, k1, tr, ckpt))
+            torch, fused_abn, device, serve_cli, k1, tr, ckpt,
+            np.stack([tr.val_ds[i][0] for i in range(8)])))
     report["tresnet_train"] = tres_rec
 
     # ----------------- 13. the TResNet-M training slice, kernel vs plain --
@@ -1679,13 +2181,24 @@ def main() -> int:
     report["abn_train"] = abn_rows
     report["tresnet_train_step"] = step_rec2
     report["profiler_tresnet_train"] = [timer.record(), step_timer.record()]
+    del trainer, timer, step_timer, res, images, labels
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- 16-19. real-data phases --
+    if not dataplane_ok:
+        report["dataplane"]["cli_without_libjpeg"] = cli_refuses_folders(
+            train_cli)
+    report["real_data"] = real_data_phases(
+        torch, device, native, train_cli, serve_cli, checkpoint, fused_abn,
+        k1, wrappers, abn_counts, name,
+        "imagefolder" if dataplane_ok else "cifar10")
 
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
-    # ------------------------------------------------------ 15. summary --
+    # ------------------------------------------------------ 20. summary --
     log(json.dumps({"kernels": [{
         "name": "fused_bn_leaky_relu",
         "route": "cuda",
@@ -1694,7 +2207,7 @@ def main() -> int:
         "tpu": "ops/pallas_kernels.py::_fused_kernel",
         "checked": True,
         "launches": launches,
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, abn_err["k1"]),
         "ms": seq_serve["ms"],
         "plain_ms": seq_serve["plain_ms"],
         "bound_ms": seq_serve["bound_ms"],

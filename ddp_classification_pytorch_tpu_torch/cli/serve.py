@@ -139,8 +139,10 @@ def build_engine(cfg: Config, device: torch.device):
     from ..train.state import create_served_model
     from ..train.steps import make_topk_predict_step
 
-    state_dict = (checkpoint.restore(cfg.serve.checkpoint)
-                  if cfg.serve.checkpoint else None)
+    state_dict = None
+    if cfg.serve.checkpoint:  # a trainer's train state, or bare weights
+        state_dict = checkpoint.model_state(
+            checkpoint.restore(cfg.serve.checkpoint))
     model = create_served_model(cfg, device, state_dict)
     predict = make_topk_predict_step(cfg, cfg.serve.topk)
     return ServingEngine.from_config(cfg, model, predict, device,

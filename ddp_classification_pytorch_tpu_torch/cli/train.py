@@ -1,21 +1,27 @@
 """`train` entry point of the port — the JAX train CLI's flags for the
-paths ported so far (TResNet-M and the ViT family on synthetic data), on
-the card.
+paths ported so far (TResNet-M and the ViT family on synthetic data,
+image folders and CIFAR pickles, with resume), on the card.
 
     python -m ddp_classification_pytorch_tpu_torch.cli.train baseline \
-        --dataset synthetic --model tresnet_m --image_size 224 \
-        --batchsize 32 --epochs 1 --out runs/tresnet
+        --dataset imagefolder --train_dir T --val_dir V --model tresnet_m \
+        --image_size 224 --batchsize 32 --epochs 2 --out runs/tresnet
+    python -m ddp_classification_pytorch_tpu_torch.cli.train baseline \
+        --dataset imagefolder --train_dir T --val_dir V --model tresnet_m \
+        --image_size 224 --batchsize 32 --epochs 4 --out runs/tresnet \
+        --auto_resume                  # or --resume runs/x/ckpt_e1.pt
     python -m ddp_classification_pytorch_tpu_torch.cli.train baseline \
         --dataset synthetic --model vit_b16 --image_size 512 \
         --flash_attention --batchsize 32 --epochs 1 --out runs/vit
 
-A TResNet-M checkpoint it writes (`<out>/ckpt_e<N>.pt`) is what
-`cli/serve.py --ckpt` serves.
+A TResNet-M checkpoint it writes (`<out>/ckpt_e<N>.pt`, the whole train
+state) is what `cli/serve.py --ckpt` serves.
 
 Exit codes, as the JAX CLI's:
 
-- **rc 2**: config errors — an unported workload, dataset, arch or option,
-  a flag this CLI does not take (argparse), bad values;
+- **rc 2**: config errors — an unported workload, dataset, preset, arch
+  or option, a flag this CLI does not take (argparse), bad values, a
+  missing data directory, a `--resume` file that fails its sha256, a
+  native dataplane that does not build on this machine;
 - **rc 3**: no CUDA device and `--device cpu` not asked for (it never
   carries on on the CPU);
 - **rc 8**: `run.max_bad_steps` consecutive non-finite steps (diverged;
@@ -35,17 +41,39 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ddp_classification_pytorch_tpu_torch.cli.train",
         description="classification training on the card (ported: "
-                    "TResNet-M and ViT on synthetic data)")
+                    "TResNet-M and ViT on synthetic data, image folders "
+                    "and CIFAR)")
     p.add_argument("workload", choices=["baseline", "arcface", "cdr", "nested", "plc"],
                    help="which reference silo's recipe to run (ported: baseline)")
 
     d = p.add_argument_group("data")
-    d.add_argument("--dataset", default="", help="synthetic (the one ported)")
+    d.add_argument("--folder", "-f", default="", help="dataset root holding "
+                   "train/ and val/ (reference --folder, BASELINE/main.py:27)")
+    d.add_argument("--train_dir", default="",
+                   help="explicit train dir (overrides --folder)")
+    d.add_argument("--val_dir", default="",
+                   help="explicit val dir (overrides --folder)")
+    d.add_argument("--dataset", default="",
+                   help="imagefolder | synthetic | cifar10 | cifar100 "
+                        "(plc is not ported)")
     d.add_argument("--synthetic_size", type=int, default=0,
                    help="train-set size for --dataset synthetic (default 512)")
     d.add_argument("--batchsize", "-b", type=int, default=0)
     d.add_argument("--num_classes", type=int, default=0)
+    d.add_argument("--imgs_per_class", type=int, default=0,
+                   help="per-class cap (500 baseline / 400 arcface)")
+    d.add_argument("--num_workers", type=int, default=0,
+                   help="loader threads (default 4)")
+    d.add_argument("--device_prefetch", type=int, default=-1,
+                   help="batches staged on the card ahead of the step loop "
+                        "(default 2; 0 = copy inside the step loop)")
     d.add_argument("--image_size", type=int, default=0)
+    d.add_argument("--crop_size", type=int, default=0,
+                   help="train crop / resize-short side (default 256, the "
+                        "reference's RandomResizedCrop(256))")
+    d.add_argument("--transform", default="",
+                   help="transform preset for image folders: baseline | "
+                        "clothing1m (cdr and cifar are not ported for folders)")
     d.add_argument("--input_dtype", default="", choices=["", "uint8", "float32"],
                    help="H2D wire format (default uint8: raw pixels, "
                         "normalized on the device)")
@@ -75,7 +103,17 @@ def build_parser() -> argparse.ArgumentParser:
     r = p.add_argument_group("run")
     r.add_argument("--seed", type=int, default=-1)
     r.add_argument("--out", default="", help="output dir (records + checkpoints)")
+    r.add_argument("--resume", default="", help="checkpoint to resume from")
+    r.add_argument("--auto_resume", action="store_true",
+                   help="resume from the newest verified checkpoint in --out "
+                        "if there is one (preemption recovery)")
+    r.add_argument("--tensorboard", action="store_true",
+                   help="write TensorBoard event files to <out>/tb")
     r.add_argument("--log_every", type=int, default=0)
+    r.add_argument("--save_best_only", action="store_true")
+    r.add_argument("--keep_checkpoints", type=int, default=0,
+                   help="prune epoch checkpoints beyond the newest N (0 = keep "
+                        "all; ckpt_best is always kept)")
     r.add_argument("--device", default="", choices=["", "cuda", "cpu"],
                    help="default cuda; cpu only when asked (rc 3 when cuda "
                         "is missing and cpu was not asked for)")
@@ -87,19 +125,39 @@ def config_from_args(args: argparse.Namespace) -> Config:
         raise ValueError(f"workload {args.workload!r} not yet ported to "
                          "training in the torch package (ported: baseline)")
     cfg = get_preset(args.workload)
+    if args.folder:
+        cfg.data.train_dir = f"{args.folder}/train"
+        cfg.data.val_dir = f"{args.folder}/val"
+    if args.train_dir:
+        cfg.data.train_dir = args.train_dir
+    if args.val_dir:
+        cfg.data.val_dir = args.val_dir
     if args.dataset:
         cfg.data.dataset = args.dataset
-    if cfg.data.dataset != "synthetic":
-        raise ValueError(f"dataset {cfg.data.dataset!r} not yet ported to the "
-                         "torch package (ported: synthetic; ROADMAP.md)")
+        if args.dataset in ("cifar10", "cifar100"):
+            # CIFAR's facts over the preset's ImageNet defaults, unless given
+            if not args.num_classes:
+                cfg.data.num_classes = 10 if args.dataset == "cifar10" else 100
+            if not args.image_size:
+                cfg.data.image_size = 32
     if args.synthetic_size:
         cfg.data.synthetic_size = args.synthetic_size
     if args.batchsize:
         cfg.data.batch_size = args.batchsize
     if args.num_classes:
         cfg.data.num_classes = args.num_classes
+    if args.imgs_per_class:
+        cfg.data.imgs_per_class = args.imgs_per_class
+    if args.num_workers:
+        cfg.data.num_workers = args.num_workers
+    if args.device_prefetch >= 0:
+        cfg.data.device_prefetch = args.device_prefetch
     if args.image_size:
         cfg.data.image_size = args.image_size
+    if args.crop_size:
+        cfg.data.train_crop_size = args.crop_size
+    if args.transform:
+        cfg.data.transform = args.transform
     if args.input_dtype:
         cfg.data.input_dtype = args.input_dtype
 
@@ -134,12 +192,23 @@ def config_from_args(args: argparse.Namespace) -> Config:
         cfg.run.out_dir = args.out
     if args.log_every:
         cfg.run.log_every = args.log_every
+    if args.resume:
+        cfg.run.resume = args.resume
+    if args.auto_resume:
+        cfg.run.auto_resume = True
+    if args.tensorboard:
+        cfg.run.tensorboard = True
+    if args.save_best_only:
+        cfg.run.save_best_only = True
+    if args.keep_checkpoints:
+        cfg.run.keep_checkpoints = args.keep_checkpoints
     if cfg.data.batch_size < 1 or cfg.run.log_every < 1:
         raise ValueError("--batchsize and --log_every must be >= 1")
     return cfg
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
+    from ..data.native import DataplaneUnavailable
     from ..train.loop import Trainer
     from ..train.sentinel import SentinelDiverged
     from ..utils.backend_probe import BackendUnavailable, resolve_device
@@ -157,8 +226,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         raise SystemExit(3) from None
     try:
         trainer = Trainer(cfg, device)
-    except ValueError as e:  # an unported arch, head or option: deterministic
+    except (ValueError, FileNotFoundError) as e:  # an unported arch, head,
+        # dataset or option, a missing data dir, a bad --resume: deterministic
         print(f"[trainer] config error: {e}", file=sys.stderr)
+        raise SystemExit(2) from None
+    except DataplaneUnavailable as e:
+        print(f"[trainer] native dataplane unavailable: {e}", file=sys.stderr)
         raise SystemExit(2) from None
     try:
         trainer.run()

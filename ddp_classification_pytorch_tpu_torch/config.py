@@ -4,9 +4,9 @@ nothing of the JAX package).
 
 Field names, defaults and the five workload presets are the JAX package's,
 so a command line means the same on both sides. Fields for the parts not
-ported yet (the image-folder data path, the heads' and CDR's knobs,
-parallelism, resume, the serve fleet, hot reload, the HTTP front end, the
-AOT sidecar) are left out until their slice lands.
+ported yet (the heads' and CDR's knobs, parallelism, `h2d_overlap`, async
+checkpoints, the profiler window, the serve fleet, hot reload, the HTTP
+front end, the AOT sidecar) are left out until their slice lands.
 """
 
 from __future__ import annotations
@@ -17,16 +17,34 @@ from typing import Sequence
 
 @dataclass
 class DataConfig:
-    """What a request looks like on the wire."""
+    """Where the images come from and what a batch looks like on the wire.
 
-    dataset: str = "imagefolder"  # imagefolder | synthetic | plc
+    Per-class caps (500 for the baseline, BASELINE/main.py:98), the class
+    cap (CDR keeps 100 class dirs, CDR/main.py:73) and the epoch-seeded
+    reshuffle are the reference's."""
+
+    train_dir: str = ""
+    val_dir: str = ""
+    dataset: str = "imagefolder"  # imagefolder | synthetic | cifar10 | cifar100 | plc
     image_size: int = 224
+    train_crop_size: int = 256  # RandomResizedCrop(256), BASELINE/main.py:61
     num_classes: int = 2173  # BASELINE/main.py:85
+    imgs_per_class: int = 500  # BASELINE/main.py:98
+    max_classes: int = 0  # 0 = all; CDR uses 100 (CDR/main.py:73)
     batch_size: int = 16  # one process, one card: the whole batch
+    num_workers: int = 4  # loader threads (BASELINE/main.py:130-131)
+    prefetch: int = 2  # host batches the loader keeps ready
+    # batches staged on the card ahead of the step loop by a stager thread
+    # (data/device_prefetch.py: pinned buffers, a side stream); each holds
+    # device memory. 0 = copy each batch inside the step loop
+    device_prefetch: int = 2
     synthetic_size: int = 0  # train-set size for dataset == "synthetic" (0 = 512)
-    # request wire format: "uint8" raw HWC pixels, normalized on the device
-    # by train/steps.py::device_input_epilogue; "float32" host-normalized
+    # request wire format: "uint8" raw HWC pixels, normalized (and, for
+    # training on image data, flipped) on the device by
+    # train/steps.py::device_input_epilogue; "float32" host-normalized
     input_dtype: str = "uint8"
+    # transform preset: baseline | cdr | cifar | clothing1m
+    transform: str = "baseline"
 
 
 @dataclass
@@ -72,7 +90,14 @@ class RunConfig:
     eval_first: bool = False
     out_dir: str = "./runs/default"
     save_every_epoch: bool = True  # BASELINE/main.py:308-310
+    save_best_only: bool = False  # NESTED netBest.pth policy, train.py:154-161
+    keep_checkpoints: int = 0  # prune epoch checkpoints beyond N (0 = keep all)
+    resume: str = ""  # NESTED --resumePth, train.py:372-378
+    # preemption recovery: resume from the newest verified checkpoint in
+    # out_dir, so the restart command is the start command
+    auto_resume: bool = False
     write_records: bool = True  # output.txt / history.json
+    tensorboard: bool = False  # event files at <out_dir>/tb (utils/tensorboard.py)
     # consecutive non-finite (skipped) steps before the run exits rc 8;
     # 0 = skip forever
     max_bad_steps: int = 25

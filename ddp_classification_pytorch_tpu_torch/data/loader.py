@@ -1,15 +1,24 @@
-"""Single-process batch loader — the port's part of the JAX package's
-`data/loader.py`: the same epoch permutation and wrap-padding
-(`shard_indices_for_host` with one host), `set_epoch`, `__len__` and the
-eval `valid_mask`. Batches are assembled on the calling thread; worker
-threads, the native batcher and device-side prefetch are not ported yet
-(ROADMAP.md)."""
+"""Batch loader — the JAX package's `data/loader.py::ShardedLoader` on one
+host: the same epoch permutation and wrap-padding (`shard_indices_for_host`
+with one host), `set_epoch`, `__len__`, the eval `valid_mask`, item
+transforms on a thread pool of `num_workers`, a producer thread that keeps
+`prefetch` batches ready in a bounded queue, and the `batcher` hook
+through which the native dataplane assembles whole batches.
+
+With `num_workers=0` every batch is assembled on the calling thread; any
+other count gives the same batches in the same order.
+"""
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
+
+Batch = Tuple[np.ndarray, np.ndarray]
 
 
 def shard_indices_for_host(n: int, epoch: int, seed: int, batch_size: int,
@@ -37,16 +46,34 @@ def shard_indices_for_host(n: int, epoch: int, seed: int, batch_size: int,
 class Loader:
     """Iterates (images, labels) numpy batches: images keep the dataset's
     dtype (uint8 on the default wire), labels int32. `dataset` supports
-    `__len__` and `__getitem__(i, rng)` → (HWC image, int label)."""
+    `__len__` and, without a `batcher`, `__getitem__(i, rng)` → (HWC
+    image, int label). `batcher(indices, epoch, batch_idx)` → (images,
+    labels) replaces the per-item path (`data/native.py`)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-                 seed: int = 999, drop_last: bool = False):
+                 seed: int = 999, drop_last: bool = False,
+                 num_workers: int = 0, prefetch: int = 2,
+                 batcher: Optional[Callable[[np.ndarray, int, int], Batch]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.num_workers = max(num_workers, 0)
+        self.prefetch = max(prefetch, 1)
+        self.batcher = batcher
         self.epoch = 0
+        self._pool: Optional[ThreadPoolExecutor] = None
+
+    def close(self) -> None:
+        """Release the worker threads (idempotent; the next pass starts a
+        new pool)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None
+
+    def __del__(self):
+        self.close()
 
     def set_epoch(self, epoch: int) -> None:
         """Reshuffle hook (reference sampler.set_epoch, BASELINE/main.py:269)."""
@@ -63,23 +90,92 @@ class Loader:
 
     def valid_mask(self, batch_idx: int) -> np.ndarray:
         """(batch_size,) 1.0 where the row is a real sample, 0.0 where it is
-        wrap-padding (ordered loaders only)."""
-        assert not self.shuffle, "valid_mask is defined for ordered loaders"
+        wrap-padding (ordered loaders only). Index arithmetic only, so a
+        prefetcher's stager thread may call it."""
+        if self.shuffle:
+            raise ValueError("valid_mask is defined for ordered loaders")
         pos = batch_idx * self.batch_size + np.arange(self.batch_size)
         return (pos < len(self.dataset)).astype(np.float32)
 
-    def _load_batch(self, indices: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        items = [self.dataset.__getitem__(
-            int(i), np.random.default_rng((self.seed, self.epoch, int(i), j)))
-            for j, i in enumerate(indices)]
+    def _load_batch(self, batch_idx: int, indices: np.ndarray) -> Batch:
+        if self.batcher is not None:
+            return self.batcher(indices, self.epoch, batch_idx)
+        epoch = self.epoch
+
+        def load(j_and_i):
+            j, i = j_and_i
+            rng = np.random.default_rng((self.seed, epoch, int(i), j))
+            return self.dataset.__getitem__(int(i), rng)
+
+        if self.num_workers > 1:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(self.num_workers)
+            items = list(self._pool.map(load, enumerate(indices)))
+        else:
+            items = [load(ji) for ji in enumerate(indices)]
         images = np.stack([im for im, _ in items])
         labels = np.asarray([lb for _, lb in items], np.int32)
         return images, labels
 
-    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    def _batches(self) -> Tuple[np.ndarray, int]:
         indices = shard_indices_for_host(
             len(self.dataset), self.epoch, self.seed, self.batch_size,
             self.shuffle, drop_last=self.drop_last)
-        for b in range(len(indices) // self.batch_size):
-            yield self._load_batch(
-                indices[b * self.batch_size: (b + 1) * self.batch_size])
+        return indices, len(indices) // self.batch_size
+
+    def __iter__(self) -> Iterator[Batch]:
+        indices, n_batches = self._batches()
+        b = self.batch_size
+        if self.num_workers == 0:
+            for k in range(n_batches):
+                yield self._load_batch(k, indices[k * b: (k + 1) * b])
+            return
+        if n_batches == 0:
+            return
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        error: list = []
+
+        def put_or_stop(item) -> bool:
+            """Bounded put that gives up when the consumer has gone: a
+            producer never blocks for good on a full queue at teardown."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for k in range(n_batches):
+                    if stop.is_set():
+                        return
+                    batch = self._load_batch(k, indices[k * b: (k + 1) * b])
+                    if not put_or_stop(batch):
+                        return
+            except BaseException as e:  # re-raised at the iteration site
+                error.append(e)
+            finally:
+                put_or_stop(None)
+
+        t = threading.Thread(target=producer, daemon=True, name="loader")
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                yield item
+            if error:
+                # a silently short epoch would corrupt training unseen
+                raise error[0]
+        finally:
+            stop.set()
+            while True:  # drain, so a producer blocked on put can exit
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join(timeout=10.0)

@@ -1,14 +1,19 @@
-"""The port's verified weights file: a `torch.save`d `state_dict` with a
-sha256 sidecar — the counterpart of the JAX package's
-`train/checkpoint.py` write/verify discipline (`checkpoint.py:255-316`).
+"""Verified checkpoints of the port: `torch.save`d files with a sha256
+sidecar, and the `CheckpointManager` the trainer saves and resumes
+through — the JAX package's `train/checkpoint.py` for one process
+(`checkpoint.py:44-72,162-525` there), as `.pt` files.
 
 - `save` writes the bytes to a temp file and `os.replace`s it into place
   (no torn file on preemption), then writes `<path>.sha256` the same way,
   strictly after the file: a crash in between leaves a file without a
   sidecar, never a sidecar vouching for unwritten bytes.
 - `restore` verifies the sidecar before it loads. A missing sidecar or a
-  digest mismatch is a `ValueError` (rc 2 in the serve CLI: deterministic,
-  a supervisor must not retry it).
+  digest mismatch is a `ValueError` (rc 2 in the CLIs: deterministic, a
+  supervisor must not retry it).
+- A trainer's file holds the whole train state (`TrainState.state_dict()`:
+  the model, the optimizer's momentum, `step`, `opt_count`); `model_state`
+  takes the model's part, which is what `cli/serve.py --ckpt` serves (it
+  also serves a file of bare weights).
 
 Reading the JAX package's flax msgpack checkpoints is not ported yet: the
 GPU machine has no `msgpack` (ROADMAP.md). `models/convert.py` carries
@@ -18,10 +23,16 @@ weights across from flax trees already in memory.
 from __future__ import annotations
 
 import hashlib
+import json
 import os
-from typing import Dict, Mapping
+import re
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
+
+from ..utils.logging import host0_print
+
+_DIGEST = re.compile(r"[0-9a-f]{64}")
 
 
 def checksum_path(path: str) -> str:
@@ -36,11 +47,21 @@ def _sha256_file(path: str, chunk: int = 1 << 20) -> str:
     return h.hexdigest()
 
 
-def save(state_dict: Mapping[str, torch.Tensor], path: str) -> str:
-    """Atomically write `state_dict` (moved to the CPU) and its sidecar;
-    returns the file's sha256."""
+def _to_cpu(obj: Any) -> Any:
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, Mapping):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def save(obj: Mapping[str, Any], path: str) -> str:
+    """Atomically write `obj` (a state dict, nested dicts allowed; tensors
+    moved to the CPU) and its sidecar; returns the file's sha256."""
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, tmp)
+    torch.save(_to_cpu(obj), tmp)
     os.replace(tmp, path)
     digest = _sha256_file(path)
     sc_tmp = f"{checksum_path(path)}.{os.getpid()}.tmp"
@@ -50,19 +71,192 @@ def save(state_dict: Mapping[str, torch.Tensor], path: str) -> str:
     return digest
 
 
-def restore(path: str) -> Dict[str, torch.Tensor]:
-    """Verify `path` against its sidecar, then load its `state_dict` on the
-    CPU (tensors only: `weights_only=True`)."""
+def verify(path: str) -> Optional[str]:
+    """None when `path` matches its sidecar, else why it does not."""
     sidecar = checksum_path(path)
     if not os.path.isfile(path):
-        raise ValueError(f"checkpoint {path} does not exist")
+        return f"checkpoint {path} does not exist"
     if not os.path.isfile(sidecar):
-        raise ValueError(f"checkpoint {path} has no sha256 sidecar "
-                         f"({sidecar}); refusing unverified weights")
+        return (f"checkpoint {path} has no sha256 sidecar ({sidecar}); "
+                "refusing unverified weights")
     with open(sidecar) as f:
         expected = f.read().strip()
+    if not _DIGEST.fullmatch(expected):
+        return f"checkpoint {path} has a malformed sha256 sidecar"
     actual = _sha256_file(path)
     if actual != expected:
-        raise ValueError(f"checkpoint {path} fails its sha256: file "
-                         f"{actual}, sidecar {expected}")
+        return (f"checkpoint {path} fails its sha256: file {actual}, "
+                f"sidecar {expected}")
+    return None
+
+
+def restore(path: str) -> Dict[str, Any]:
+    """Verify `path` against its sidecar, then load it on the CPU (tensors
+    and plain values only: `weights_only=True`)."""
+    err = verify(path)
+    if err is not None:
+        raise ValueError(err)
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def model_state(obj: Mapping[str, Any]) -> Mapping[str, torch.Tensor]:
+    """The model's weights in a restored file: the `model` part of a train
+    state, or the file itself when it holds bare weights."""
+    return obj["model"] if "optimizer" in obj else obj
+
+
+def quarantine_file(path: str, reason: str) -> None:
+    """Rename a corrupt checkpoint (and its sidecar) to `*.corrupt`, so the
+    next restart's scan does not fail on it again; kept on disk as
+    evidence."""
+    dst = path + ".corrupt"
+    try:
+        os.replace(path, dst)
+    except OSError:
+        return
+    if os.path.exists(checksum_path(path)):
+        os.replace(checksum_path(path), dst + ".sha256")
+    host0_print(f"[ckpt] quarantined corrupt checkpoint {path} -> {dst} "
+                f"({reason})")
+
+
+class CheckpointManager:
+    """Per-epoch and best checkpoints of one run, `meta.json`, pruning and
+    resume (the JAX `CheckpointManager` for one process, writing
+    synchronously).
+
+    `ckpt_e{N}.pt` every epoch (unless `best_only`), `ckpt_best.pt` when
+    the metric improves (the same bytes), then `meta.json` (`last_epoch`,
+    `best_epoch`, `best_metric`) strictly after the bytes; with `keep` > 0
+    only the newest `keep` epoch files stay."""
+
+    def __init__(self, out_dir: str, save_every_epoch: bool = True,
+                 best_only: bool = False, keep: int = 0):
+        self.out_dir = out_dir
+        self.save_every_epoch = save_every_epoch
+        self.best_only = best_only
+        self.keep = keep
+        self.best_metric = float("-inf")
+        os.makedirs(out_dir, exist_ok=True)
+
+    def epoch_path(self, epoch: int) -> str:
+        return os.path.join(self.out_dir, f"ckpt_e{epoch}.pt")
+
+    @property
+    def best_path(self) -> str:
+        return os.path.join(self.out_dir, "ckpt_best.pt")
+
+    @property
+    def meta_path(self) -> str:
+        return os.path.join(self.out_dir, "meta.json")
+
+    # ----------------------------------------------------------------- meta --
+    @staticmethod
+    def read_meta_at(meta_path: str) -> dict:
+        if not os.path.exists(meta_path):
+            return {}
+        with open(meta_path) as f:
+            try:
+                return json.load(f)
+            except ValueError:  # a torn file: default meta beats no restart
+                return {}
+
+    def read_meta(self) -> dict:
+        return self.read_meta_at(self.meta_path)
+
+    @staticmethod
+    def meta_for_checkpoint(ckpt_path: str) -> dict:
+        """Meta of the run that wrote a checkpoint (resuming another run's)."""
+        return CheckpointManager.read_meta_at(os.path.join(
+            os.path.dirname(os.path.abspath(ckpt_path)), "meta.json"))
+
+    def _write_meta(self, **kw: Any) -> None:
+        meta = self.read_meta()
+        meta.update(kw)
+        tmp = self.meta_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(meta, f, indent=1)
+        os.replace(tmp, self.meta_path)
+
+    # ----------------------------------------------------------------- save --
+    def save(self, state, epoch: int, metric: Optional[float] = None) -> bool:
+        """Write this epoch's checkpoints and meta; True on a new best."""
+        is_best = metric is not None and metric > self.best_metric
+        if metric is not None:
+            self.best_metric = max(self.best_metric, metric)
+        paths = []
+        if self.save_every_epoch and not self.best_only:
+            paths.append(self.epoch_path(epoch))
+        if is_best:
+            paths.append(self.best_path)
+        meta: Dict[str, Any] = {"last_epoch": epoch}
+        if is_best:
+            meta.update(best_epoch=epoch, best_metric=float(metric))
+        if paths:
+            sd = _to_cpu(state.state_dict())  # one host copy for every path
+            for path in paths:
+                save(sd, path)
+        self._write_meta(**meta)
+        if paths and self.keep > 0:
+            self._prune()
+        return is_best
+
+    def _epoch_checkpoints(self) -> List[int]:
+        if not os.path.isdir(self.out_dir):
+            return []
+        return [int(m.group(1)) for m in
+                (re.fullmatch(r"ckpt_e(\d+)\.pt", n)
+                 for n in os.listdir(self.out_dir)) if m]
+
+    def _prune(self) -> None:
+        have = sorted(self._epoch_checkpoints())
+        for e in have[: max(len(have) - self.keep, 0)]:
+            os.remove(self.epoch_path(e))
+            if os.path.exists(checksum_path(self.epoch_path(e))):
+                os.remove(checksum_path(self.epoch_path(e)))
+
+    # -------------------------------------------------------------- restore --
+    def restore(self, state, path: str):
+        """Load `path` into `state` (in place; returned). A file that fails
+        its sidecar, or is no train state, is a ValueError (rc 2: resuming
+        from a named bad file fails the same way every time); falling back
+        is `restore_latest`'s."""
+        err = verify(path)
+        if err is not None:
+            raise ValueError(f"{err} — use --auto_resume to fall back to the "
+                             "newest verified checkpoint, or delete the file")
+        state.load_state_dict(torch.load(path, map_location="cpu",
+                                         weights_only=True))
+        return state
+
+    def _restore_verified(self, state, path: str) -> bool:
+        """Restore `path` if it verifies and loads; quarantine it if not."""
+        if not os.path.exists(path):
+            return False
+        err = verify(path)
+        if err is not None:
+            quarantine_file(path, err)
+            return False
+        try:
+            state.load_state_dict(torch.load(path, map_location="cpu",
+                                             weights_only=True))
+        except (OSError, ValueError, RuntimeError, EOFError) as e:
+            quarantine_file(path, f"cannot be restored: {e}")
+            return False
+        return True
+
+    def restore_latest(self, state) -> Tuple[Any, int]:
+        """(state, next_epoch): the newest epoch checkpoint that verifies and
+        loads, else `ckpt_best.pt`; a bad candidate is quarantined and the
+        next newest tried. next_epoch is 0 when there is nothing to
+        restore."""
+        for e in sorted(self._epoch_checkpoints(), reverse=True):
+            if self._restore_verified(state, self.epoch_path(e)):
+                self.best_metric = self.read_meta().get("best_metric",
+                                                        float("-inf"))
+                return state, e + 1
+        if self._restore_verified(state, self.best_path):
+            meta = self.read_meta()
+            self.best_metric = meta.get("best_metric", float("-inf"))
+            return state, int(meta.get("best_epoch", -1)) + 1
+        return state, 0

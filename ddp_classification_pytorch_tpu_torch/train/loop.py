@@ -1,18 +1,20 @@
 """The trainer — the port of the JAX package's `train/loop.py::Trainer` for
-one process on one device: datasets → loaders → state → steps →
-`train_epoch` / `evaluate` → records → a verified checkpoint per epoch.
-Trains TResNet-M (whose checkpoints `cli/serve.py --ckpt` serves) and the
-ViT family, on synthetic data.
+one process on one device: datasets → loaders (worker threads, the native
+dataplane on image folders) → device prefetch → state → steps →
+`train_epoch` / `evaluate` → records and tensorboard scalars → verified
+checkpoints of the whole train state, which `--resume` and
+`--auto_resume` pick up. Trains TResNet-M (whose checkpoints
+`cli/serve.py --ckpt` serves) and the ViT family, on synthetic data,
+image folders and CIFAR pickles.
 
-Not ported yet (ROADMAP.md): image-folder, CIFAR and PLC data and the
-native dataplane, device-side prefetch, `--resume`/`--auto_resume`,
-best-only checkpoints, tensorboard, the profiler window, the pod fleet,
-chaos hooks and the compile sentinel.
+Not ported yet (ROADMAP.md): PLC data, the `cdr` rotation and the
+`cifar` preset on image folders (PIL's geometric ops), async checkpoints,
+`h2d_overlap`, the profiler window, the pod fleet, chaos hooks and the
+compile sentinel.
 """
 
 from __future__ import annotations
 
-import json
 import os
 import time
 from typing import Any, Dict, Optional, Tuple
@@ -20,35 +22,82 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..config import Config
+from ..data import native
+from ..data.device_prefetch import DevicePrefetcher
+from ..data.imagefolder import ImageFolderDataset
 from ..data.loader import Loader
 from ..data.synthetic import SyntheticDataset
+from ..data.transforms import INPUT_DTYPES, build_transform, preset_for_dataset
 from ..obs.registry import Registry
 from ..utils.logging import EtaLogger, RecordWriter, host0_print
-from . import checkpoint
+from .checkpoint import CheckpointManager
 from .sentinel import StepSentinel
 from .state import create_train_state, param_count
 from .steps import make_eval_step, make_train_step
 
-INPUT_DTYPES = ("uint8", "float32")
-
 
 def build_datasets(cfg: Config) -> Tuple[Any, Any]:
-    """(train_ds, val_ds): the synthetic sets the JAX package builds
-    (`loop.py:102-109`); other datasets are not ported yet."""
+    """(train_ds, val_ds): the JAX package's (`loop.py:88-147`) for
+    synthetic data, image folders (paths for the native dataplane) and
+    CIFAR pickles. What is not ported is a ValueError (rc 2)."""
     d = cfg.data
     if d.input_dtype not in INPUT_DTYPES:
         raise ValueError(
             f"unknown data.input_dtype {d.input_dtype!r}; one of {INPUT_DTYPES}")
-    if d.dataset != "synthetic":
-        raise ValueError(f"dataset {d.dataset!r} not yet ported to the torch "
-                         "package (ported: synthetic; ROADMAP.md)")
-    size = d.synthetic_size or 512
-    train = SyntheticDataset(size, d.image_size, d.num_classes,
-                             seed=cfg.run.seed, out_dtype=d.input_dtype)
-    val = SyntheticDataset(max(size // 4, d.batch_size), d.image_size,
-                           d.num_classes, seed=cfg.run.seed, item_offset=size,
-                           out_dtype=d.input_dtype)
+    if d.dataset == "synthetic":
+        size = d.synthetic_size or 512
+        train = SyntheticDataset(size, d.image_size, d.num_classes,
+                                 seed=cfg.run.seed, out_dtype=d.input_dtype)
+        val = SyntheticDataset(max(size // 4, d.batch_size), d.image_size,
+                               d.num_classes, seed=cfg.run.seed,
+                               item_offset=size, out_dtype=d.input_dtype)
+        return train, val
+    preset = preset_for_dataset(d.dataset, d.transform)
+    if preset is None:
+        raise ValueError(f"unknown dataset {d.dataset!r}")
+    if d.dataset == "plc":
+        raise ValueError("dataset 'plc' not yet ported to the torch package "
+                         "(ported: synthetic, imagefolder, cifar10, "
+                         "cifar100; ROADMAP.md)")
+    if not d.train_dir:
+        raise ValueError(f"dataset {d.dataset!r} needs --train_dir (or "
+                         "--folder)")
+    if d.dataset == "imagefolder":
+        if preset not in native.NativeBatcher.SUPPORTED:
+            raise ValueError(
+                f"transform {preset!r} on image folders is not yet ported to "
+                "the torch package: the port decodes folders with the native "
+                f"dataplane only, which runs "
+                f"{', '.join(native.NativeBatcher.SUPPORTED)} (ROADMAP.md)")
+        train = ImageFolderDataset.from_root(d.train_dir, d.imgs_per_class,
+                                             d.max_classes)
+        val = ImageFolderDataset.from_root(d.val_dir or d.train_dir,
+                                           d.imgs_per_class, d.max_classes)
+        return train, val
+    from ..data.cifar import CIFARDataset
+
+    t_train, t_val = (build_transform(preset, train, d.image_size,
+                                      d.train_crop_size, d.input_dtype)
+                      for train in (True, False))
+    train = CIFARDataset(d.train_dir, True, t_train, kind=d.dataset)
+    val = CIFARDataset(d.val_dir or d.train_dir, False, t_val, kind=d.dataset)
+    if d.num_classes != train.num_classes:
+        raise ValueError(
+            f"data.num_classes={d.num_classes} but {d.dataset} has "
+            f"{train.num_classes} classes — the CLI sets both defaults when "
+            "--dataset cifar10/cifar100 is passed")
     return train, val
+
+
+def make_native_batcher(ds, cfg: Config, train: bool
+                        ) -> Optional[native.NativeBatcher]:
+    """The dataplane's batcher for an image folder (None for other data)."""
+    d = cfg.data
+    if not isinstance(ds, ImageFolderDataset):
+        return None
+    return native.NativeBatcher(ds, d.transform, train, d.image_size,
+                                d.train_crop_size, cfg.run.seed,
+                                d.num_workers, out_dtype=d.input_dtype)
 
 
 def _sum_into(totals: Optional[Dict[str, torch.Tensor]],
@@ -67,42 +116,84 @@ class Trainer:
         self.obs = Registry()
         self.sentinel = StepSentinel(cfg.run.max_bad_steps, registry=self.obs)
         self.train_ds, self.val_ds = build_datasets(cfg)
-        self.train_loader = Loader(self.train_ds, cfg.data.batch_size,
-                                   shuffle=True, seed=cfg.run.seed)
-        self.val_loader = Loader(self.val_ds, cfg.data.batch_size,
-                                 shuffle=False, seed=cfg.run.seed)
+        train_batcher = make_native_batcher(self.train_ds, cfg, train=True)
+        val_batcher = make_native_batcher(self.val_ds, cfg, train=False)
+        self.native_dataplane = train_batcher is not None
+        if self.native_dataplane:
+            native.get_lib()  # build now: DataplaneUnavailable is rc 2
+            host0_print("[trainer] native C++ dataplane active")
+        d = cfg.data
+        self.train_loader = Loader(
+            self.train_ds, d.batch_size, shuffle=True, seed=cfg.run.seed,
+            num_workers=d.num_workers, prefetch=d.prefetch,
+            batcher=train_batcher)
+        self.val_loader = Loader(
+            self.val_ds, d.batch_size, shuffle=False, seed=cfg.run.seed,
+            num_workers=d.num_workers, prefetch=d.prefetch,
+            batcher=val_batcher)
+        # the eval batch's valid_mask joins it on the stager thread
+        self.train_prefetch = DevicePrefetcher(self.train_loader, device,
+                                               depth=d.device_prefetch)
+        self.val_prefetch = DevicePrefetcher(
+            self.val_loader, device, depth=d.device_prefetch,
+            assemble=lambda b, hb: (*hb, self.val_loader.valid_mask(b)))
         self.steps_per_epoch = max(len(self.train_loader), 1)
         self.state = create_train_state(cfg, device, self.steps_per_epoch)
         self.train_step = make_train_step(cfg)
         self.eval_step = make_eval_step(cfg)
         self.records = (RecordWriter(cfg.run.out_dir)
                         if cfg.run.write_records else None)
-        self.best_metric = float("-inf")
-        self.best_epoch = -1
+        self.tb = None
+        if cfg.run.tensorboard:
+            from ..utils.tensorboard import SummaryWriter
+
+            self.tb = SummaryWriter(os.path.join(cfg.run.out_dir, "tb"))
+        self.ckpt = CheckpointManager(
+            cfg.run.out_dir, save_every_epoch=cfg.run.save_every_epoch,
+            best_only=cfg.run.save_best_only, keep=cfg.run.keep_checkpoints)
+        self.start_epoch = 0
+        if cfg.run.resume:
+            self.ckpt.restore(self.state, cfg.run.resume)
+            # meta lives beside the checkpoint resumed (maybe another run's)
+            meta = CheckpointManager.meta_for_checkpoint(cfg.run.resume)
+            self.start_epoch = int(meta.get("last_epoch", -1)) + 1
+            self.ckpt.best_metric = meta.get("best_metric", float("-inf"))
+            host0_print(f"resumed from {cfg.run.resume} at epoch "
+                        f"{self.start_epoch}")
+        elif cfg.run.auto_resume:
+            self.state, self.start_epoch = self.ckpt.restore_latest(self.state)
+            if self.start_epoch:
+                host0_print(f"auto-resumed from {cfg.run.out_dir} at epoch "
+                            f"{self.start_epoch}")
+        if self.start_epoch and self.records is not None:
+            # keep the curve before the stop: the resumed run appends
+            self.records.resume_at(self.start_epoch)
+        if self.records is not None and self.native_dataplane:
+            self.records.append_txt("# native C++ dataplane active")
         host0_print(
             f"[trainer] workload={cfg.workload} arch={cfg.model.arch} "
             f"params={param_count(self.state):,} device={device} "
             f"dtype={cfg.model.dtype} flash={cfg.model.flash_attention} "
             f"steps/epoch={self.steps_per_epoch}")
 
-    def _to_device(self, *arrays) -> Tuple[torch.Tensor, ...]:
-        return tuple(torch.from_numpy(a).to(self.device, non_blocking=True)
-                     for a in arrays)
-
     def train_epoch(self, epoch: int,
                     eta: Optional[EtaLogger] = None) -> Dict[str, float]:
         self.train_loader.set_epoch(epoch)
         sums, n_batches = None, 0
-        for step, batch in enumerate(self.train_loader):
-            metrics = self.train_step(self.state, *self._to_device(*batch))
-            n_batches += 1
-            sums = _sum_into(sums, metrics)
-            self.sentinel.observe(metrics["step_ok"])
-            if step % self.cfg.run.log_every == 0:
-                if eta is not None:
-                    eta.maybe_log(epoch, step,
-                                  **{k: float(v) for k, v in metrics.items()})
-                self.sentinel.flush()  # raises SentinelDiverged (rc 8)
+        it = iter(self.train_prefetch)
+        try:
+            for step, (images, labels) in enumerate(it):
+                metrics = self.train_step(self.state, images, labels)
+                n_batches += 1
+                sums = _sum_into(sums, metrics)
+                self.sentinel.observe(metrics["step_ok"])
+                if step % self.cfg.run.log_every == 0:
+                    if eta is not None:
+                        eta.maybe_log(epoch, step, **{
+                            k: float(v) for k, v in metrics.items()})
+                    self.sentinel.flush()  # raises SentinelDiverged (rc 8)
+        finally:
+            it.close()  # stop and join the stager on an exception
         self.sentinel.flush()
         if sums is None:
             return {"loss": 0.0, "top1": 0.0, "top3": 0.0,
@@ -111,11 +202,12 @@ class Trainer:
 
     def evaluate(self) -> Dict[str, float]:
         totals = None
-        for b, (images, labels) in enumerate(self.val_loader):
-            valid = self.val_loader.valid_mask(b)
-            out = self.eval_step(self.state,
-                                 *self._to_device(images, labels, valid))
-            totals = _sum_into(totals, out)
+        it = iter(self.val_prefetch)
+        try:
+            for batch in it:
+                totals = _sum_into(totals, self.eval_step(self.state, *batch))
+        finally:
+            it.close()
         if totals is None:
             return {"val_loss": 0.0, "val_top1": 0.0, "val_top3": 0.0}
         totals = {k: float(v) for k, v in totals.items()}
@@ -124,39 +216,33 @@ class Trainer:
                 "val_top1": totals["top1"] / n,
                 "val_top3": totals["top3"] / n}
 
-    def save(self, epoch: int, metric: Optional[float]) -> str:
-        """`ckpt_e{epoch}.pt` with its sha256 sidecar, then `meta.json`."""
-        out = self.cfg.run.out_dir
-        os.makedirs(out, exist_ok=True)
-        path = os.path.join(out, f"ckpt_e{epoch}.pt")
-        checkpoint.save(self.state.model.state_dict(), path)
-        if metric is not None and metric > self.best_metric:
-            self.best_metric, self.best_epoch = metric, epoch
-        meta = {"last_epoch": epoch, "best_metric": self.best_metric,
-                "best_epoch": self.best_epoch, "step": self.state.step}
-        tmp = os.path.join(out, "meta.json.tmp")
-        with open(tmp, "w") as f:
-            json.dump(meta, f, indent=1)
-        os.replace(tmp, os.path.join(out, "meta.json"))
-        return path
-
     def run(self) -> Dict[str, float]:
         cfg = self.cfg
         eta = EtaLogger(self.steps_per_epoch, cfg.run.epochs, cfg.run.log_every)
         last: Dict[str, float] = {}
-        if cfg.run.eval_first:
-            host0_print("[initial eval] " + " ".join(
-                f"{k}={v:.4f}" for k, v in self.evaluate().items()))
-        for epoch in range(cfg.run.epochs):
-            t0 = time.time()
-            train_m = self.train_epoch(epoch, eta)
-            val_m = (self.evaluate() if (epoch + 1) % cfg.run.eval_every == 0
-                     else {})
-            last = {**train_m, **val_m, "epoch_time": time.time() - t0}
-            host0_print(f"[epoch {epoch}] " + " ".join(
-                f"{k}={v:.4f}" for k, v in last.items()))
-            if self.records is not None:
-                self.records.log_epoch(epoch, **last)
-            if cfg.run.save_every_epoch:
-                self.save(epoch, val_m.get("val_top1"))
+        try:
+            if cfg.run.eval_first and self.start_epoch == 0:
+                host0_print("[initial eval] " + " ".join(
+                    f"{k}={v:.4f}" for k, v in self.evaluate().items()))
+            for epoch in range(self.start_epoch, cfg.run.epochs):
+                t0 = time.time()
+                train_m = self.train_epoch(epoch, eta)
+                val_m = (self.evaluate()
+                         if (epoch + 1) % cfg.run.eval_every == 0 else {})
+                last = {**train_m, **val_m, "epoch_time": time.time() - t0}
+                host0_print(f"[epoch {epoch}] " + " ".join(
+                    f"{k}={v:.4f}" for k, v in last.items()))
+                if self.records is not None:
+                    self.records.log_epoch(epoch, **last)
+                if self.tb is not None:
+                    for k, v in last.items():
+                        group = "val" if k.startswith("val_") else "train"
+                        self.tb.add_scalar(f"{group}/{k}", v, epoch)
+                    self.tb.flush()
+                self.ckpt.save(self.state, epoch, metric=val_m.get("val_top1"))
+        finally:
+            if self.tb is not None:
+                self.tb.close()
+            self.train_loader.close()
+            self.val_loader.close()
         return last

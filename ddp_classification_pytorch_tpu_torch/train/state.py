@@ -9,7 +9,7 @@ module (f32 master weights) with its optimizer, LR schedule and counters.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 import torch.nn as nn
@@ -57,6 +57,33 @@ class TrainState:
     def params(self) -> List[nn.Parameter]:
         return [p for group in self.optimizer.param_groups
                 for p in group["params"]]
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What resuming needs: the model's f32 master weights and buffers
+        (BN running statistics), the optimizer's state (momentum buffers),
+        `step` and `opt_count` (the count the schedule reads)."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "step": self.step, "opt_count": self.opt_count}
+
+    def load_state_dict(self, sd: Mapping[str, Any]) -> None:
+        """Restore `state_dict()`'s output in place: tensors are copied into
+        the model's own, and the optimizer's state is moved to each
+        parameter's device and dtype. Raises ValueError when `sd` is not
+        a train state or does not fit the model."""
+        missing = [k for k in ("model", "optimizer", "step", "opt_count")
+                   if k not in sd]
+        if missing:
+            raise ValueError(f"not a train-state checkpoint (no "
+                             f"{', '.join(missing)}): it holds weights only "
+                             "and cannot be resumed from")
+        try:
+            self.model.load_state_dict(sd["model"])
+            self.optimizer.load_state_dict(sd["optimizer"])
+        except (RuntimeError, KeyError) as e:  # other keys or shapes
+            raise ValueError(f"checkpoint does not fit this model and "
+                             f"optimizer: {e}") from None
+        self.step, self.opt_count = int(sd["step"]), int(sd["opt_count"])
 
 
 TRESNET_ARCHS = ("tresnet_m", "timm")

@@ -8,7 +8,7 @@ and device tensors; there is nothing to trace or compile.
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Callable, Dict, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -16,31 +16,56 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import Config
+from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD, preset_for_dataset
 from ..utils.metrics import topk_correct, topk_hits
 
 if TYPE_CHECKING:
     from .state import TrainState
 
-# ImageNet normalization constants (the JAX package's data/transforms.py)
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+# the JAX step derives its flip stream as fold_in(step_key, _FLIP_FOLD)
+_FLIP_FOLD = 0x464C4950  # "FLIP"
 
 
 def device_input_epilogue(images: torch.Tensor, mean: torch.Tensor,
-                          std: torch.Tensor) -> torch.Tensor:
+                          std: torch.Tensor,
+                          flip: Optional[torch.Tensor] = None) -> torch.Tensor:
     """uint8 wire → normalized float32, on the device.
 
     `images` is (B, 3, H, W), the NCHW view of NHWC pixels (channels_last in
     memory); `mean`/`std` are the ImageNet constants as (1, 3, 1, 1) f32 on
     the same device. `(x/255 − μ)/σ` in f32 in the op order of the JAX
-    epilogue (`steps.py:86-87`). float32 inputs pass through untouched (the
-    host-normalized wire). Serving never flips, and training flips only
-    image data, which the port does not load yet (ROADMAP.md): synthetic
-    data has no transform, so no flip."""
+    epilogue (`steps.py:86-87`), then, where `flip` (a (B,) bool mask on
+    the same device) is set, the sample mirrored along W (dim 3): the
+    train-time flip that the uint8 wire moves off the host, after
+    normalization as in JAX (`steps.py:88-93`). float32 inputs pass
+    through untouched (the host-normalized wire flipped on the host).
+    Serving and evaluation never flip."""
     if images.dtype != torch.uint8:
         return images
     x = images.float() / 255.0
-    return (x - mean) / std
+    x = (x - mean) / std
+    if flip is not None:
+        x = torch.where(flip.view(-1, 1, 1, 1), x.flip(3), x)
+    return x
+
+
+def _train_flip_enabled(cfg: Config) -> bool:
+    """The device flip applies exactly where the float32 wire would have
+    flipped on the host: the uint8 wire and a dataset with an image preset
+    (synthetic data has none, so never flips) — the JAX
+    `_train_flip_enabled` (`steps.py:96-102`)."""
+    return (cfg.data.input_dtype == "uint8"
+            and preset_for_dataset(cfg.data.dataset, cfg.data.transform)
+            is not None)
+
+
+def flip_mask(seed: int, step: int, n: int) -> np.ndarray:
+    """(n,) bool: which samples the train step at `step` flips. Drawn from a
+    generator keyed on (seed + 1, step, _FLIP_FOLD), the key the JAX step
+    folds (`fold_in(fold_in(PRNGKey(seed + 1), step), FLIP)`), so a resumed
+    run draws the masks the uninterrupted run drew. torch cannot reproduce
+    `jax.random`'s bits: parity tests pass the JAX mask to the step."""
+    return np.random.default_rng((seed + 1, step, _FLIP_FOLD)).random(n) < 0.5
 
 
 def make_topk_predict_step(
@@ -100,7 +125,9 @@ def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
     """`(state, images (B, H, W, 3), labels (B,)) -> metrics`, updating
     `state` in place — the JAX `_build_step` for the baseline workload.
 
-    uint8 epilogue (synthetic data has no transform, so no flip), forward
+    uint8 epilogue with the train-time flip where `_train_flip_enabled`
+    (the mask `flip_mask(run.seed, state.step, B)`, or the `flip` (B,) bool
+    array the caller passes: parity tests pass the JAX step's), forward
     in train mode, f32 CE, backward, global grad norm, then the skip-step
     gate: `step_ok = isfinite(loss) & isfinite(grad_norm)`. A passing step
     sets the lr from the schedule at the count of updates applied so far
@@ -114,14 +141,21 @@ def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
         raise ValueError(f"head {cfg.model.head!r} not yet ported to the "
                          "torch package (ported: fc)")
     consts: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+    flips = _train_flip_enabled(cfg)
+    seed = cfg.run.seed
 
-    def step(state: "TrainState", images: torch.Tensor,
-             labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def step(state: "TrainState", images: torch.Tensor, labels: torch.Tensor,
+             flip: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
         model, opt = state.model, state.optimizer
         if images.device not in consts:
             consts[images.device] = _consts(images.device)
+        mask = None
+        if flips:
+            if flip is None:
+                flip = flip_mask(seed, state.step, images.shape[0])
+            mask = torch.from_numpy(flip).to(images.device, non_blocking=True)
         x = device_input_epilogue(images.permute(0, 3, 1, 2),
-                                  *consts[images.device])
+                                  *consts[images.device], mask)
         model.train()
         opt.zero_grad(set_to_none=True)
         # the buffers as they were, for a skipped step (x·1 is a bitwise

@@ -1,8 +1,9 @@
 """Console and record output — the port's copy of the JAX package's
 `utils/logging.py` parts the trainer uses: ETA console lines
 (BASELINE/main.py:295-303), `output.txt` per-epoch appends and
-`history.json` (NESTED/train.py:421,444-445). The port runs one process
-on one card, so rank 0 is the only rank and everything prints and writes.
+`history.json` (NESTED/train.py:421,444-445), resumed with `resume_at`.
+The port runs one process on one card, so rank 0 is the only rank and
+everything prints and writes.
 """
 
 from __future__ import annotations
@@ -53,6 +54,23 @@ class RecordWriter:
     def append_txt(self, line: str) -> None:
         with open(self.txt_path, "a") as f:
             f.write(line.rstrip("\n") + "\n")
+
+    def resume_at(self, start_epoch: int) -> None:
+        """Reload `history.json` truncated to `start_epoch`, so a resumed run
+        appends to the curve before the stop instead of rewriting it with
+        only the epochs after it (and drops epochs past the checkpoint
+        restored)."""
+        if os.path.exists(self.history_path):
+            try:
+                with open(self.history_path) as f:
+                    prior = json.load(f)
+            except (ValueError, OSError):
+                prior = {}  # a torn file must not stop the resumed run
+            for k, v in prior.items():
+                if isinstance(v, list):
+                    self.history[k] = [None if x is None else float(x)
+                                       for x in v[:start_epoch]]
+            self.flush_history()
 
     def log_epoch(self, epoch: int, **metrics: float) -> None:
         """One epoch record → output.txt and history (`history[k][e]` is

@@ -1,5 +1,6 @@
 """Import guard: the torch port and `chip_smoke.py` load with jax, flax,
-optax and the JAX package refused at import time.
+optax, the JAX package and PIL refused at import time (the port decodes
+images with its native dataplane only).
 
 A fresh interpreter installs a meta-path finder that refuses those names —
 the exact module name or its dotted prefix only, so
@@ -19,7 +20,7 @@ PORT = "ddp_classification_pytorch_tpu_torch"
 _GUARD = r"""
 import importlib, importlib.util, os, sys
 
-BLOCKED = ("jax", "flax", "optax", "ddp_classification_pytorch_tpu")
+BLOCKED = ("jax", "flax", "optax", "ddp_classification_pytorch_tpu", "PIL")
 
 def blocked(name):
     return any(name == b or name.startswith(b + ".") for b in BLOCKED)

@@ -262,10 +262,12 @@ def test_cli_cpu_run_writes_records_and_a_verified_checkpoint(tmp_path):
                  "ckpt_e0.pt.sha256"):
         assert os.path.isfile(os.path.join(out, name)), name
     sd = checkpoint.restore(os.path.join(out, "ckpt_e0.pt"))
+    assert sd["step"] == sd["opt_count"] == 2 and sd["optimizer"]["state"]
     cfg = train_cli.config_from_args(train_cli.build_parser().parse_args(TINY))
     from ddp_classification_pytorch_tpu_torch.models.factory import build_model
 
-    build_model(cfg.model, 10, 32).load_state_dict(sd)  # strict
+    build_model(cfg.model, 10, 32).load_state_dict(  # strict
+        checkpoint.model_state(sd))
     with open(os.path.join(out, "output.txt")) as f:
         assert f.read().startswith("epoch:0\tloss:")
 
@@ -277,8 +279,8 @@ def test_cli_without_a_card_exits_3(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--model", "resnet50"],           # arch not ported for training
-    ["--dataset", "imagefolder"],      # dataset not ported
-    ["--resume", "x.pt"],              # flag not taken yet
+    ["--dataset", "imagefolder"],      # no --train_dir
+    ["--resume", "x.pt"],              # no such checkpoint
     ["--optimizer", "lamb"],           # unknown optimizer
 ], ids=["arch", "dataset", "flag", "optimizer"])
 def test_cli_unported_or_bad_config_exits_2(tmp_path, extra):
