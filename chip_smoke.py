@@ -2,10 +2,12 @@
 """On-card smoke of the torch port: builds its kernels, holds each against
 its plain PyTorch version, and drives the port's main paths — serving
 TResNet-M at full width and depth, training ViT-B/16 at 512 px, training
-TResNet-M at 224 px and serving its checkpoint, and training TResNet-M on
+TResNet-M at 224 px and serving its checkpoint, training TResNet-M on
 real-data input (an image folder through the native dataplane, or CIFAR
 pickles where the dataplane cannot be built), resuming it and serving the
-resumed checkpoint — on one NVIDIA GPU.
+resumed checkpoint, training ResNet-50 (the reference's default model)
+and serving its checkpoint, and the same short run under torchrun over
+NCCL — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -183,7 +185,33 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
 19. the resumed checkpoint served — `cli/serve.py`'s selfcheck over it (8
    requests, K1 36 a forward) and the same top-5 as the trainer's own eval
    forward on 8 val images;
-20. a `{"kernels": [...]}` line (K1-K4, K1s, K1r, K1d), then
+20. the ResNet-50 training path — `cli/train.py`'s sequence in process:
+   ResNet-50 at full width and depth (torchvision v1.5), 224 px, 2173
+   classes, batch 64, bf16, synthetic data of 512 images: 8 train steps
+   and 2 eval batches. The loss is finite, no step was skipped, none of
+   K1-K4, K1s, K1r and K1d launched (this path runs no TPU kernel: its
+   convolutions are cuDNN's and its 53 BNs plain PyTorch, as they are
+   XLA in the JAX package), the records and the checkpoint are written
+   and restore to the trained state; then `cli/serve.py --model resnet50
+   --ckpt` answers 8 requests and its top-5 on 8 val images equals the
+   trainer's own eval forward;
+21. ResNet-50 training timings — the train step at batch 128 (the
+   per-chip batch of the JAX bench), bf16, 224 px, uint8 wire: wall (host
+   clock, median of 5), device time, busy share, images/s, kernel
+   launches a step; by family: the convolutions (by kernel name, in the
+   step), the 53 BN sites' forward and backward in a row outside the step
+   at its shapes, the rest; and the convolutions' tensor-core bound (their
+   forward, dgrad and wgrad operations over the bf16 peak);
+22. torchrun — `python -m torch.distributed.run --nproc_per_node 1 -m
+   ...cli.train` (NCCL, world 1) and the same command as a plain process:
+   ResNet-50, f32, 224 px, 4 steps of batch 32 (4 epochs of one step),
+   same seed and data. The torchrun run reports `ddp=nccl` and the plain
+   one `ddp=off`; the per-step losses and the last checkpoints'
+   parameters and running statistics are bitwise equal, as measured on
+   an H100 (the largest difference is printed). The process group, DDP
+   or NCCL failing fails the phase;
+23. a `{"kernels": [...]}` line (K1-K4, K1s, K1r, K1d; each with its
+   launches on the ResNet-50 path: 0), then
    `{"ok": true, "device": {...}}` last.
 
 Numerics on the card: `torch.backends.cudnn.allow_tf32 = False` and
@@ -272,6 +300,25 @@ MARK = "spin_kernel"  # torch.cuda._sleep's kernel, DeviceTimer's marker
 MARKS_PER_EDGE = 2  # markers at each edge of a region: one lost still shows it
 PAD_KERNELS = 8  # kernels outside every region at each end of a session
 SCORE_ELEMENTWISE_OPS = 5  # per score: scale, mask/max, subtract, exp, sum/mul
+# phase 20: ResNet-50 as the reference's workloads train it (224 px, 2173
+# classes, bf16): 512 images at batch 64 are TRAIN_STEPS steps, its val set
+# of 128 EVAL_BATCHES batches
+RESNET_TRAIN_ARGV = ["baseline", "--dataset", "synthetic", "--synthetic_size",
+                     "512", "--model", "resnet50", "--image_size", "224",
+                     "--num_classes", "2173", "--batchsize", "64",
+                     "--dtype", "bfloat16", "--epochs", "1", "--lr", "0.01",
+                     "--device", "cuda"]
+RESNET_SERVE_ARGV = ["resnet50" if a == "tresnet_m" else a for a in SERVE_ARGV]
+RESNET_BNS = 53  # the stem + 3 a bottleneck × 16 + 4 shortcuts
+RESNET_STEP_BATCH = 128  # the per-chip batch bench.py:1129 picks
+# phase 22: the same short run as a plain process and under torchrun
+# (world 1, NCCL): f32, 4 epochs of one step (history.json keeps each
+# epoch's loss unrounded), the last checkpoint compared
+DDP_ARGV = ["baseline", "--dataset", "synthetic", "--synthetic_size", "32",
+            "--model", "resnet50", "--image_size", "224", "--num_classes",
+            "2173", "--batchsize", "32", "--dtype", "float32", "--epochs",
+            "4", "--lr", "0.01", "--keep_checkpoints", "1", "--device", "cuda"]
+DDP_STEPS = 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1093,11 +1140,13 @@ def abn_train_vs_plain(torch, fused_abn, device, shapes, slope, ragged=True):
 
 
 def serve_trained_checkpoint(torch, fused_abn, device, serve_cli, k1,
-                             trainer, ckpt, images, serve_argv=SERVE_ARGV):
-    """Phases 12 and 19: cli/serve.py's selfcheck over the TResNet-M
-    checkpoint the trainer wrote (8 requests with finite probabilities, K1
-    36 times a forward), then `images` (8 uint8 val images) through the
-    served model and the trainer's own eval forward: the same top-5."""
+                             trainer, ckpt, images, serve_argv=SERVE_ARGV,
+                             k1_per_forward=ABN_SITES):
+    """Phases 12, 19 and 20: cli/serve.py's selfcheck over the checkpoint
+    the trainer wrote (8 requests with finite probabilities, K1
+    `k1_per_forward` times a forward: 36 for TResNet-M, 0 for ResNet-50),
+    then `images` (8 uint8 val images) through the served model and the
+    trainer's own eval forward: the same top-5."""
     from ddp_classification_pytorch_tpu_torch.train.steps import (
         make_topk_predict_step,
     )
@@ -1116,7 +1165,7 @@ def serve_trained_checkpoint(torch, fused_abn, device, serve_cli, k1,
         p.scores.shape == (5,) and np.isfinite(p.scores).all()
         and (p.scores >= 0).all() and p.scores.sum() <= 1.0 + 1e-3
         for p in preds), "served checkpoint: invalid probabilities")
-    check(k1.launches - before == ABN_SITES * forwards,
+    check(k1.launches - before == k1_per_forward * forwards,
           f"served checkpoint: K1 rose by {k1.launches - before} over "
           f"{forwards} forwards")
     predict = make_topk_predict_step(cfg, 5)
@@ -1596,6 +1645,194 @@ def real_data_phases(torch, device, native, train_cli, serve_cli, checkpoint,
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
+
+
+def resnet_step_timing(torch, device, train_cli, card: str) -> dict:
+    """Phase 21: the ResNet-50 train step at batch RESNET_STEP_BATCH, bf16,
+    224 px, uint8 wire: wall (host clock, median of 5), device time, busy
+    share, images/s, kernel launches a step, the step's device time by
+    kernel family (convolutions by name, the rest), and the 53 BN sites'
+    forward and backward in a row outside the step (plain PyTorch, as the
+    step runs them) at the step's shapes; the convolutions' tensor-core
+    bound (their operations, forward and both backward products, over the
+    bf16 peak). `card` (name and power limit, as nvidia-smi gives them)
+    heads the printed line."""
+    from ddp_classification_pytorch_tpu_torch.models.batchnorm import BatchNorm
+    from ddp_classification_pytorch_tpu_torch.train.state import create_train_state
+    from ddp_classification_pytorch_tpu_torch.train.steps import make_train_step
+
+    n = RESNET_STEP_BATCH
+    argv = list(RESNET_TRAIN_ARGV)
+    argv[argv.index("--batchsize") + 1] = str(n)
+    cfg = train_cli.config_from_args(train_cli.build_parser().parse_args(argv))
+    state = create_train_state(cfg, device, 1)
+    step_fn = make_train_step(cfg)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(
+        0, 256, (n, 224, 224, 3), dtype=np.uint8)).to(device)
+    labels = torch.from_numpy(
+        rng.integers(0, cfg.data.num_classes, n).astype(np.int32)).to(device)
+
+    def rstep():
+        return step_fn(state, images, labels)
+
+    # the shapes the step gives each BN and conv, from hooks on one forward
+    bn_in, conv_ops = [], [0]
+    bns = [m for m in state.model.modules() if isinstance(m, BatchNorm)]
+    check(len(bns) == RESNET_BNS, f"{len(bns)} BatchNorms in ResNet-50")
+
+    def conv_hook(m, args, out):
+        k = m.weight[0].numel()  # Cin·kh·kw
+        # forward, plus dgrad and wgrad (no dgrad for the stem's input)
+        products = 2 if m is state.model.backbone.conv1 else 3
+        conv_ops[0] += products * 2 * out.numel() * k
+
+    hooks = [m.register_forward_pre_hook(
+        lambda _m, args: bn_in.append(tuple(args[0].shape))) for m in bns]
+    hooks += [m.register_forward_hook(conv_hook) for m in state.model.modules()
+              if isinstance(m, torch.nn.Conv2d)]
+    m = rstep()
+    for hk in hooks:
+        hk.remove()
+    check(float(m["step_ok"]) == 1.0, "ResNet-50 timing step skipped")
+    # the 53 BN sites alone: forward then backward, in the step's dtype
+    gen = torch.Generator(device=device).manual_seed(5)
+    sites = []
+    for bn, shape in zip(bns, bn_in):
+        b, c, h, w = shape
+        x = torch.randn((b, h, w, c), device=device, generator=gen).to(
+            torch.bfloat16).permute(0, 3, 1, 2).requires_grad_()
+        sites.append((bn, x, torch.randn_like(x)))
+
+    def bn_chain():
+        for bn, x, g in sites:
+            bn(x).backward(g)
+
+    log(f"[timing] clocks.sm, clocks.max.sm, power.draw: {clocks()}")
+    wall = host_ms(torch, rstep)
+    with DeviceTimer(torch) as timer:
+        timer.run("resnet50 train step", rstep, reps=STEP_REPS)
+        timer.run("resnet50 BN chain", bn_chain, reps=STEP_REPS)
+    res = timer.results()
+    dev = res["resnet50 train step"][0]
+    check(res["resnet50 train step"][1] is not None,
+          "torch.profiler recorded no kernel of the ResNet-50 step")
+    fam = forward_families(*timer.per_kernel["resnet50 train step"],
+                           families=TRAIN_FAMILIES[4:])
+    conv_ms = fam["convolutions"]["ms"]
+    bn_ms = res["resnet50 BN chain"][0]
+    launches = len(res["resnet50 train step"][1]) / STEP_REPS
+    rec = {"batch": n, "px": 224, "dtype": "bfloat16", "wall_ms": wall,
+           "device_ms": dev, "device_busy": dev / wall,
+           "images_per_s": n / wall * 1e3, "launches_per_step": launches,
+           "by_family": {
+               "convolutions": fam["convolutions"],
+               "bn_statistics_and_normalisation_alone": {
+                   "ms": bn_ms, "sites": RESNET_BNS,
+                   "launches": (len(res["resnet50 BN chain"][1]) / STEP_REPS
+                                if res["resnet50 BN chain"][1] else None)},
+               "rest": {"ms": dev - conv_ms - bn_ms},
+               "non_convolution_in_step": fam["rest"],
+               "rest_largest_ms": fam["rest_largest_ms"]},
+           "conv_operations": conv_ops[0],
+           "conv_bound_ms": conv_ops[0] / BF16_OPS_PER_S * 1e3,
+           "profiler": timer.record()}
+    log(f"[timing] {card}: ResNet-50 train step, batch {n}, bf16, 224 px "
+        f"(bn_statistics_and_normalisation_alone: the 53 BN sites' forward "
+        f"and backward in a row outside the step, at its shapes; rest: the "
+        f"step less the convolutions and that): {json.dumps(rec)}")
+    log(f"[timing] clocks.sm, clocks.max.sm, power.draw: {clocks()}")
+    return rec
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_group(cmd, timeout_s: float):
+    """Run `cmd` in a session of its own; on the time limit the whole
+    group (torchrun and its workers) is killed. Returns (rc, out, err)."""
+    import signal
+
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise RuntimeError(f"chip_smoke: {cmd[:6]} ran past {timeout_s} s:\n"
+                           f"{out[-2000:]}\n{err[-2000:]}") from None
+    return proc.returncode, out, err
+
+
+def ddp_vs_plain(torch, checkpoint) -> dict:
+    """Phase 22: DDP_ARGV as a plain process and under `python -m
+    torch.distributed.run --nproc_per_node 1` (NCCL, world 1), same seed
+    and data: each epoch's (= step's) loss and the last checkpoint's
+    parameters and running statistics bitwise equal (the largest
+    difference is reported). The torchrun run must report `ddp=nccl`:
+    nothing falls back to the plain process."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    mod = ["-m", "ddp_classification_pytorch_tpu_torch.cli.train"]
+    cmds = {"plain": [sys.executable] + mod,
+            "torchrun": [sys.executable, "-m", "torch.distributed.run",
+                         "--nproc_per_node", "1", "--master_addr",
+                         "127.0.0.1", "--master_port", str(free_port())] + mod}
+    runs = {}
+    try:
+        for kind, cmd in cmds.items():
+            out = os.path.join(tmp, kind)
+            t0 = time.perf_counter()
+            rc, stdout, stderr = run_group(cmd + DDP_ARGV + ["--out", out], 600)
+            check(rc == 0, f"phase 22 {kind} run: rc {rc}\n{stdout[-3000:]}\n"
+                           f"{stderr[-3000:]}")
+            with open(os.path.join(out, "history.json")) as f:
+                losses = json.load(f)["loss"]
+            runs[kind] = {"wall_s": time.perf_counter() - t0,
+                          "banner": next(ln for ln in stdout.splitlines()
+                                         if ln.startswith("[trainer] workload")),
+                          "losses": losses,
+                          "state": checkpoint.restore(os.path.join(
+                              out, f"ckpt_e{DDP_STEPS - 1}.pt"))}
+            log(f"[ddp] {kind}: {runs[kind]['banner']}; losses {losses}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    plain, tr = runs["plain"], runs["torchrun"]
+    check("world=1 ddp=nccl" in tr["banner"],
+          f"torchrun run not over NCCL: {tr['banner']}")
+    check("world=1 ddp=off" in plain["banner"],
+          f"plain run joined a group: {plain['banner']}")
+    check(len(plain["losses"]) == len(tr["losses"]) == DDP_STEPS,
+          f"losses {plain['losses']} / {tr['losses']}")
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(tr["losses"], plain["losses"]))
+    a, b = plain["state"], tr["state"]
+    check((a["step"], a["opt_count"]) == (b["step"], b["opt_count"])
+          == (DDP_STEPS, DDP_STEPS), "step counts differ")
+    keys = [k for k in a["model"] if k.startswith("backbone.")]
+    check(sorted(a["model"]) == sorted(b["model"]) and len(keys) == len(
+        a["model"]), "checkpoint keys differ (or carry a module. prefix)")
+    diffs = {k: (a["model"][k].float() - b["model"][k].float()).abs().max().item()
+             for k in keys}
+    worst = max(diffs, key=diffs.get)
+    bitwise = all(torch.equal(a["model"][k], b["model"][k]) for k in keys)
+    rec = {"loss_max_rel_diff": loss_rel, "state_max_abs_diff": diffs[worst],
+           "state_worst_tensor": worst, "bitwise_equal": bitwise,
+           "losses_plain": plain["losses"], "losses_torchrun": tr["losses"],
+           "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+           "banners": {k: r["banner"] for k, r in runs.items()}}
+    log(f"[ddp] torchrun (world 1, NCCL) vs plain: {json.dumps(rec)}")
+    # bitwise, as measured on an NVIDIA H100: a limit of 1e-4 would let a
+    # world-1 group that perturbs the step pass
+    check(loss_rel == 0.0, f"per-step losses differ by {loss_rel} relatively")
+    check(bitwise, f"final state differs by up to {diffs[worst]} ({worst})")
+    return rec
 
 
 def main() -> int:
@@ -2193,12 +2430,37 @@ def main() -> int:
         k1, wrappers, abn_counts, name,
         "imagefolder" if dataplane_ok else "cifar10")
 
+    # ------------------------------------ 20. the ResNet-50 training path --
+    # the reference's default model through cli/train.py: no TPU kernel on
+    # this path, so every wrapper's count stays 0
+    counters = dict(zip(("k1", "k1s", "k1r", "k1d"), wrappers)) | {
+        kind: getattr(fa, attr) for kind, attr, *_ in FLASH_KERNELS}
+    trainer, r50_cfg, r50_rec = train_main_path(
+        torch, device, train_cli, checkpoint, RESNET_TRAIN_ARGV, counters,
+        dict.fromkeys(counters, 0), "resnet50-train",
+        lambda tr, ckpt: serve_trained_checkpoint(
+            torch, fused_abn, device, serve_cli, k1, tr, ckpt,
+            np.stack([tr.val_ds[i][0] for i in range(8)]), RESNET_SERVE_ARGV,
+            k1_per_forward=0))
+    report["resnet50_train"] = r50_rec
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- 21. ResNet-50 training timings --
+    report["resnet50_train_step"] = resnet_step_timing(torch, device,
+                                                       train_cli, card)
+    torch.cuda.empty_cache()
+
+    # ----------------------------------- 22. torchrun (NCCL) vs plain run --
+    report["ddp"] = ddp_vs_plain(torch, checkpoint)
+
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
-    # ------------------------------------------------------ 20. summary --
+    # ------------------------------------------------------ 23. summary --
+    # the ResNet-50 path (phase 20) launches none of these kernels
     log(json.dumps({"kernels": [{
         "name": "fused_bn_leaky_relu",
         "route": "cuda",
@@ -2222,6 +2484,7 @@ def main() -> int:
         "train_step_ms": step_rec2["k1_x36_ms"],
         "train_step_bound_ms": step_rec2["k1_x36_bound_ms"],
         "train_step_launches": tres_rec["launches"]["k1"],
+        "resnet50_path_launches": r50_rec["launches"]["k1"],
     }] + [{
         "name": attr,
         "route": "cuda",
@@ -2241,6 +2504,7 @@ def main() -> int:
         # K2; its backward computes dQ, dK and dV together, so K3 and K4
         # alone have none (the SDPA backward stands in the flash rows)
         "library_ms": slice_row["sdpa_fwd_ms"] if kind == "fwd" else None,
+        "resnet50_path_launches": r50_rec["launches"][kind],
     } | ({} if kind == "fwd" else {
         # K3 + K4 against the one call that computes dQ, dK and dV together
         "pair_ms": slice_row["k_dq_ms"] + slice_row["k_dkv_ms"],
@@ -2268,6 +2532,7 @@ def main() -> int:
                        "k1r": seq["bn_bwd_reduce"]}.get(kind),
         "library_call": {"k1s": "torch.batch_norm_stats",
                          "k1r": "torch.batch_norm_backward_reduce"}.get(kind),
+        "resnet50_path_launches": r50_rec["launches"][kind],
     } | ({"yardstick_var_mean_ms": seq["var_mean"],
           "host_us_per_call": host_us["k1s"]} if kind == "k1s" else {
         "pair_ms": step_rec2["k1r_x36_ms"] + step_rec2["k1d_x36_ms"],

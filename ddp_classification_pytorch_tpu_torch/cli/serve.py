@@ -3,6 +3,8 @@ engine (serve/engine.py) on the card, over fresh or checkpointed weights.
 
     python -m ddp_classification_pytorch_tpu_torch.cli.serve baseline \
         --model tresnet_m --selfcheck 32
+    python -m ddp_classification_pytorch_tpu_torch.cli.serve baseline \
+        --model resnet50 --ckpt runs/r50/ckpt_e89.pt --selfcheck 8
 
 The JAX serve CLI's subset, with its rc discipline:
 
@@ -46,7 +48,10 @@ def build_parser() -> argparse.ArgumentParser:
 
     m = p.add_argument_group("model")
     m.add_argument("--model", "--arch", dest="model", default="",
-                   help="tresnet_m | timm (the archs ported so far)")
+                   help="resnet18 | resnet34 | resnet50 (default) | "
+                        "resnet101 | resnet152 | tresnet_m | timm")
+    m.add_argument("--variant", default="", help="ResNet stem: imagenet | "
+                   "cifar (default imagenet)")
     m.add_argument("--dtype", default="", help="bfloat16 | float32 compute dtype")
     m.add_argument("--num_classes", type=int, default=0)
     m.add_argument("--image_size", type=int, default=0)
@@ -91,6 +96,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
         cfg.model.arch = args.model
     if args.dtype:
         cfg.model.dtype = args.dtype
+    if args.variant:
+        cfg.model.variant = args.variant
     if args.num_classes:
         cfg.data.num_classes = args.num_classes
     if args.image_size:
@@ -120,7 +127,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
     if sv.topk > cfg.data.num_classes:
         raise ValueError(
             f"serve.topk={sv.topk} exceeds num_classes={cfg.data.num_classes}")
-    if cfg.data.image_size % 4:
+    if cfg.model.arch in ("tresnet_m", "timm") and cfg.data.image_size % 4:
         raise ValueError(f"image_size={cfg.data.image_size} must be a "
                          "multiple of 4 (TResNet's space-to-depth stem)")
     if not (sv.checkpoint or args.selfcheck):

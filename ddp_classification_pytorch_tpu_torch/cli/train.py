@@ -1,7 +1,13 @@
 """`train` entry point of the port — the JAX train CLI's flags for the
-paths ported so far (TResNet-M and the ViT family on synthetic data,
-image folders and CIFAR pickles, with resume), on the card.
+paths ported so far (the ResNets over any number of cards, TResNet-M and
+the ViT family on one, on synthetic data, image folders and CIFAR
+pickles, with resume), on the card.
 
+    torchrun --nproc_per_node 4 -m ddp_classification_pytorch_tpu_torch.cli.train \
+        baseline --dataset imagefolder --train_dir T --val_dir V \
+        --model resnet50 --batchsize 128 --epochs 90 --out runs/r50
+    python -m ddp_classification_pytorch_tpu_torch.cli.train baseline \
+        --dataset synthetic --model resnet50 --out runs/r50_1card
     python -m ddp_classification_pytorch_tpu_torch.cli.train baseline \
         --dataset imagefolder --train_dir T --val_dir V --model tresnet_m \
         --image_size 224 --batchsize 32 --epochs 2 --out runs/tresnet
@@ -13,15 +19,22 @@ image folders and CIFAR pickles, with resume), on the card.
         --dataset synthetic --model vit_b16 --image_size 512 \
         --flash_attention --batchsize 32 --epochs 1 --out runs/vit
 
-A TResNet-M checkpoint it writes (`<out>/ckpt_e<N>.pt`, the whole train
-state) is what `cli/serve.py --ckpt` serves.
+Under torchrun each process drives the card `LOCAL_RANK` names and joins
+the process group over NCCL (gloo with `--device cpu`); `--batchsize` is
+one process's batch, so the global batch is `--batchsize` × the world
+size; the ResNets' BNs take the global batch's statistics; rank 0 prints
+and writes the records and checkpoints. A plain `python -m` run is the
+same path with no process group. A ResNet or TResNet-M checkpoint it
+writes (`<out>/ckpt_e<N>.pt`, the whole train state) is what
+`cli/serve.py --ckpt` serves.
 
 Exit codes, as the JAX CLI's:
 
 - **rc 2**: config errors — an unported workload, dataset, preset, arch
   or option, a flag this CLI does not take (argparse), bad values, a
   missing data directory, a `--resume` file that fails its sha256, a
-  native dataplane that does not build on this machine;
+  native dataplane that does not build on this machine, `--dp` other
+  than the world size, TResNet-M over more than one rank;
 - **rc 3**: no CUDA device and `--device cpu` not asked for (it never
   carries on on the CPU);
 - **rc 8**: `run.max_bad_steps` consecutive non-finite steps (diverged;
@@ -41,8 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ddp_classification_pytorch_tpu_torch.cli.train",
         description="classification training on the card (ported: "
-                    "TResNet-M and ViT on synthetic data, image folders "
-                    "and CIFAR)")
+                    "ResNet, TResNet-M and ViT on synthetic data, image "
+                    "folders and CIFAR; torchrun for data parallelism)")
     p.add_argument("workload", choices=["baseline", "arcface", "cdr", "nested", "plc"],
                    help="which reference silo's recipe to run (ported: baseline)")
 
@@ -80,8 +93,16 @@ def build_parser() -> argparse.ArgumentParser:
 
     m = p.add_argument_group("model")
     m.add_argument("--model", "--arch", dest="model", default="",
-                   help="tresnet_m | timm (TResNet-M) | vit_t16 | vit_s16 | "
-                        "vit_b16 (ported for training)")
+                   help="resnet18 | resnet34 | resnet50 (default) | "
+                        "resnet101 | resnet152 | tresnet_m | timm "
+                        "(TResNet-M) | vit_t16 | vit_s16 | vit_b16")
+    m.add_argument("--variant", default="", help="ResNet stem: imagenet | "
+                   "cifar (default imagenet; cifar for --dataset cifar*)")
+    m.add_argument("--pretrained", action="store_true",
+                   help="ResNets: start from --pretrained_path's weights")
+    m.add_argument("--pretrained_path", default="",
+                   help="a local torchvision .pth (or {'state_dict'} / "
+                        "NESTED {'feat','cls'} file); implies --pretrained")
     m.add_argument("--flash_attention", action="store_true",
                    help="ViT: the flash kernels for attention")
     m.add_argument("--flash_min_tokens", type=int, default=-1,
@@ -99,6 +120,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multistep milestones (epochs)")
     o.add_argument("--warmUpIter", type=int, default=-1,
                    help="linear warmup iterations")
+
+    par = p.add_argument_group("parallelism")
+    par.add_argument("--dp", type=int, default=0,
+                     help="data-parallel width; must equal the world size "
+                          "torchrun gives (0 = the world size)")
 
     r = p.add_argument_group("run")
     r.add_argument("--seed", type=int, default=-1)
@@ -140,6 +166,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
                 cfg.data.num_classes = 10 if args.dataset == "cifar10" else 100
             if not args.image_size:
                 cfg.data.image_size = 32
+            if not args.variant:
+                cfg.model.variant = "cifar"
     if args.synthetic_size:
         cfg.data.synthetic_size = args.synthetic_size
     if args.batchsize:
@@ -169,6 +197,14 @@ def config_from_args(args: argparse.Namespace) -> Config:
         cfg.model.flash_min_tokens = args.flash_min_tokens
     if args.dtype:
         cfg.model.dtype = args.dtype
+    if args.variant:
+        cfg.model.variant = args.variant
+    if args.pretrained:
+        cfg.model.pretrained = True
+    if args.pretrained_path:
+        cfg.model.pretrained = True
+        cfg.model.pretrained_path = args.pretrained_path
+    cfg.parallel.data_parallel = args.dp
 
     if args.optimizer:
         cfg.optim.optimizer = args.optimizer
@@ -209,6 +245,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     from ..data.native import DataplaneUnavailable
+    from ..parallel import ddp
     from ..train.loop import Trainer
     from ..train.sentinel import SentinelDiverged
     from ..utils.backend_probe import BackendUnavailable, resolve_device
@@ -224,20 +261,25 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     except BackendUnavailable as e:
         print(f"[trainer] backend unreachable: {e}", file=sys.stderr)
         raise SystemExit(3) from None
-    try:
-        trainer = Trainer(cfg, device)
-    except (ValueError, FileNotFoundError) as e:  # an unported arch, head,
-        # dataset or option, a missing data dir, a bad --resume: deterministic
-        print(f"[trainer] config error: {e}", file=sys.stderr)
-        raise SystemExit(2) from None
-    except DataplaneUnavailable as e:
-        print(f"[trainer] native dataplane unavailable: {e}", file=sys.stderr)
-        raise SystemExit(2) from None
-    try:
-        trainer.run()
-    except SentinelDiverged as e:
-        print(f"[trainer] diverged: {e}", file=sys.stderr)
-        raise SystemExit(SentinelDiverged.exit_code) from None
+    # torchrun's process group, if it started this process; torn down on
+    # every way out, the rc 2 and rc 8 exits included
+    with ddp.process_group(device) as device:
+        try:
+            trainer = Trainer(cfg, device)
+        except (ValueError, FileNotFoundError) as e:  # an unported arch,
+            # head, dataset or option, a missing data dir, a bad --resume,
+            # --dp off the world size: deterministic
+            print(f"[trainer] config error: {e}", file=sys.stderr)
+            raise SystemExit(2) from None
+        except DataplaneUnavailable as e:
+            print(f"[trainer] native dataplane unavailable: {e}",
+                  file=sys.stderr)
+            raise SystemExit(2) from None
+        try:
+            trainer.run()
+        except SentinelDiverged as e:
+            print(f"[trainer] diverged: {e}", file=sys.stderr)
+            raise SystemExit(SentinelDiverged.exit_code) from None
 
 
 if __name__ == "__main__":

@@ -4,9 +4,10 @@ nothing of the JAX package).
 
 Field names, defaults and the five workload presets are the JAX package's,
 so a command line means the same on both sides. Fields for the parts not
-ported yet (the heads' and CDR's knobs, parallelism, `h2d_overlap`, async
-checkpoints, the profiler window, the serve fleet, hot reload, the HTTP
-front end, the AOT sidecar) are left out until their slice lands.
+ported yet (the heads' and CDR's knobs, model and pipeline parallelism,
+`h2d_overlap`, async checkpoints, the profiler window, the serve fleet,
+hot reload, the HTTP front end, the AOT sidecar) are left out until their
+slice lands.
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ class DataConfig:
     num_classes: int = 2173  # BASELINE/main.py:85
     imgs_per_class: int = 500  # BASELINE/main.py:98
     max_classes: int = 0  # 0 = all; CDR uses 100 (CDR/main.py:73)
-    batch_size: int = 16  # one process, one card: the whole batch
+    # the batch of one process (one process drives one card); the global
+    # batch is batch_size × world size, the JAX `batch_size * num_hosts`
+    batch_size: int = 16
     num_workers: int = 4  # loader threads (BASELINE/main.py:130-131)
     prefetch: int = 2  # host batches the loader keeps ready
     # batches staged on the card ahead of the step loop by a stager thread
@@ -49,10 +52,17 @@ class DataConfig:
 
 @dataclass
 class ModelConfig:
-    """Backbone + head selection (tresnet_m / timm and vit_t16/s16/b16 with
-    head fc are ported; models/factory.py refuses the rest)."""
+    """Backbone + head selection (resnet18/34/50/101/152, tresnet_m / timm
+    and vit_t16/s16/b16 with head fc are ported; models/factory.py refuses
+    the rest)."""
 
     arch: str = "resnet50"
+    variant: str = "imagenet"  # ResNet stem: imagenet (7×7/2 + pool) | cifar (3×3/1)
+    pretrained: bool = False  # load a torchvision state dict at init
+    # the .pth/.pt to load (a torchvision state dict, a {'state_dict': ...}
+    # wrapper or the reference's NESTED {'feat', 'cls'} file); nothing is
+    # downloaded
+    pretrained_path: str = ""
     head: str = "fc"  # fc | arcface | nested
     dtype: str = "bfloat16"  # compute dtype; ABN math, pool and fc stay f32
     dropout: float = 0.0
@@ -79,6 +89,14 @@ class OptimConfig:
     milestones: Sequence[int] = field(default_factory=lambda: (10, 20))
     warmup_iters: int = 0
     warmup_start_lr: float = 1e-6  # BASELINE/main.py:175
+
+
+@dataclass
+class ParallelConfig:
+    """Data parallelism over torch.distributed: one process per card,
+    launched by torchrun (the JAX package's `data` mesh axis, `--dp`)."""
+
+    data_parallel: int = 0  # must equal the world size; 0 = the world size
 
 
 @dataclass
@@ -164,6 +182,7 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     run: RunConfig = field(default_factory=RunConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
 

@@ -1,9 +1,12 @@
-"""Batch loader — the JAX package's `data/loader.py::ShardedLoader` on one
-host: the same epoch permutation and wrap-padding (`shard_indices_for_host`
-with one host), `set_epoch`, `__len__`, the eval `valid_mask`, item
-transforms on a thread pool of `num_workers`, a producer thread that keeps
-`prefetch` batches ready in a bounded queue, and the `batcher` hook
-through which the native dataplane assembles whole batches.
+"""Batch loader — the JAX package's `data/loader.py::ShardedLoader`: the
+same epoch permutation, padded by wrapping to a multiple of `num_hosts ×
+batch_size` and sliced per host (`shard_indices_for_host`; a host here is
+a rank of the process group, so every rank takes the same number of
+steps), `set_epoch`, `__len__`, the eval `valid_mask` that zeroes the wrap
+padding on each rank (`loader.py:35-72,173` there), item transforms on a
+thread pool of `num_workers`, a producer thread that keeps `prefetch`
+batches ready in a bounded queue, and the `batcher` hook through which
+the native dataplane assembles whole batches.
 
 With `num_workers=0` every batch is assembled on the calling thread; any
 other count gives the same batches in the same order.
@@ -28,7 +31,7 @@ def shard_indices_for_host(n: int, epoch: int, seed: int, batch_size: int,
     """Deterministic per-host index shard for one epoch: the permutation of
     seed ⊕ epoch, padded by wrapping to a multiple of num_hosts·batch_size
     (DistributedSampler's pad-by-repeat), then the host's contiguous
-    slice. The port runs one host: host_id 0 of 1."""
+    slice."""
     idx = np.arange(n, dtype=np.int64)
     if shuffle:
         rng = np.random.default_rng(
@@ -48,14 +51,18 @@ class Loader:
     dtype (uint8 on the default wire), labels int32. `dataset` supports
     `__len__` and, without a `batcher`, `__getitem__(i, rng)` → (HWC
     image, int label). `batcher(indices, epoch, batch_idx)` → (images,
-    labels) replaces the per-item path (`data/native.py`)."""
+    labels) replaces the per-item path (`data/native.py`). `host_id` and
+    `num_hosts` are this process's rank and the world size: the loader
+    yields that rank's shard."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 999, drop_last: bool = False,
                  num_workers: int = 0, prefetch: int = 2,
-                 batcher: Optional[Callable[[np.ndarray, int, int], Batch]] = None):
+                 batcher: Optional[Callable[[np.ndarray, int, int], Batch]] = None,
+                 host_id: int = 0, num_hosts: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.host_id, self.num_hosts = host_id, num_hosts
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
@@ -79,14 +86,16 @@ class Loader:
         """Reshuffle hook (reference sampler.set_epoch, BASELINE/main.py:269)."""
         self.epoch = epoch
 
-    def _padded_len(self) -> int:
-        n, b = len(self.dataset), self.batch_size
+    def _per_host_len(self) -> int:
+        """This host's padded epoch length (`shard_indices_for_host`'s,
+        without the permutation)."""
+        n, chunk = len(self.dataset), self.num_hosts * self.batch_size
         if self.drop_last:
-            return (n // b) * b
-        return ((n + b - 1) // b) * b
+            return (n // chunk) * chunk // self.num_hosts
+        return ((n + chunk - 1) // chunk) * chunk // self.num_hosts
 
     def __len__(self) -> int:
-        return self._padded_len() // self.batch_size
+        return self._per_host_len() // self.batch_size
 
     def valid_mask(self, batch_idx: int) -> np.ndarray:
         """(batch_size,) 1.0 where the row is a real sample, 0.0 where it is
@@ -94,7 +103,8 @@ class Loader:
         prefetcher's stager thread may call it."""
         if self.shuffle:
             raise ValueError("valid_mask is defined for ordered loaders")
-        pos = batch_idx * self.batch_size + np.arange(self.batch_size)
+        start = self.host_id * self._per_host_len() + batch_idx * self.batch_size
+        pos = start + np.arange(self.batch_size)
         return (pos < len(self.dataset)).astype(np.float32)
 
     def _load_batch(self, batch_idx: int, indices: np.ndarray) -> Batch:
@@ -120,7 +130,7 @@ class Loader:
     def _batches(self) -> Tuple[np.ndarray, int]:
         indices = shard_indices_for_host(
             len(self.dataset), self.epoch, self.seed, self.batch_size,
-            self.shuffle, drop_last=self.drop_last)
+            self.shuffle, self.host_id, self.num_hosts, self.drop_last)
         return indices, len(indices) // self.batch_size
 
     def __iter__(self) -> Iterator[Batch]:

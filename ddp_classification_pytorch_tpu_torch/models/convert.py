@@ -1,6 +1,8 @@
 """Weights carried across from the JAX package: its flax TResNet variables
 → the port's TResNet `state_dict` (timm's key layout, models/tresnet.py),
-and its flax ViT params → the port's ViT `state_dict` (models/vit.py).
+its flax ResNet variables → the port's ResNet `state_dict` (torchvision's
+key layout, models/resnet.py), and its flax ViT params → the port's ViT
+`state_dict` (models/vit.py).
 
 The inverse direction of the JAX package's
 `models/import_torch.py::convert_tresnet_state_dict`, taking the flax trees
@@ -127,6 +129,44 @@ def vit_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         _dense(sd, f"{pre}.mlp_in", p["mlp_in"])
         _dense(sd, f"{pre}.mlp_out", p["mlp_out"])
     ln("ln_final", params["ln_final"])
+    if "fc" in params:
+        _dense(sd, "fc", params["fc"])
+    return sd
+
+
+def resnet_from_jax(params: Mapping[str, Any],
+                    batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ResNet `params` + `batch_stats` (or a ClassifierModel's, with
+    the single `backbone` level) → the port ResNet's `state_dict`, for
+    every depth and both stems. The JAX module names
+    (`models/resnet.py:57-62,86-91,145-170` there) map to torchvision's:
+    `conv_stem`/`bn_stem` → `conv1`/`bn1`; `layerX_blockY` → `layerX.Y`,
+    in which `Conv_k`/`BatchNorm_k` → `conv{k+1}`/`bn{k+1}` and
+    `downsample_conv`/`downsample_bn` → `downsample.0/1`; `fc` → `fc`."""
+    if set(params) == {"backbone"}:
+        params, batch_stats = params["backbone"], batch_stats["backbone"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def bn(prefix: str, name: str, p: Mapping, s: Mapping) -> None:
+        for leaf, coll, out in _BN_LEAVES:
+            sd[f"{prefix}.{out}"] = _t((p if coll == "params" else s)[name][leaf])
+
+    sd["conv1.weight"] = _conv(params["conv_stem"]["kernel"])
+    bn("bn1", "bn_stem", params, batch_stats)
+    for name in params:
+        m = re.fullmatch(r"layer(\d+)_block(\d+)", name)
+        if m is None:
+            continue
+        p, s = params[name], batch_stats[name]
+        pre = f"layer{m.group(1)}.{m.group(2)}"
+        for sub in p:
+            if (c := re.fullmatch(r"Conv_(\d+)", sub)):
+                sd[f"{pre}.conv{int(c.group(1)) + 1}.weight"] = _conv(p[sub]["kernel"])
+            elif (b := re.fullmatch(r"BatchNorm_(\d+)", sub)):
+                bn(f"{pre}.bn{int(b.group(1)) + 1}", sub, p, s)
+        if "downsample_conv" in p:
+            sd[f"{pre}.downsample.0.weight"] = _conv(p["downsample_conv"]["kernel"])
+            bn(f"{pre}.downsample.1", "downsample_bn", p, s)
     if "fc" in params:
         _dense(sd, "fc", params["fc"])
     return sd

@@ -23,8 +23,9 @@ Every activated ABN (the stem, `abn1` of each block, `abn2` of each
 bottleneck: 36 sites in TResNet-M) runs K1 (`ops/fused_abn.py`): in eval
 mode on its running statistics; in training mode on the batch statistics
 of K1s, with K1r and K1d as its backward (`batch_norm_leaky_relu`). The
-identity BNs (`bn2`, `bn3`, `bn_down`: 24 sites) are plain PyTorch. In
-training mode both update their running statistics as flax does:
+identity BNs (`bn2`, `bn3`, `bn_down`: 24 sites) are plain PyTorch
+(`models/batchnorm.py`, built without a process group: TResNet-M trains
+on one rank). In training mode both update their running statistics as flax does:
 ra = 0.9·ra + 0.1·batch, with the biased batch variance.
 """
 
@@ -38,49 +39,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.fused_abn import batch_norm_leaky_relu, fused_bn_leaky_relu
+# the identity ABN (`bn2`, `bn3`, `bn_down` on the JAX side) is flax's
+# BatchNorm; re-exported so `tresnet.BatchNorm` keeps naming it
+from .batchnorm import BatchNorm
 
 SLOPE = 1e-3  # TResNet's leaky-relu slope (inplace_abn activation_param)
-MOMENTUM = 0.9  # flax BatchNorm's: ra = MOMENTUM·ra + (1 − MOMENTUM)·batch
-
-
-class BatchNorm(nn.Module):
-    """Identity-activation ABN (`bn2`, `bn3`, `bn_down` on the JAX side).
-    Eval mode: BatchNorm on the f32 running statistics, output in x's
-    dtype. Training mode: flax 0.12.3's `nn.BatchNorm` in plain PyTorch
-    (autograd through the statistics): f32 statistics with var =
-    max(mean(x²) − mean², 0), y = (x − mean)·(rsqrt(var + eps)·γ) + β in
-    x's dtype, and the running update. Holds `weight`, `bias`,
-    `running_mean` and `running_var` as `BatchNorm2d` does (timm's layout:
-    no `num_batches_tracked`)."""
-
-    def __init__(self, num_features: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
-        self.register_buffer("running_mean", torch.zeros(num_features))
-        self.register_buffer("running_var", torch.ones(num_features))
-
-    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        """ra = MOMENTUM·ra + (1 − MOMENTUM)·batch for mean and var (the
-        flax update, `tresnet.py:63-67` on the JAX side)."""
-        with torch.no_grad():
-            stats = [self.running_mean, self.running_var]
-            torch._foreach_mul_(stats, MOMENTUM)
-            torch._foreach_add_(stats, [mean.detach(), var.detach()],
-                                alpha=1 - MOMENTUM)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
-        xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        self.update_running(mean, var)
-        return y.to(x.dtype)
 
 
 class FusedABN(BatchNorm):

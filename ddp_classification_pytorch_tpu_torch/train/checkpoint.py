@@ -13,7 +13,12 @@ through — the JAX package's `train/checkpoint.py` for one process
 - A trainer's file holds the whole train state (`TrainState.state_dict()`:
   the model, the optimizer's momentum, `step`, `opt_count`); `model_state`
   takes the model's part, which is what `cli/serve.py --ckpt` serves (it
-  also serves a file of bare weights).
+  also serves a file of bare weights). The model's part is the unwrapped
+  module's, with no DistributedDataParallel `module.` prefix.
+- Under a process group the state is replicated: rank 0 writes the files
+  and `meta.json` while the other ranks wait at a barrier, and every rank
+  restores. A file written by a run of one world size resumes in a run
+  of another.
 
 Reading the JAX package's flax msgpack checkpoints is not ported yet: the
 GPU machine has no `msgpack` (ROADMAP.md). `models/convert.py` carries
@@ -30,6 +35,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
+from ..parallel import ddp
 from ..utils.logging import host0_print
 
 _DIGEST = re.compile(r"[0-9a-f]{64}")
@@ -180,7 +186,9 @@ class CheckpointManager:
 
     # ----------------------------------------------------------------- save --
     def save(self, state, epoch: int, metric: Optional[float] = None) -> bool:
-        """Write this epoch's checkpoints and meta; True on a new best."""
+        """Write this epoch's checkpoints and meta (rank 0; every rank
+        calls it and returns after the files are written); True on a new
+        best."""
         is_best = metric is not None and metric > self.best_metric
         if metric is not None:
             self.best_metric = max(self.best_metric, metric)
@@ -192,13 +200,15 @@ class CheckpointManager:
         meta: Dict[str, Any] = {"last_epoch": epoch}
         if is_best:
             meta.update(best_epoch=epoch, best_metric=float(metric))
-        if paths:
-            sd = _to_cpu(state.state_dict())  # one host copy for every path
-            for path in paths:
-                save(sd, path)
-        self._write_meta(**meta)
-        if paths and self.keep > 0:
-            self._prune()
+        if ddp.is_primary():
+            if paths:
+                sd = _to_cpu(state.state_dict())  # one host copy for every path
+                for path in paths:
+                    save(sd, path)
+            self._write_meta(**meta)
+            if paths and self.keep > 0:
+                self._prune()
+        ddp.barrier()
         return is_best
 
     def _epoch_checkpoints(self) -> List[int]:

@@ -1,11 +1,14 @@
-"""The trainer — the port of the JAX package's `train/loop.py::Trainer` for
-one process on one device: datasets → loaders (worker threads, the native
-dataplane on image folders) → device prefetch → state → steps →
-`train_epoch` / `evaluate` → records and tensorboard scalars → verified
-checkpoints of the whole train state, which `--resume` and
-`--auto_resume` pick up. Trains TResNet-M (whose checkpoints
-`cli/serve.py --ckpt` serves) and the ViT family, on synthetic data,
-image folders and CIFAR pickles.
+"""The trainer — the port of the JAX package's `train/loop.py::Trainer`, one
+process per device: datasets → this rank's loaders (worker threads, the
+native dataplane on image folders) → device prefetch → state (wrapped
+once in DistributedDataParallel under a process group, parallel/ddp.py)
+→ steps → `train_epoch` / `evaluate` (sums reduced across the ranks) →
+records, tensorboard scalars and verified checkpoints of the whole train
+state, written by rank 0, which `--resume` and `--auto_resume` pick up on
+every rank. Trains the ResNets (over any number of ranks, with global
+batch statistics), TResNet-M (one rank) and the ViT family, on synthetic
+data, image folders and CIFAR pickles; `cli/serve.py --ckpt` serves the
+conv nets' checkpoints.
 
 Not ported yet (ROADMAP.md): PLC data, the `cdr` rotation and the
 `cifar` preset on image folders (PIL's geometric ops), async checkpoints,
@@ -29,10 +32,11 @@ from ..data.loader import Loader
 from ..data.synthetic import SyntheticDataset
 from ..data.transforms import INPUT_DTYPES, build_transform, preset_for_dataset
 from ..obs.registry import Registry
+from ..parallel import ddp
 from ..utils.logging import EtaLogger, RecordWriter, host0_print
 from .checkpoint import CheckpointManager
 from .sentinel import StepSentinel
-from .state import create_train_state, param_count
+from .state import TRESNET_ARCHS, create_train_state, param_count
 from .steps import make_eval_step, make_train_step
 
 
@@ -110,9 +114,44 @@ def _sum_into(totals: Optional[Dict[str, torch.Tensor]],
     return totals
 
 
+def check_world(cfg: Config, world: int) -> None:
+    """ValueError (rc 2) unless `parallel.data_parallel` fits the world
+    size and the arch trains over it: TResNet-M's fused ABNs do not share
+    their statistics across ranks yet (ROADMAP.md)."""
+    dp = cfg.parallel.data_parallel
+    if dp and dp != world:
+        raise ValueError(f"--dp {dp} but the process group has {world} "
+                         "rank(s): one process drives one card, so --dp "
+                         "must equal torchrun's --nproc_per_node × nodes "
+                         "(or be 0)")
+    if world > 1 and cfg.model.arch in TRESNET_ARCHS:
+        raise ValueError(f"{cfg.model.arch} trains on one rank only: its "
+                         "fused ABNs do not share batch statistics across "
+                         f"ranks yet, and the world has {world} "
+                         "(ROADMAP.md)")
+
+
+def eval_totals(state, eval_step, batches) -> Dict[str, float]:
+    """{loss_sum, top1, top3, n} of `eval_step` over this rank's `batches`
+    (tuples of device tensors ending in the valid mask), summed on the
+    device, then across the ranks in one all-reduce: the exact global
+    sums, wrap padding masked on every rank (JAX `make_eval_step`)."""
+    totals = None
+    for batch in batches:
+        totals = _sum_into(totals, eval_step(state, *batch))
+    keys = ("loss_sum", "top1", "top3", "n")
+    if totals is None:  # every rank holds as many batches: none has one
+        return dict.fromkeys(keys, 0.0)
+    packed = ddp.sum_across(torch.stack([totals[k].float() for k in keys]))
+    return dict(zip(keys, packed.tolist()))
+
+
 class Trainer:
     def __init__(self, cfg: Config, device: torch.device):
+        device = ddp.local_device(device)
         self.cfg, self.device = cfg, device
+        world, primary = ddp.world_size(), ddp.is_primary()
+        check_world(cfg, world)
         self.obs = Registry()
         self.sentinel = StepSentinel(cfg.run.max_bad_steps, registry=self.obs)
         self.train_ds, self.val_ds = build_datasets(cfg)
@@ -123,14 +162,15 @@ class Trainer:
             native.get_lib()  # build now: DataplaneUnavailable is rc 2
             host0_print("[trainer] native C++ dataplane active")
         d = cfg.data
+        shard = dict(host_id=ddp.rank(), num_hosts=world)
         self.train_loader = Loader(
             self.train_ds, d.batch_size, shuffle=True, seed=cfg.run.seed,
             num_workers=d.num_workers, prefetch=d.prefetch,
-            batcher=train_batcher)
+            batcher=train_batcher, **shard)
         self.val_loader = Loader(
             self.val_ds, d.batch_size, shuffle=False, seed=cfg.run.seed,
             num_workers=d.num_workers, prefetch=d.prefetch,
-            batcher=val_batcher)
+            batcher=val_batcher, **shard)
         # the eval batch's valid_mask joins it on the stager thread
         self.train_prefetch = DevicePrefetcher(self.train_loader, device,
                                                depth=d.device_prefetch)
@@ -138,13 +178,14 @@ class Trainer:
             self.val_loader, device, depth=d.device_prefetch,
             assemble=lambda b, hb: (*hb, self.val_loader.valid_mask(b)))
         self.steps_per_epoch = max(len(self.train_loader), 1)
-        self.state = create_train_state(cfg, device, self.steps_per_epoch)
+        self.state = create_train_state(cfg, device, self.steps_per_epoch,
+                                        group=ddp.group())
         self.train_step = make_train_step(cfg)
         self.eval_step = make_eval_step(cfg)
         self.records = (RecordWriter(cfg.run.out_dir)
-                        if cfg.run.write_records else None)
+                        if cfg.run.write_records and primary else None)
         self.tb = None
-        if cfg.run.tensorboard:
+        if cfg.run.tensorboard and primary:
             from ..utils.tensorboard import SummaryWriter
 
             self.tb = SummaryWriter(os.path.join(cfg.run.out_dir, "tb"))
@@ -161,18 +202,30 @@ class Trainer:
             host0_print(f"resumed from {cfg.run.resume} at epoch "
                         f"{self.start_epoch}")
         elif cfg.run.auto_resume:
+            # rank 0 scans first (it quarantines a corrupt file); the
+            # others then find what it found
+            if not primary:
+                ddp.barrier()
             self.state, self.start_epoch = self.ckpt.restore_latest(self.state)
+            if primary:
+                ddp.barrier()
+            if not ddp.agree(self.start_epoch):
+                raise RuntimeError("ranks auto-resumed at different epochs")
             if self.start_epoch:
                 host0_print(f"auto-resumed from {cfg.run.out_dir} at epoch "
                             f"{self.start_epoch}")
         if self.start_epoch and self.records is not None:
             # keep the curve before the stop: the resumed run appends
             self.records.resume_at(self.start_epoch)
+        if ddp.initialized():  # after the restore: every rank starts equal
+            self.state.ddp = ddp.wrap(self.state.model, device)
         if self.records is not None and self.native_dataplane:
             self.records.append_txt("# native C++ dataplane active")
         host0_print(
             f"[trainer] workload={cfg.workload} arch={cfg.model.arch} "
             f"params={param_count(self.state):,} device={device} "
+            f"world={world} ddp={ddp.backend()} "
+            f"global_batch={d.batch_size * world} "
             f"dtype={cfg.model.dtype} flash={cfg.model.flash_attention} "
             f"steps/epoch={self.steps_per_epoch}")
 
@@ -201,16 +254,11 @@ class Trainer:
         return {k: float(v) / n_batches for k, v in sums.items()}
 
     def evaluate(self) -> Dict[str, float]:
-        totals = None
         it = iter(self.val_prefetch)
         try:
-            for batch in it:
-                totals = _sum_into(totals, self.eval_step(self.state, *batch))
+            totals = eval_totals(self.state, self.eval_step, it)
         finally:
             it.close()
-        if totals is None:
-            return {"val_loss": 0.0, "val_top1": 0.0, "val_top3": 0.0}
-        totals = {k: float(v) for k, v in totals.items()}
         n = max(totals["n"], 1.0)
         return {"val_loss": totals["loss_sum"] / n,
                 "val_top1": totals["top1"] / n,

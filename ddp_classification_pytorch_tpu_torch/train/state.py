@@ -12,31 +12,123 @@ import dataclasses
 from typing import Any, Dict, List, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from ..config import Config
 from ..models.factory import build_model
+from ..models.resnet import DEPTHS as RESNET_DEPTHS
+from ..models.resnet import ResNet
 from ..models.vit import VIT_CONFIGS
 from .schedule import Schedule, build_optimizer, build_schedule
 
+# jax.nn.initializers' truncated normal: the stddev of a standard normal cut
+# at ±2, by which `variance_scaling(..., "truncated_normal")` divides
+_TRUNC_STD = 0.87962566103423978
+
+
+def _variance_scaling_(w: torch.Tensor, scale: float, fan: int,
+                      generator: torch.Generator) -> torch.Tensor:
+    """flax's `variance_scaling(scale, mode, "truncated_normal")` in place:
+    a normal of σ = sqrt(scale / fan) / _TRUNC_STD cut at ±2σ."""
+    std = (scale / fan) ** 0.5 / _TRUNC_STD
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
 
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Fresh weights from `generator`: conv and linear weights
-    N(0, 1/fan_in) (LeCun normal, the flax default) and zero biases; BN
-    keeps its construction values (γ=1, β=0, mean 0, var 1), as flax's.
-    `torch.Generator` and `jax.random` give different numbers from one
-    seed; parity tests carry weights across with `models/convert.py`."""
+    """Fresh weights from `generator`: biases zero; BN keeps its
+    construction values (γ=1, β=0, mean 0, var 1), as flax's. A ResNet
+    starts from the JAX ResNet's distribution: its convs take
+    `variance_scaling(2.0, "fan_out", "truncated_normal")` with fan_out =
+    O·kh·kw (JAX `models/resnet.py:132-133`), its fc LeCun normal (flax's
+    Dense default, a truncated normal of fan_in). The other archs' conv and
+    linear weights are N(0, 1/fan_in). `torch.Generator` and `jax.random`
+    give different numbers from one seed; parity tests carry weights
+    across with `models/convert.py`."""
+    resnet = any(isinstance(m, ResNet) for m in model.modules())
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                fan_in = m.weight[0].numel()
+            if not isinstance(m, (nn.Conv2d, nn.Linear)):
+                continue
+            fan_in = m.weight[0].numel()
+            if resnet and isinstance(m, nn.Conv2d):
+                fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
+                _variance_scaling_(m.weight, 2.0, fan_out, generator)
+            elif resnet:
+                _variance_scaling_(m.weight, 1.0, fan_in, generator)
+            else:
                 m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
-                if m.bias is not None:
-                    m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         for name, p in model.named_parameters():
             if name.endswith("pos_embed"):  # the ViT's N(0, 0.02), as flax's
                 p.normal_(0.0, 0.02, generator=generator)
     return model
+
+
+# the reference NESTED NetFeat's Sequential indices → torchvision names
+# (NESTED/model/model.py:37-40; JAX `models/import_torch.py:73-74`)
+_NESTED_SEQ = {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2",
+               "6": "layer3", "7": "layer4"}
+_VESTIGIAL = ("mean_vector", "count_vector", "label")
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A .pth/.pt state dict as torchvision names: a raw state dict, a
+    `{'state_dict': ...}` wrapper, or the reference's NESTED `{'feat',
+    'cls'}` file (its `feat`, whose `feat_net.<i>` keys are renamed) — the
+    JAX `load_torch_checkpoint` and `_normalize_nested_key`
+    (`models/import_torch.py:77-89,345-356`)."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    if isinstance(obj, dict) and "feat" in obj and "cls" in obj:
+        obj = obj["feat"]
+    out = {}
+    for key, value in obj.items():
+        parts = key.split(".")
+        if parts[0] == "feat_net":
+            if parts[1] not in _NESTED_SEQ:
+                continue  # relu / maxpool / avgpool carry no tensors
+            key = ".".join([_NESTED_SEQ[parts[1]]] + parts[2:])
+        out[key] = value
+    return out
+
+
+def load_pretrained_(backbone: nn.Module, path: str) -> nn.Module:
+    """Overlay a torchvision ResNet state dict onto `backbone` in place —
+    the JAX `_load_pretrained` rules (`train/state.py:108-146`,
+    `models/import_torch.py:92-131`): `num_batches_tracked` and the
+    reference's vestigial buffers are skipped; `fc` loads only when its
+    shape fits the model's head (the reference replaces a 1000-class head:
+    otherwise it keeps its init); tensors the file lacks keep their init.
+    A key the model does not have, a shape that does not fit, or a file
+    with nothing to load is a ValueError."""
+    sd = load_torch_checkpoint(path)
+    own = backbone.state_dict()
+    fc = sd.get("fc.weight")
+    keep_fc = (fc is not None and "fc.weight" in own
+               and tuple(fc.shape) == tuple(own["fc.weight"].shape))
+    load = {}
+    for key, value in sd.items():
+        if (key.endswith("num_batches_tracked")
+                or key.split(".")[0] in _VESTIGIAL
+                or (key.startswith("fc.") and not keep_fc)):
+            continue
+        if key not in own:
+            raise ValueError(f"pretrained key {key!r} of {path} is not in "
+                             "the model")
+        if tuple(value.shape) != tuple(own[key].shape):
+            raise ValueError(f"pretrained {key!r} of {path} has shape "
+                             f"{tuple(value.shape)}, the model "
+                             f"{tuple(own[key].shape)}")
+        load[key] = value
+    if not load:
+        raise ValueError(f"{path} holds no ResNet weights (first keys: "
+                         f"{list(sd)[:5]})")
+    backbone.load_state_dict(load, strict=False)
+    return backbone
 
 
 @dataclasses.dataclass
@@ -52,6 +144,10 @@ class TrainState:
     schedule: Schedule
     step: int = 0
     opt_count: int = 0
+    # the DistributedDataParallel wrapper of `model` that the train step
+    # runs the forward through (parallel/ddp.py), None without a process
+    # group; `model` stays the unwrapped module whose state is saved
+    ddp: Optional[nn.Module] = None
 
     @property
     def params(self) -> List[nn.Parameter]:
@@ -87,23 +183,40 @@ class TrainState:
 
 
 TRESNET_ARCHS = ("tresnet_m", "timm")
-TRAIN_ARCHS = (*TRESNET_ARCHS, *VIT_CONFIGS)
+CONV_ARCHS = (*RESNET_DEPTHS, *TRESNET_ARCHS)  # channels_last on the device
+TRAIN_ARCHS = (*CONV_ARCHS, *VIT_CONFIGS)
 
 
 def create_train_state(cfg: Config, device: torch.device,
-                       steps_per_epoch: int) -> TrainState:
-    """Model with fresh f32 master weights from `run.seed` on `device`, its
-    optimizer and LR schedule. Training is ported for TResNet-M and the ViT
-    family; anything else is a ValueError. TResNet-M goes to the device in
-    channels_last, as K1 and its training passes take their activations
-    (weights in NCHW could lead cuDNN to hand back NCHW outputs)."""
+                       steps_per_epoch: int,
+                       group: Optional[dist.ProcessGroup] = None
+                       ) -> TrainState:
+    """Model with fresh f32 master weights from `run.seed` (or, for a
+    ResNet with `model.pretrained`, overlaid with `pretrained_path`) on
+    `device`, its optimizer and LR schedule. Training is ported for the
+    ResNets, TResNet-M and the ViT family; anything else is a ValueError.
+    `group` is the process group whose ranks share the ResNet BNs' batch
+    statistics. The conv nets go to the device in channels_last, as K1 and
+    its training passes take their activations (weights in NCHW could lead
+    cuDNN to hand back NCHW outputs)."""
     if cfg.model.arch not in TRAIN_ARCHS:
         raise ValueError(f"training arch {cfg.model.arch!r} not yet ported "
                          f"to the torch package (ported: "
                          f"{', '.join(TRAIN_ARCHS)}; ROADMAP.md)")
-    model = build_model(cfg.model, cfg.data.num_classes, cfg.data.image_size)
+    model = build_model(cfg.model, cfg.data.num_classes, cfg.data.image_size,
+                        group)
     init_weights_(model, torch.Generator().manual_seed(cfg.run.seed))
-    if cfg.model.arch in TRESNET_ARCHS:
+    if cfg.model.pretrained:
+        if cfg.model.arch not in RESNET_DEPTHS:
+            raise ValueError(f"--pretrained is ported for the ResNets, not "
+                             f"{cfg.model.arch!r} (ROADMAP.md)")
+        if not cfg.model.pretrained_path:
+            raise ValueError("model.pretrained needs model.pretrained_path: "
+                             "nothing is downloaded; pass a local .pth "
+                             "(torchvision state_dict or the reference's "
+                             "NESTED format) with --pretrained_path")
+        load_pretrained_(model.backbone, cfg.model.pretrained_path)
+    if cfg.model.arch in CONV_ARCHS:
         model.to(device=device, memory_format=torch.channels_last)
     else:
         model.to(device)
@@ -123,10 +236,10 @@ def create_served_model(cfg: Config, device: torch.device,
     (or load `state_dict`, e.g. a verified checkpoint), then apply the
     dtype policy once, move to the device in channels_last, and set eval
     mode. Raises ValueError for an arch or head not ported yet."""
-    if cfg.model.arch not in TRESNET_ARCHS:
+    if cfg.model.arch not in CONV_ARCHS:
         raise ValueError(f"serving arch {cfg.model.arch!r} not yet ported to "
-                         "the torch package (ported: tresnet_m, timm; "
-                         "ROADMAP.md)")
+                         f"the torch package (ported: "
+                         f"{', '.join(CONV_ARCHS)}; ROADMAP.md)")
     model = build_model(cfg.model, cfg.data.num_classes, cfg.data.image_size)
     if state_dict is None:
         init_weights_(model, torch.Generator().manual_seed(cfg.run.seed))

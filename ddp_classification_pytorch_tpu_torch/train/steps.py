@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from ..config import Config
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD, preset_for_dataset
+from ..parallel import ddp
 from ..utils.metrics import topk_correct, topk_hits
 
 if TYPE_CHECKING:
@@ -113,12 +114,19 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return F.cross_entropy(logits.float(), labels.long())
 
 
-def _train_metrics(loss: torch.Tensor, logits: torch.Tensor,
-                   labels: torch.Tensor) -> Dict[str, torch.Tensor]:
-    n = labels.shape[0]
-    return {"loss": loss.detach(),
-            "top1": topk_correct(logits, labels, 1) / n,
-            "top3": topk_correct(logits, labels, 3) / n}
+def _global_metrics(loss: torch.Tensor, logits: torch.Tensor,
+                    labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The global batch's mean loss and top-1/top-3 shares: this rank's
+    loss and counts summed across the ranks in one all-reduce (the JAX
+    `pmean(loss)` and `psum` of the counts, `collectives.py:79,86-88`);
+    this rank's own without a group."""
+    world = ddp.world_size()
+    n = labels.shape[0] * world
+    packed = ddp.sum_across(torch.stack([
+        loss.detach().float(), topk_correct(logits, labels, 1).float(),
+        topk_correct(logits, labels, 3).float()]))
+    return {"loss": packed[0] / world, "top1": packed[1] / n,
+            "top3": packed[2] / n}
 
 
 def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
@@ -128,15 +136,21 @@ def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
     uint8 epilogue with the train-time flip where `_train_flip_enabled`
     (the mask `flip_mask(run.seed, state.step, B)`, or the `flip` (B,) bool
     array the caller passes: parity tests pass the JAX step's), forward
-    in train mode, f32 CE, backward, global grad norm, then the skip-step
-    gate: `step_ok = isfinite(loss) & isfinite(grad_norm)`. A passing step
-    sets the lr from the schedule at the count of updates applied so far
-    and steps the optimizer; a failing one leaves the parameters, the
+    in train mode (through `state.ddp`, the DistributedDataParallel
+    wrapper, when there is one), f32 CE, backward (DDP averages the
+    gradients across the ranks in it), global grad norm, then the
+    skip-step gate: `step_ok = isfinite(loss) & isfinite(grad_norm)`. The
+    gate is global: the loss is the global batch's mean (summed across the
+    ranks before it is read, the JAX loss over the global batch) and the
+    grad norm is that of the averaged gradients, so one rank's non-finite
+    sample makes every rank skip and the replicas stay equal. A passing
+    step sets the lr from the schedule at the count of updates applied so
+    far and steps the optimizer; a failing one leaves the parameters, the
     optimizer state, that count and the model's buffers (the BN running
     statistics, which the forward updates) as they were. The step counter
     always advances. The gate reads `step_ok` on the host once per step
-    (the JAX step selects on the device instead). Metrics are 0-d tensors:
-    loss, top1, top3, step_ok, grad_norm."""
+    (the JAX step selects on the device instead). Metrics are 0-d tensors
+    of the global batch: loss, top1, top3, step_ok, grad_norm."""
     if cfg.model.head != "fc":
         raise ValueError(f"head {cfg.model.head!r} not yet ported to the "
                          "torch package (ported: fc)")
@@ -147,6 +161,7 @@ def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
     def step(state: "TrainState", images: torch.Tensor, labels: torch.Tensor,
              flip: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
         model, opt = state.model, state.optimizer
+        net = model if state.ddp is None else state.ddp
         if images.device not in consts:
             consts[images.device] = _consts(images.device)
         mask = None
@@ -162,13 +177,14 @@ def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
         # copy; one multi-tensor launch per dtype, not one per buffer)
         buffers = list(model.buffers())
         kept = torch._foreach_mul(buffers, 1.0) if buffers else []
-        logits = model(x)
+        logits = net(x)
         loss = _cross_entropy(logits, labels)
         loss.backward()
+        metrics = _global_metrics(loss, logits.detach(), labels)
         grads = [p.grad for p in state.params if p.grad is not None]
         grad_norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
-        ok = torch.isfinite(loss.detach()) & torch.isfinite(grad_norm)
+        ok = torch.isfinite(metrics["loss"]) & torch.isfinite(grad_norm)
         if bool(ok):  # the one host read of the step
             lr = state.schedule(state.opt_count)
             for group in opt.param_groups:
@@ -179,7 +195,6 @@ def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
             with torch.no_grad():
                 torch._foreach_copy_(buffers, kept)
         state.step += 1
-        metrics = _train_metrics(loss, logits.detach(), labels)
         metrics["step_ok"] = ok.float()
         metrics["grad_norm"] = grad_norm
         return metrics
@@ -189,8 +204,9 @@ def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
 
 def make_eval_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
     """`(state, images, labels, valid) -> {loss_sum, top1, top3, n}`:
-    per-batch counts over the rows where `valid` is 1 (the loader's
-    wrap-padding is 0), summed exactly on the host across batches."""
+    per-batch counts over this rank's rows where `valid` is 1 (the
+    loader's wrap-padding is 0), summed across batches and then across the
+    ranks by `train/loop.py::eval_totals`."""
     if cfg.model.head != "fc":
         raise ValueError(f"head {cfg.model.head!r} not yet ported to the "
                          "torch package (ported: fc)")

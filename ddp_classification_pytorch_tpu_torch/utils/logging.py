@@ -2,8 +2,8 @@
 `utils/logging.py` parts the trainer uses: ETA console lines
 (BASELINE/main.py:295-303), `output.txt` per-epoch appends and
 `history.json` (NESTED/train.py:421,444-445), resumed with `resume_at`.
-The port runs one process on one card, so rank 0 is the only rank and
-everything prints and writes.
+Under a process group only rank 0 prints (the trainer gives only rank 0
+a `RecordWriter`).
 """
 
 from __future__ import annotations
@@ -13,9 +13,13 @@ import os
 import time
 from typing import Any, Dict
 
+from ..parallel import ddp
+
 
 def host0_print(*a: Any, **kw: Any) -> None:
-    print(*a, **kw)
+    """`print` on rank 0 (the JAX `jax.process_index() == 0` rule)."""
+    if ddp.is_primary():
+        print(*a, **kw)
 
 
 class EtaLogger:
@@ -37,7 +41,7 @@ class EtaLogger:
         remain = max(self.epochs * self.steps_per_epoch - done, 0)
         eta_min = (elapsed / max(self.log_every, 1)) * remain / 60.0
         parts = "\t".join(f"{k}: {v:.4f}" for k, v in metrics.items())
-        print(f"Epoch: {epoch}\tstep: {step}/{self.steps_per_epoch}\t{parts}"
+        host0_print(f"Epoch: {epoch}\tstep: {step}/{self.steps_per_epoch}\t{parts}"
               f"\t{self.log_every}-step time: {elapsed:.2f}s\tETA: {eta_min:.1f} min")
 
 

@@ -241,7 +241,7 @@ def test_cli_serves_a_verified_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--model", "resnet50"],                 # arch not ported yet
+    ["--model", "vgg19_bn"],                 # arch not ported yet
     ["--buckets", "4,2"],                    # not ascending
     ["--topk", "11"],                        # more than num_classes
     [],                                      # no weights, no selfcheck

@@ -278,7 +278,7 @@ def test_cli_without_a_card_exits_3(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--model", "resnet50"],           # arch not ported for training
+    ["--model", "vgg19_bn"],           # arch not ported for training
     ["--dataset", "imagefolder"],      # no --train_dir
     ["--resume", "x.pt"],              # no such checkpoint
     ["--optimizer", "lamb"],           # unknown optimizer

@@ -1,0 +1,128 @@
+"""One rank of tests/test_torch_port_ddp.py: a gloo process group on the
+CPU, joined from torchrun's environment variables (RANK, WORLD_SIZE,
+LOCAL_RANK, MASTER_ADDR, MASTER_PORT) as the port's CLI joins it.
+
+    python tests/torch_port_ddp_worker.py IN.pt OUT_DIR
+
+IN.pt holds the inputs (tensors and plain values); each rank writes its
+results to OUT_DIR/rank<R>.pt:
+
+- `bn`: the port's BatchNorm with the world group on this rank's half of
+  a batch: y and dx of its half, dγ and dβ summed over the ranks (the
+  global batch's), the running statistics;
+- `steps`: the reduced ResNet-50 under DistributedDataParallel, one train
+  step per batch on this rank's half of it (metrics and the whole state
+  after each), then `train/loop.py::eval_totals` over this rank's shard of
+  a val set (the loader's wrap padding masked).
+
+Imports torch, numpy and the port only (no JAX), so a rank starts fast.
+"""
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+
+class ArrayDataset:
+    """Images and labels held in memory, in the loaders' item protocol."""
+
+    def __init__(self, images: np.ndarray, labels: np.ndarray):
+        self.images, self.labels = images, labels
+
+    def __len__(self) -> int:
+        return len(self.labels)
+
+    def __getitem__(self, i: int, rng=None):
+        return self.images[i], int(self.labels[i])
+
+
+def _half(t: torch.Tensor, rank: int, world: int) -> torch.Tensor:
+    n = t.shape[0] // world
+    return t[rank * n:(rank + 1) * n]
+
+
+def run_bn(data, rank, world):
+    from ddp_classification_pytorch_tpu_torch.models.batchnorm import BatchNorm
+    from ddp_classification_pytorch_tpu_torch.parallel import ddp
+
+    c = data["weight"].shape[0]
+    bn = BatchNorm(c, process_group=ddp.group()).train()
+    assert bn.synced()
+    with torch.no_grad():
+        for name in ("weight", "bias", "running_mean", "running_var"):
+            getattr(bn, name).copy_(data[name])
+    x = _half(data["x"], rank, world).permute(0, 3, 1, 2).requires_grad_()
+    g = _half(data["g"], rank, world).permute(0, 3, 1, 2)
+    y = bn(x)
+    dx, dw, db = torch.autograd.grad(y, (x, bn.weight, bn.bias), g)
+    return {"y": y.detach().permute(0, 2, 3, 1), "dx": dx.permute(0, 2, 3, 1),
+            "dweight": ddp.sum_across(dw.clone()),
+            "dbias": ddp.sum_across(db.clone()),
+            "running_mean": bn.running_mean, "running_var": bn.running_var}
+
+
+def run_steps(data, rank, world):
+    from ddp_classification_pytorch_tpu_torch.config import get_preset
+    from ddp_classification_pytorch_tpu_torch.data.loader import Loader
+    from ddp_classification_pytorch_tpu_torch.models import resnet
+    from ddp_classification_pytorch_tpu_torch.models.factory import ClassifierModel
+    from ddp_classification_pytorch_tpu_torch.parallel import ddp
+    from ddp_classification_pytorch_tpu_torch.train import schedule
+    from ddp_classification_pytorch_tpu_torch.train.loop import eval_totals
+    from ddp_classification_pytorch_tpu_torch.train.state import TrainState
+    from ddp_classification_pytorch_tpu_torch.train.steps import (
+        make_eval_step, make_train_step)
+
+    cfg = get_preset("baseline")
+    cfg.data.dataset, cfg.data.input_dtype = "synthetic", "float32"
+    cfg.data.num_classes = 10
+    for k, v in data["optim"].items():
+        setattr(cfg.optim, k, v)
+    model = ClassifierModel(resnet.ResNet(
+        block_cls=resnet.Bottleneck, dtype=torch.float32, group=ddp.group(),
+        **data["reduced"]))
+    model.backbone.load_state_dict(data["state_dict"])
+    model.to(memory_format=torch.channels_last)
+    device = torch.device("cpu")
+    state = TrainState(model, schedule.build_optimizer(cfg.optim,
+                                                       model.parameters()),
+                       schedule.build_schedule(cfg.optim, 1),
+                       ddp=ddp.wrap(model, device))
+    step = make_train_step(cfg)
+    out = {"metrics": [], "states": []}
+    for images, labels in data["batches"]:
+        m = step(state, _half(images, rank, world), _half(labels, rank, world))
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["states"].append({
+            "model": {k: v.clone() for k, v in model.backbone.state_dict().items()},
+            "momentum": [state.optimizer.state[p]["momentum_buffer"].clone()
+                         for p in state.params],
+            "step": state.step, "opt_count": state.opt_count})
+    ds = ArrayDataset(data["val_images"].numpy(), data["val_labels"].numpy())
+    loader = Loader(ds, data["val_batch"], shuffle=False, host_id=rank,
+                    num_hosts=world)
+    batches = [(torch.from_numpy(im), torch.from_numpy(lb),
+                torch.from_numpy(loader.valid_mask(k)))
+               for k, (im, lb) in enumerate(loader)]
+    out["eval_batches"] = len(batches)
+    out["eval"] = eval_totals(state, make_eval_step(cfg), batches)
+    return out
+
+
+def main() -> None:
+    from ddp_classification_pytorch_tpu_torch.parallel import ddp
+
+    inp, out_dir = sys.argv[1:3]
+    data = torch.load(inp, weights_only=True)
+    with ddp.process_group(torch.device("cpu")):
+        rank, world = ddp.rank(), ddp.world_size()
+        assert (rank, world) == ddp.env_world()[:2]
+        result = {"bn": run_bn(data["bn"], rank, world),
+                  "steps": run_steps(data["steps"], rank, world)}
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+if __name__ == "__main__":
+    main()

@@ -44,3 +44,25 @@ def randomize_bn(params, stats, rng):
 
     walk(params, stats)
     return params, stats
+
+
+def random_variables(model, image_size: int, rng):
+    """flax variables for `model` without compiling its init: the tree's
+    shapes from `jax.eval_shape`, filled from `rng` with conv and dense
+    kernels N(0, 2/fan_in), every BN γ/β and running mean/var randomized
+    as `randomize_bn` does, and zero elsewhere (the init's compile is the
+    slowest part of a parity test at full depth on the CPU)."""
+    x = jax.ShapeDtypeStruct((1, image_size, image_size, 3), jnp.float32)
+    shapes = jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0), jnp.zeros(x.shape),
+                           train=False))
+
+    def fill(path, leaf):
+        if path[-1].key == "kernel":
+            fan_in = int(np.prod(leaf.shape[:-1]))
+            return rng.normal(0.0, np.sqrt(2.0 / fan_in),
+                              leaf.shape).astype(np.float32)
+        return np.zeros(leaf.shape, np.float32)
+
+    filled = jax.tree_util.tree_map_with_path(fill, shapes)
+    return randomize_bn(filled["params"], filled["batch_stats"], rng)
