@@ -6,8 +6,9 @@ TResNet-M at 224 px and serving its checkpoint, training TResNet-M on
 real-data input (an image folder through the native dataplane, or CIFAR
 pickles where the dataplane cannot be built), resuming it and serving the
 resumed checkpoint, training ResNet-50 (the reference's default model)
-and serving its checkpoint, and the same short run under torchrun over
-NCCL — on one NVIDIA GPU.
+and serving its checkpoint, the same short run under torchrun over NCCL,
+and the reference's ArcFace, CDR and Nested workloads on ResNet-50 — on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -210,8 +211,34 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    parameters and running statistics are bitwise equal, as measured on
    an H100 (the largest difference is printed). The process group, DDP
    or NCCL failing fails the phase;
-23. a `{"kernels": [...]}` line (K1-K4, K1s, K1r, K1d; each with its
-   launches on the ResNet-50 path: 0), then
+23-25. the ArcFace, CDR and Nested paths — `cli/train.py`'s sequence in
+   process for each, on ResNet-50 at full width and depth, 224 px, bf16,
+   uint8 wire, synthetic data from the seed, with each preset's recipe:
+   arcface (2173 classes, a 256-d embedding, s 30, m 0.5, easy margin,
+   Adam 1e-3, batch 32), cdr (100 classes, noise rate 0.2, SGD 0.1, batch
+   64), nested (2173 classes, σ 100, freeze-BN, batch 64, eval first and
+   after the epoch through the all-K sweep, best-only checkpoints); 8
+   steps and 2 eval batches each. The loss is finite, no step was
+   skipped, none of the seven kernels launched (these paths run no TPU
+   kernel: the heads, CDR's mask and the all-K sweep are jnp under XLA in
+   the JAX package), the records and the checkpoint are written and
+   restore to the trained state; arcface and nested: `cli/serve.py
+   <workload> --ckpt` answers 8 requests and its top-5 on 8 val images
+   equals the trainer's own eval forward; cdr, after the epoch: one
+   batch's gradients masked by `cdr_mask_` on the card and, copied to the
+   CPU, by the same plain function there give the same threshold and
+   masked gradients bitwise, and the share of the selected elements kept
+   is 0.8 within 1e-6; nested: best_k lies in [0, 2047] and the k that
+   `nested_k` gives each step varied across the steps.
+   Then each step at its preset batch (32 / 128 / 128): wall (host clock,
+   median of 5), device time, busy share, images/s, launches; and the
+   device ms of what each adds: the ArcFace head's forward and backward,
+   CDR's mask of one step's gradients (|g·v| and its concatenation, the
+   sort, the whole mask) against its byte bound, and the nested all-K
+   sweep of one 64-image eval batch against its bound and the bytes of its
+   (B, 128, C) tiles;
+26. a `{"kernels": [...]}` line (K1-K4, K1s, K1r, K1d; each with its
+   launches on the ResNet-50, ArcFace, CDR and Nested paths: 0), then
    `{"ok": true, "device": {...}}` last.
 
 Numerics on the card: `torch.backends.cudnn.allow_tf32 = False` and
@@ -319,6 +346,27 @@ DDP_ARGV = ["baseline", "--dataset", "synthetic", "--synthetic_size", "32",
             "2173", "--batchsize", "32", "--dtype", "float32", "--epochs",
             "4", "--lr", "0.01", "--keep_checkpoints", "1", "--device", "cuda"]
 DDP_STEPS = 4
+# phases 23-25: the reference's ArcFace, CDR and Nested workloads on
+# ResNet-50 at full width and depth (torchvision v1.5), 224 px, bf16, uint8
+# wire, synthetic data from the seed; each preset's own recipe (arcface:
+# a 256-d embedding, s 30, m 0.5, easy margin, Adam 1e-3; cdr: 100
+# classes, noise rate 0.2, SGD 0.1; nested: σ 100, freeze-BN, eval first,
+# best-only checkpoints) at TRAIN_STEPS steps and EVAL_BATCHES eval
+# batches: 256 images at batch 32, 512 at batch 64
+HEAD_COMMON = ["--dataset", "synthetic", "--model", "resnet50",
+               "--image_size", "224", "--dtype", "bfloat16",
+               "--input_dtype", "uint8", "--epochs", "1", "--device", "cuda"]
+HEAD_ARGV = {
+    "arcface": ["arcface", *HEAD_COMMON, "--synthetic_size", "256",
+                "--num_classes", "2173", "--batchsize", "32"],
+    "cdr": ["cdr", *HEAD_COMMON, "--synthetic_size", "512", "--batchsize",
+            "64"],
+    "nested": ["nested", *HEAD_COMMON, "--synthetic_size", "512",
+               "--num_classes", "2173", "--batchsize", "64"],
+}
+HEAD_STEP_BATCH = {"arcface": 32, "cdr": 128, "nested": 128}  # the presets'
+CDR_KEEP_TOL = 1e-6  # the share of |g·v| kept: 0.8 within this
+NESTED_EVAL_BATCH = 64
 
 
 def check(cond: bool, msg: str) -> None:
@@ -875,15 +923,16 @@ def same_state(torch, a, b) -> bool:
 
 
 def train_main_path(torch, device, train_cli, checkpoint, argv, counters,
-                    want, tag, then=None, before=None, files=()):
+                    want, tag, then=None, before=None, files=(),
+                    ckpt_name=None):
     """Phases 8, 12 and 17: cli/train.py's sequence for `argv` in process,
     into a temporary directory (a checkpoint is hundreds of MB): epochs of
     TRAIN_STEPS steps and EVAL_BATCHES eval batches. `counters` names the
     wrappers whose launches the run must raise by exactly `want` (set to 0
     just before it). The loss is finite, no step was skipped, the records,
-    the last epoch's checkpoint with its sidecar and `files` are written,
-    and the checkpoint restores to the trained state (weights, momentum,
-    counters). `before(trainer)` runs just before the run, `then(trainer,
+    the last epoch's checkpoint (or `ckpt_name`) with its sidecar and
+    `files` are written, and the checkpoint restores to the trained state
+    (weights, optimizer state, counters). `before(trainer)` runs just before the run, `then(trainer,
     ckpt)` after it, before the directory goes, and returns more of the
     record. Returns the trainer, its config and the record (with the small
     records' text)."""
@@ -909,12 +958,13 @@ def train_main_path(torch, device, train_cli, checkpoint, argv, counters,
         wall = time.perf_counter() - t0
         launches = {k: f.launches for k, f in counters.items()}
         log(f"[{tag}] epoch {cfg.run.epochs - 1}: {json.dumps(last)}")
-        check(np.isfinite(last["loss"]) and np.isfinite(last["val_loss"]),
-              "non-finite loss")
+        check(all(np.isfinite(v) for k, v in last.items()
+                  if k == "loss" or k.startswith("val_")),
+              f"non-finite loss or eval metric: {last}")
         check(last["step_ok"] == 1.0 and trainer.sentinel.skipped_total == 0,
               f"skipped steps: step_ok mean {last['step_ok']}")
         check(launches == want, f"launches {launches}, expected {want}")
-        ckpt_name = f"ckpt_e{cfg.run.epochs - 1}.pt"
+        ckpt_name = ckpt_name or f"ckpt_e{cfg.run.epochs - 1}.pt"
         names = ("output.txt", "history.json", "meta.json", ckpt_name,
                  ckpt_name + ".sha256", *files)
         for n in names:
@@ -1835,6 +1885,248 @@ def ddp_vs_plain(torch, checkpoint) -> dict:
     return rec
 
 
+def head_main_path(torch, device, train_cli, serve_cli, checkpoint,
+                   fused_abn, k1, counters, workload) -> dict:
+    """Phases 23-25: `workload`'s cli/train.py sequence (HEAD_ARGV) through
+    `train_main_path` with every kernel's count 0; arcface and nested then
+    serve the checkpoint (`serve_trained_checkpoint`), cdr holds one
+    step's mask on the card against the CPU after the epoch
+    (`cdr_mask_vs_cpu`); nested records the k each step drew (`nested_k`
+    at its step, as the flip masks come from `flip_mask`) and its best K."""
+    from ddp_classification_pytorch_tpu_torch.ops.nested import nested_k
+
+    def then(tr, ckpt):
+        if workload == "cdr":
+            return {"cdr_mask": cdr_mask_vs_cpu(torch, tr, device)}
+        return serve_trained_checkpoint(
+            torch, fused_abn, device, serve_cli, k1, tr, ckpt,
+            np.stack([tr.val_ds[i][0] for i in range(8)]),
+            [workload if a == "baseline" else a for a in RESNET_SERVE_ARGV],
+            k1_per_forward=0)
+
+    trainer, cfg, rec = train_main_path(
+        torch, device, train_cli, checkpoint, HEAD_ARGV[workload],
+        counters, dict.fromkeys(counters, 0), f"{workload}-train", then,
+        ckpt_name="ckpt_best.pt" if workload == "nested" else None)
+    m = cfg.model
+    if workload == "arcface":
+        check((m.head, m.arc_embed_dim, m.arc_s, m.arc_m, m.arc_easy_margin,
+               cfg.optim.optimizer, cfg.optim.lr, trainer.state.model.margin
+               .weight.shape) == ("arcface", 256, 30.0, 0.5, True, "adam",
+                                  1e-3, (cfg.data.num_classes, 256)),
+              "arcface: not the preset's head and optimizer")
+    if workload == "cdr":
+        check((cfg.optim.grad_transform, cfg.optim.noise_rate,
+               cfg.data.num_classes, cfg.optim.optimizer, cfg.optim.lr)
+              == ("cdr", 0.2, 100, "sgd", 0.1), "cdr: not the preset")
+    if workload == "nested":
+        best = rec["epoch"]["best_k"]
+        check(m.freeze_bn and m.nested_std == 100.0 and cfg.run.eval_first,
+              "nested: not the preset")
+        check(0 <= best <= 2047, f"nested: best_k {best}")
+        ks = [nested_k(cfg.run.seed, s, trainer.state.model.feat_dim,
+                       m.nested_std) for s in range(trainer.state.step)]
+        check(len(ks) == TRAIN_STEPS and len(set(ks)) > 1,
+              f"nested: k over the steps {ks}")
+        rec["ks"] = ks
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _grads_of_one_batch(torch, model, images, labels):
+    """One training forward and backward of `model` (no update)."""
+    import torch.nn.functional as F
+
+    from ddp_classification_pytorch_tpu_torch.train.steps import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        device_input_epilogue,
+    )
+
+    dev = images.device
+    mean, std = (torch.from_numpy(a).view(1, 3, 1, 1).to(dev)
+                 for a in (IMAGENET_MEAN, IMAGENET_STD))
+    model.train()
+    model.zero_grad(set_to_none=True)
+    x = device_input_epilogue(images.permute(0, 3, 1, 2), mean, std)
+    F.cross_entropy(model(x).float(), labels.long()).backward()
+    return [p for p in model.parameters()]
+
+
+def cdr_mask_vs_cpu(torch, trainer, device) -> dict:
+    """Phase 24's mask check, after the timed epoch: the gradients of one
+    training forward and backward of the trained model on a batch of the
+    run's size (uint8 pixels from the seed), masked by `cdr_mask_` at the
+    step's ratio and clip on the card and, copied to the CPU first, by the
+    same plain function there. The share of the selected elements (2-D and
+    4-D) whose |g·v| reaches the card's threshold is 1 − noise rate within
+    CDR_KEEP_TOL, and the CPU gives the card's threshold and masked
+    gradients bitwise."""
+    from ddp_classification_pytorch_tpu_torch.ops.cdr import (
+        cdr_clip,
+        cdr_mask_,
+        cdr_metric,
+    )
+
+    cfg, state = trainer.cfg, trainer.state
+    o, n = cfg.optim, cfg.data.batch_size
+    rng = np.random.default_rng(cfg.run.seed)
+    images = torch.from_numpy(rng.integers(
+        0, 256, (n, 224, 224, 3), dtype=np.uint8)).to(device)
+    labels = torch.from_numpy(rng.integers(
+        0, cfg.data.num_classes, n).astype(np.int32)).to(device)
+    params = _grads_of_one_batch(torch, state.model, images, labels)
+    pairs = [(p.detach(), p.grad) for p in params if p.grad is not None]
+    ratio = 1.0 - o.noise_rate
+    clip = cdr_clip(o.noise_rate, o.num_gradual, o.cdr_dead_schedule,
+                    state.opt_count, state.steps_per_epoch)
+    host = [(v.to("cpu", copy=True), g.to("cpu", copy=True))
+            for v, g in pairs]
+    metric = cdr_metric(pairs)
+    thresh = cdr_mask_(pairs, ratio, clip)
+    keep = (metric >= thresh).sum().item() / metric.numel()
+    t0 = time.perf_counter()
+    host_thresh = cdr_mask_(host, ratio, clip)
+    cpu_s = time.perf_counter() - t0
+    same = torch.equal(thresh.cpu(), host_thresh) and all(
+        torch.equal(g.cpu(), h) for (_, g), (_, h) in zip(pairs, host))
+    state.model.zero_grad(set_to_none=True)
+    rec = {"selected_elements": metric.numel(), "ratio": ratio, "clip": clip,
+           "threshold": thresh.item(), "kept_share": keep,
+           "card_equals_cpu_bitwise": same, "cpu_mask_s": cpu_s}
+    log(f"[cdr-train] one step's mask, card vs CPU: {json.dumps(rec)}")
+    check(abs(keep - ratio) <= CDR_KEEP_TOL,
+          f"cdr: kept share {keep}, expected {ratio}")
+    check(same, "cdr: the card's mask differs from the CPU's")
+    return rec
+
+
+def head_step_timing(torch, device, train_cli, workload: str,
+                     card: str) -> dict:
+    """The workload's train step at its preset batch (HEAD_STEP_BATCH),
+    bf16, 224 px, uint8 wire: wall (host clock, median of 5), device time,
+    busy share, images/s, launches a step; and the device ms of what the
+    workload adds: the ArcFace head's forward and backward (embedding,
+    margin, CE) at the batch's embedding; CDR's mask of one step's
+    gradients (|g·v| and its concatenation, the sort for the threshold,
+    the masking) against its byte bound; the nested all-K sweep of one
+    eval batch (NESTED_EVAL_BATCH) against its bound and beside the bytes
+    its (B, 128, C) tiles move."""
+    import torch.nn.functional as F
+
+    from ddp_classification_pytorch_tpu_torch.ops import cdr as cdr_ops
+    from ddp_classification_pytorch_tpu_torch.ops.nested import (
+        nested_all_k_counts,
+    )
+    from ddp_classification_pytorch_tpu_torch.train.state import create_train_state
+    from ddp_classification_pytorch_tpu_torch.train.steps import make_train_step
+
+    n = HEAD_STEP_BATCH[workload]
+    argv = list(HEAD_ARGV[workload])
+    argv[argv.index("--batchsize") + 1] = str(n)
+    cfg = train_cli.config_from_args(train_cli.build_parser().parse_args(argv))
+    state = create_train_state(cfg, device, 1)
+    step_fn = make_train_step(cfg)
+    rng = np.random.default_rng(1)
+    images = torch.from_numpy(rng.integers(
+        0, 256, (n, 224, 224, 3), dtype=np.uint8)).to(device)
+    labels = torch.from_numpy(
+        rng.integers(0, cfg.data.num_classes, n).astype(np.int32)).to(device)
+
+    def rstep():
+        return step_fn(state, images, labels)
+
+    check(float(rstep()["step_ok"]) == 1.0, f"{workload} timing step skipped")
+    model = state.model
+    gen = torch.Generator(device=device).manual_seed(7)
+    extra, bounds = {}, {}
+    if workload == "arcface":
+        feats = torch.randn(n, model.backbone.num_features, device=device,
+                            generator=gen).requires_grad_()
+
+        def head():
+            F.cross_entropy(model.margin(model.embedding(feats), labels),
+                            labels.long()).backward()
+
+        extra["arcface head forward+backward"] = head
+    if workload == "cdr":
+        params = _grads_of_one_batch(torch, model, images, labels)
+        pairs = [(p.detach(), p.grad.clone()) for p in params]
+        metric = cdr_ops.cdr_metric(pairs)
+        sel = metric.numel()
+        extra["cdr |g·v| and concatenation"] = lambda: cdr_ops.cdr_metric(pairs)
+        extra["cdr threshold (sort)"] = lambda: cdr_ops.cdr_threshold(metric, 0.8)
+        extra["cdr mask, whole"] = lambda: cdr_ops.cdr_mask_(pairs, 0.8, 0.8)
+        # read v and g once, write the masked g once
+        bounds["cdr mask, whole"] = {
+            "bytes": 3 * sel * 4, "bound_by": "bytes",
+            "bound_ms": 3 * sel * 4 / HBM_BYTES_PER_S * 1e3,
+            "selected_elements": sel}
+    if workload == "nested":
+        b = NESTED_EVAL_BATCH
+        model.eval()
+        with torch.no_grad():
+            from ddp_classification_pytorch_tpu_torch.train.steps import (
+                IMAGENET_MEAN,
+                IMAGENET_STD,
+                device_input_epilogue,
+            )
+            mean, std = (torch.from_numpy(a).view(1, 3, 1, 1).to(device)
+                         for a in (IMAGENET_MEAN, IMAGENET_STD))
+            feats = model.features(device_input_epilogue(
+                images[:b].permute(0, 3, 1, 2), mean, std))
+        w = model.classifier_weight.detach()
+        c, d = w.shape
+        valid = torch.ones(b, device=device)
+
+        def sweep():
+            with torch.no_grad():
+                return nested_all_k_counts(feats, w, labels[:b], 128, valid)
+
+        extra["nested all-K sweep, eval batch"] = sweep
+        # per (row, K, class): the product, the running sum, the carry,
+        # the compare and the finite test; inputs read once, (D,) counts out
+        ops = 5 * b * d * c
+        nbytes = (b * d + c * d) * 4 + b * 8 + 2 * d * 4
+        tile = b * 128 * c * 4
+        bounds["nested all-K sweep, eval batch"] = {
+            "operations": ops, "bytes": nbytes,
+            "bound_ms": max(ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_by": ("operations" if ops / F32_OPS_PER_S
+                         > nbytes / HBM_BYTES_PER_S else "bytes"),
+            "tile_bytes": tile, "blocks": d // 128,
+            # one pass over every block's (B, 128, C) f32 tile
+            "one_tile_pass_ms": tile * (d // 128) / HBM_BYTES_PER_S * 1e3,
+            "batch": b}
+    log(f"[timing] clocks.sm, clocks.max.sm, power.draw: {clocks()}")
+    wall = host_ms(torch, rstep)
+    label = f"{workload} train step"
+    with DeviceTimer(torch) as timer:
+        timer.run(label, rstep, reps=STEP_REPS)
+        for name, fn in extra.items():
+            timer.run(name, fn, reps=STEP_REPS)
+    res = timer.results()
+    dev = res[label][0]
+    check(res[label][1] is not None,
+          f"torch.profiler recorded no kernel of the {workload} step")
+    rec = {"batch": n, "px": 224, "dtype": "bfloat16", "wall_ms": wall,
+           "device_ms": dev, "device_busy": dev / wall,
+           "images_per_s": n / wall * 1e3,
+           "launches_per_step": len(res[label][1]) / STEP_REPS,
+           "parts_ms": {name: res[name][0] for name in extra},
+           "parts_launches": {name: (len(res[name][1]) / STEP_REPS
+                                     if res[name][1] else None)
+                              for name in extra},
+           "bounds": bounds, "profiler": timer.record()}
+    log(f"[timing] {card}: {workload} train step, batch {n}, bf16, 224 px: "
+        f"{json.dumps(rec)}")
+    log(f"[timing] clocks.sm, clocks.max.sm, power.draw: {clocks()}")
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2454,13 +2746,31 @@ def main() -> int:
     # ----------------------------------- 22. torchrun (NCCL) vs plain run --
     report["ddp"] = ddp_vs_plain(torch, checkpoint)
 
+    # ------------------------- 23-25. the ArcFace, CDR and Nested paths --
+    # the reference's other workloads on ResNet-50: no TPU kernel on these
+    # paths either (their heads, CDR's mask and the all-K sweep are jnp
+    # under XLA in the JAX package), so every count stays 0
+    heads_rec = {}
+    for workload in ("arcface", "cdr", "nested"):
+        heads_rec[workload] = head_main_path(
+            torch, device, train_cli, serve_cli, checkpoint, fused_abn, k1,
+            counters, workload)
+        heads_rec[workload]["step"] = head_step_timing(
+            torch, device, train_cli, workload, card)
+    report["heads"] = heads_rec
+
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
-    # ------------------------------------------------------ 23. summary --
-    # the ResNet-50 path (phase 20) launches none of these kernels
+    # ------------------------------------------------------ 26. summary --
+    # the ResNet-50 path (phase 20) and the ArcFace, CDR and Nested paths
+    # (phases 23-25) launch none of these kernels
+    def head_launches(kind):
+        return {f"{w}_path_launches": heads_rec[w]["launches"][kind]
+                for w in heads_rec}
+
     log(json.dumps({"kernels": [{
         "name": "fused_bn_leaky_relu",
         "route": "cuda",
@@ -2485,7 +2795,7 @@ def main() -> int:
         "train_step_bound_ms": step_rec2["k1_x36_bound_ms"],
         "train_step_launches": tres_rec["launches"]["k1"],
         "resnet50_path_launches": r50_rec["launches"]["k1"],
-    }] + [{
+    } | head_launches("k1")] + [{
         "name": attr,
         "route": "cuda",
         "source": source,
@@ -2505,7 +2815,7 @@ def main() -> int:
         # alone have none (the SDPA backward stands in the flash rows)
         "library_ms": slice_row["sdpa_fwd_ms"] if kind == "fwd" else None,
         "resnet50_path_launches": r50_rec["launches"][kind],
-    } | ({} if kind == "fwd" else {
+    } | head_launches(kind) | ({} if kind == "fwd" else {
         # K3 + K4 against the one call that computes dQ, dK and dV together
         "pair_ms": slice_row["k_dq_ms"] + slice_row["k_dkv_ms"],
         "library_pair_ms": slice_row["sdpa_bwd_ms"],
@@ -2533,7 +2843,7 @@ def main() -> int:
         "library_call": {"k1s": "torch.batch_norm_stats",
                          "k1r": "torch.batch_norm_backward_reduce"}.get(kind),
         "resnet50_path_launches": r50_rec["launches"][kind],
-    } | ({"yardstick_var_mean_ms": seq["var_mean"],
+    } | head_launches(kind) | ({"yardstick_var_mean_ms": seq["var_mean"],
           "host_us_per_call": host_us["k1s"]} if kind == "k1s" else {
         "pair_ms": step_rec2["k1r_x36_ms"] + step_rec2["k1d_x36_ms"],
         "yardstick_bn_backward_ms": seq["bn_bwd"],

@@ -5,11 +5,18 @@ engine (serve/engine.py) on the card, over fresh or checkpointed weights.
         --model tresnet_m --selfcheck 32
     python -m ddp_classification_pytorch_tpu_torch.cli.serve baseline \
         --model resnet50 --ckpt runs/r50/ckpt_e89.pt --selfcheck 8
+    python -m ddp_classification_pytorch_tpu_torch.cli.serve arcface \
+        --model resnet50 --ckpt runs/arc/ckpt_e29.pt   # or nested
+
+The workload's preset names the head: `arcface` serves softmax over
+s·cosθ, `nested` the unmasked logits of its bias-free classifier, the
+others (cdr's too) a plain fc model.
 
 The JAX serve CLI's subset, with its rc discipline:
 
 - deterministic config errors (bad buckets, topk > classes, an arch or head
-  not ported yet, a corrupt `--ckpt`) exit **rc 2** — supervisors must not
+  not ported yet — the arcface and nested heads are served on the ResNets
+  only —, a corrupt `--ckpt`) exit **rc 2** — supervisors must not
   replay them;
 - no CUDA device (and `--device cpu` not asked for) exits **rc 3**, the JAX
   CLI's "backend unreachable" code; it never carries on on the CPU;

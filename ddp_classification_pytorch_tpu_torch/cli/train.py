@@ -1,7 +1,8 @@
 """`train` entry point of the port — the JAX train CLI's flags for the
-paths ported so far (the ResNets over any number of cards, TResNet-M and
-the ViT family on one, on synthetic data, image folders and CIFAR
-pickles, with resume), on the card.
+paths ported so far (the baseline, arcface, cdr and nested workloads on
+the ResNets over any number of cards; the baseline on TResNet-M and the
+ViT family on one; on synthetic data, image folders and CIFAR pickles,
+with resume), on the card.
 
     torchrun --nproc_per_node 4 -m ddp_classification_pytorch_tpu_torch.cli.train \
         baseline --dataset imagefolder --train_dir T --val_dir V \
@@ -18,6 +19,8 @@ pickles, with resume), on the card.
     python -m ddp_classification_pytorch_tpu_torch.cli.train baseline \
         --dataset synthetic --model vit_b16 --image_size 512 \
         --flash_attention --batchsize 32 --epochs 1 --out runs/vit
+    python -m ddp_classification_pytorch_tpu_torch.cli.train arcface \
+        --dataset synthetic --model resnet50 --out runs/arc   # or cdr, nested
 
 Under torchrun each process drives the card `LOCAL_RANK` names and joins
 the process group over NCCL (gloo with `--device cpu`); `--batchsize` is
@@ -26,12 +29,14 @@ size; the ResNets' BNs take the global batch's statistics; rank 0 prints
 and writes the records and checkpoints. A plain `python -m` run is the
 same path with no process group. A ResNet or TResNet-M checkpoint it
 writes (`<out>/ckpt_e<N>.pt`, the whole train state) is what
-`cli/serve.py --ckpt` serves.
+`cli/serve.py --ckpt` serves (`cli/serve.py arcface` / `nested` for those
+heads; a cdr checkpoint is a plain fc model).
 
 Exit codes, as the JAX CLI's:
 
-- **rc 2**: config errors — an unported workload, dataset, preset, arch
-  or option, a flag this CLI does not take (argparse), bad values, a
+- **rc 2**: config errors — an unported workload (plc), dataset, preset,
+  arch or option (`--sharded_ce`, a head on an arch other than the
+  ResNets, `--head_lr` on a model without a margin head), a flag this CLI does not take (argparse), bad values, a
   missing data directory, a `--resume` file that fails its sha256, a
   native dataplane that does not build on this machine, `--dp` other
   than the world size, TResNet-M over more than one rank;
@@ -57,7 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "ResNet, TResNet-M and ViT on synthetic data, image "
                     "folders and CIFAR; torchrun for data parallelism)")
     p.add_argument("workload", choices=["baseline", "arcface", "cdr", "nested", "plc"],
-                   help="which reference silo's recipe to run (ported: baseline)")
+                   help="which reference silo's recipe to run (ported: "
+                        "baseline, arcface, cdr, nested)")
 
     d = p.add_argument_group("data")
     d.add_argument("--folder", "-f", default="", help="dataset root holding "
@@ -121,10 +127,45 @@ def build_parser() -> argparse.ArgumentParser:
     o.add_argument("--warmUpIter", type=int, default=-1,
                    help="linear warmup iterations")
 
+    a = p.add_argument_group("arcface")
+    a.add_argument("--arc_s", type=float, default=-1.0)
+    a.add_argument("--arc_m", type=float, default=-1.0)
+    a.add_argument("--head_lr", type=float, default=-1.0,
+                   help="lr for the margin-head param group (reference's "
+                        "optimizer group 2, arc_main.py:248-253); unset = "
+                        "inherit --lr")
+    a.add_argument("--head_weight_decay", type=float, default=-1.0,
+                   help="weight decay for the margin-head param group; "
+                        "unset = inherit --weight_decay")
+    a.add_argument("--easy_margin", dest="easy_margin", default=None,
+                   action="store_true")
+
+    c = p.add_argument_group("cdr")
+    c.add_argument("--noise_rate", type=float, default=-1.0, help="CDR/main.py:37")
+    c.add_argument("--num_gradual", type=int, default=-1, help="CDR/main.py:41")
+    c.add_argument("--live_clip_schedule", action="store_true",
+                   help="use the reference's INTENDED gradual clip schedule "
+                   "instead of its actual dead-code constant (CDR/main.py:222-227)")
+
+    n = p.add_argument_group("nested")
+    n.add_argument("--nested", type=float, default=-1.0,
+                   help="Gaussian σ over feature dims (NESTED/train.py:512-530)")
+    n.add_argument("--freeze-bn", dest="freeze_bn", default=None,
+                   action="store_true")
+    n.add_argument("--no-freeze-bn", dest="freeze_bn", action="store_false",
+                   help="train BN normally (the preset's freeze-BN mirrors "
+                        "NESTED/train.py:529, which assumes a pretrained "
+                        "backbone; from-scratch runs want live BN)")
+    n.add_argument("--resumePth", default="",
+                   help="alias of --resume (NESTED/train.py:481)")
+
     par = p.add_argument_group("parallelism")
     par.add_argument("--dp", type=int, default=0,
                      help="data-parallel width; must equal the world size "
                           "torchrun gives (0 = the world size)")
+    par.add_argument("--sharded_ce", action="store_true",
+                     help="the partial-FC ArcFace CE over a model axis: not "
+                          "ported (rc 2)")
 
     r = p.add_argument_group("run")
     r.add_argument("--seed", type=int, default=-1)
@@ -147,9 +188,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
-    if args.workload != "baseline":
-        raise ValueError(f"workload {args.workload!r} not yet ported to "
-                         "training in the torch package (ported: baseline)")
+    if args.workload == "plc":
+        raise ValueError("workload 'plc' not yet ported to training in the "
+                         "torch package (ported: baseline, arcface, cdr, "
+                         "nested; ROADMAP.md)")
+    if args.sharded_ce:
+        raise ValueError("--sharded_ce (the partial-FC ArcFace CE over a "
+                         "model axis) is not ported: the port has no model "
+                         "axis (ROADMAP.md)")
     cfg = get_preset(args.workload)
     if args.folder:
         cfg.data.train_dir = f"{args.folder}/train"
@@ -204,6 +250,16 @@ def config_from_args(args: argparse.Namespace) -> Config:
     if args.pretrained_path:
         cfg.model.pretrained = True
         cfg.model.pretrained_path = args.pretrained_path
+    if args.arc_s >= 0:
+        cfg.model.arc_s = args.arc_s
+    if args.arc_m >= 0:
+        cfg.model.arc_m = args.arc_m
+    if args.easy_margin is not None:
+        cfg.model.arc_easy_margin = args.easy_margin
+    if args.nested >= 0:
+        cfg.model.nested_std = args.nested
+    if args.freeze_bn is not None:
+        cfg.model.freeze_bn = args.freeze_bn
     cfg.parallel.data_parallel = args.dp
 
     if args.optimizer:
@@ -214,11 +270,21 @@ def config_from_args(args: argparse.Namespace) -> Config:
         cfg.optim.momentum = args.momentum
     if args.weight_decay >= 0:
         cfg.optim.weight_decay = args.weight_decay
+    if args.head_lr >= 0:
+        cfg.optim.head_lr = args.head_lr
+    if args.head_weight_decay >= 0:
+        cfg.optim.head_weight_decay = args.head_weight_decay
     if args.lrSchedule is not None:
         cfg.optim.schedule = "multistep"
         cfg.optim.milestones = tuple(args.lrSchedule)
     if args.warmUpIter >= 0:
         cfg.optim.warmup_iters = args.warmUpIter
+    if args.noise_rate >= 0:
+        cfg.optim.noise_rate = args.noise_rate
+    if args.num_gradual >= 0:
+        cfg.optim.num_gradual = args.num_gradual
+    if args.live_clip_schedule:
+        cfg.optim.cdr_dead_schedule = False
 
     if args.epochs:
         cfg.run.epochs = args.epochs
@@ -228,8 +294,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
         cfg.run.out_dir = args.out
     if args.log_every:
         cfg.run.log_every = args.log_every
-    if args.resume:
-        cfg.run.resume = args.resume
+    if args.resume or args.resumePth:
+        cfg.run.resume = args.resume or args.resumePth
     if args.auto_resume:
         cfg.run.auto_resume = True
     if args.tensorboard:

@@ -1,19 +1,20 @@
 """Config tree for the port: the part of the JAX package's `config.py` that
-serving and ViT training read, as the port's own copy (the port imports
+serving and training read, as the port's own copy (the port imports
 nothing of the JAX package).
 
-Field names, defaults and the five workload presets are the JAX package's,
-so a command line means the same on both sides. Fields for the parts not
-ported yet (the heads' and CDR's knobs, model and pipeline parallelism,
-`h2d_overlap`, async checkpoints, the profiler window, the serve fleet,
-hot reload, the HTTP front end, the AOT sidecar) are left out until their
-slice lands.
+Field names, defaults and the five workload presets are the JAX package's
+(`config.py:467-510` there), field for field wherever the port has the
+field, so a command line means the same on both sides. Fields for the
+parts not ported yet (model and pipeline parallelism, the partial-FC
+ArcFace CE, `h2d_overlap`, async checkpoints, the profiler window, the
+serve fleet, hot reload, the HTTP front end, the AOT sidecar) are left out
+until their slice lands.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Optional, Sequence
 
 
 @dataclass
@@ -53,8 +54,8 @@ class DataConfig:
 @dataclass
 class ModelConfig:
     """Backbone + head selection (resnet18/34/50/101/152, tresnet_m / timm
-    and vit_t16/s16/b16 with head fc are ported; models/factory.py refuses
-    the rest)."""
+    and vit_t16/s16/b16 with head fc, the ResNets with heads arcface and
+    nested; models/factory.py refuses the rest)."""
 
     arch: str = "resnet50"
     variant: str = "imagenet"  # ResNet stem: imagenet (7×7/2 + pool) | cifar (3×3/1)
@@ -64,6 +65,18 @@ class ModelConfig:
     # downloaded
     pretrained_path: str = ""
     head: str = "fc"  # fc | arcface | nested
+    # ArcFace (ARCFACE/arc_main.py:234: s=30, m=0.5, easy_margin=True)
+    arc_s: float = 30.0
+    arc_m: float = 0.5
+    arc_easy_margin: bool = True
+    arc_embed_dim: int = 256  # arc_main.py:223-231: 2048->512->256 embedding
+    # the reference's LogSoftmax on the EMBEDDING (arc_main.py:230); off
+    # by default, as in the JAX package
+    arc_log_softmax_quirk: bool = False
+    # Nested dropout (NESTED/train.py:512-530): σ of the Gaussian over the
+    # feature dims; freeze-BN (BN on running statistics, γ/β not updated)
+    nested_std: float = 100.0
+    freeze_bn: bool = False
     dtype: str = "bfloat16"  # compute dtype; ABN math, pool and fc stay f32
     dropout: float = 0.0
     remat: bool = False  # not ported: refused (ROADMAP.md)
@@ -83,12 +96,23 @@ class OptimConfig:
     lr: float = 1e-3
     momentum: float = 0.9
     weight_decay: float = 0.0
+    # the ArcFace margin head's param group (arc_main.py:248-253); None =
+    # inherit lr / weight_decay (one group)
+    head_lr: Optional[float] = None
+    head_weight_decay: Optional[float] = None
     schedule: str = "step"  # step | multistep | constant
     step_size: int = 10
     gamma: float = 0.1
     milestones: Sequence[int] = field(default_factory=lambda: (10, 20))
     warmup_iters: int = 0
     warmup_start_lr: float = 1e-6  # BASELINE/main.py:175
+    grad_transform: str = "none"  # none | cdr
+    # CDR (CDR/main.py:37,54): keep the top (1 - noise_rate) of |g·v|
+    noise_rate: float = 0.2
+    num_gradual: int = 10
+    # the reference's quirk (CDR/main.py:222-227): the gradual clip
+    # schedule is dead code, overwritten by the constant; True reproduces it
+    cdr_dead_schedule: bool = True
 
 
 @dataclass
@@ -197,6 +221,7 @@ def arcface_preset() -> Config:
     batch 32, Adam."""
     cfg = Config(workload="arcface")
     cfg.data.batch_size = 32
+    cfg.data.imgs_per_class = 400  # arc_main.py:190
     cfg.model.head = "arcface"
     cfg.optim.optimizer = "adam"
     return cfg
@@ -204,28 +229,35 @@ def arcface_preset() -> Config:
 
 def cdr_preset() -> Config:
     """CDR/main.py: ResNet-50, first 100 classes, batch 128, SGD 0.1,
-    MultiStepLR([10, 20]), 30 epochs."""
+    MultiStepLR([10, 20]), the selective-gradient step, 30 epochs."""
     cfg = Config(workload="cdr")
     cfg.data.batch_size = 128
+    cfg.data.max_classes = 100
     cfg.data.num_classes = 100
+    cfg.data.transform = "cdr"
     cfg.optim.lr = 0.1
     cfg.optim.schedule = "multistep"
     cfg.optim.milestones = (10, 20)
+    cfg.optim.grad_transform = "cdr"
     cfg.run.epochs = 30
     return cfg
 
 
 def nested_preset() -> Config:
     """NESTED/train.py: ResNet-50 feat + bias-free linear cls (nested head),
-    batch 128, 10k-iter warmup → lr 1e-2, MultiStepLR([20, 30, 40, 120])."""
+    batch 128, 10k-iter warmup → lr 1e-2, MultiStepLR([20, 30, 40, 120]),
+    nested σ=100, freeze-BN, best-only checkpoints (train.py:527,529)."""
     cfg = Config(workload="nested")
     cfg.data.batch_size = 128
     cfg.model.head = "nested"
+    cfg.model.nested_std = 100.0
+    cfg.model.freeze_bn = True
     cfg.optim.lr = 1e-2
     cfg.optim.schedule = "multistep"
     cfg.optim.milestones = (20, 30, 40, 120)
     cfg.optim.warmup_iters = 10000
     cfg.run.epochs = 50
+    cfg.run.save_best_only = True
     cfg.run.eval_first = True
     return cfg
 

@@ -20,6 +20,12 @@ mean of the ranks' means is the global mean. The backward of that
 all-reduce sums the statistics' gradients across the ranks, so each
 rank's input gradient is the global batch's. Without a group (or with one
 rank) nothing is exchanged and the forward is the plain one.
+
+`frozen` (the NESTED workload's freeze-BN): training mode normalizes with
+the running statistics as eval mode does, updates none of them and
+exchanges nothing, while the gradients still flow to x, γ and β — flax's
+`use_running_average=True` with `axis_name=None` (JAX
+`models/resnet.py:136-141`).
 """
 
 from __future__ import annotations
@@ -52,13 +58,16 @@ class BatchNorm(nn.Module):
     as `BatchNorm2d` does (no `num_batches_tracked`).
 
     `process_group`: the group whose ranks share the batch statistics in
-    training (None: this process's batch only)."""
+    training (None: this process's batch only). `frozen`: training mode
+    takes eval mode's forward."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
-                 process_group: Optional[dist.ProcessGroup] = None):
+                 process_group: Optional[dist.ProcessGroup] = None,
+                 frozen: bool = False):
         super().__init__()
         self.eps = eps
         self.process_group = process_group
+        self.frozen = frozen
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -78,7 +87,7 @@ class BatchNorm(nn.Module):
         return g is not None and dist.get_world_size(g) > 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
+        if self.frozen or not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         xf = x.float()

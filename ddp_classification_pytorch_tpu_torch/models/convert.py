@@ -1,8 +1,12 @@
 """Weights carried across from the JAX package: its flax TResNet variables
 → the port's TResNet `state_dict` (timm's key layout, models/tresnet.py),
 its flax ResNet variables → the port's ResNet `state_dict` (torchvision's
-key layout, models/resnet.py), and its flax ViT params → the port's ViT
-`state_dict` (models/vit.py).
+key layout, models/resnet.py), its flax ViT params → the port's ViT
+`state_dict` (models/vit.py), and its ArcFace and Nested models (a ResNet
+backbone and the heads of models/heads.py) → the port's
+`ArcFaceModel` / `NestedModel` `state_dict`s. `flax_path` names the
+flax leaf of a port parameter (the freeze-BN matcher reads it,
+`train/schedule.py`).
 
 The inverse direction of the JAX package's
 `models/import_torch.py::convert_tresnet_state_dict`, taking the flax trees
@@ -170,3 +174,63 @@ def resnet_from_jax(params: Mapping[str, Any],
     if "fc" in params:
         _dense(sd, "fc", params["fc"])
     return sd
+
+
+def arcface_from_jax(params: Mapping[str, Any],
+                     batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax `ArcFaceModel` variables → the port `ArcFaceModel`'s
+    `state_dict`: the backbone through `resnet_from_jax`, the embedding's
+    Dense kernels (I, O) transposed, and the margin head's `weight`, which
+    flax already holds as (C, D), as it is."""
+    sd = {f"backbone.{k}": v for k, v in resnet_from_jax(
+        params["backbone"], batch_stats["backbone"]).items()}
+    for fc in ("fc1", "fc2"):
+        _dense(sd, f"embedding.{fc}", params["embedding"][fc])
+    sd["margin.weight"] = _t(params["margin"]["weight"])
+    return sd
+
+
+def nested_from_jax(params: Mapping[str, Any],
+                    batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax `NestedModel` variables → the port `NestedModel`'s
+    `state_dict`: the backbone through `resnet_from_jax`, the bias-free
+    classifier's kernel (D, C) transposed."""
+    sd = {f"backbone.{k}": v for k, v in resnet_from_jax(
+        params["backbone"], batch_stats["backbone"]).items()}
+    sd["classifier.fc.weight"] = _t(np.asarray(
+        params["classifier"]["fc"]["kernel"]).T)
+    return sd
+
+
+_LEAF = {"weight": "kernel", "bias": "bias"}
+_BN_LEAF = {"weight": "scale", "bias": "bias"}
+
+
+def flax_path(name: str) -> str:
+    """The flax param path ("/"-joined) of a port parameter of a ResNet
+    model — `ClassifierModel`, `ArcFaceModel` or `NestedModel` — the
+    inverse of the maps above: `backbone.layer1.0.bn2.weight` →
+    `backbone/layer1_block0/BatchNorm_1/scale`,
+    `backbone.layer1.0.downsample.1.bias` →
+    `backbone/layer1_block0/downsample_bn/bias`, `margin.weight` →
+    `margin/weight`."""
+    parts = name.split(".")
+    if parts[0] == "margin":
+        return "margin/weight"
+    if parts[0] != "backbone":  # embedding.fc1.weight, classifier.fc.weight
+        return "/".join(parts[:-1] + [_LEAF[parts[-1]]])
+    rest, leaf = parts[1:-1], parts[-1]
+    if rest == ["conv1"]:
+        return "backbone/conv_stem/kernel"
+    if rest == ["bn1"]:
+        return f"backbone/bn_stem/{_BN_LEAF[leaf]}"
+    if rest == ["fc"]:
+        return f"backbone/fc/{_LEAF[leaf]}"
+    block = f"backbone/{rest[0]}_block{rest[1]}"
+    if rest[2] == "downsample":
+        return (f"{block}/downsample_conv/kernel" if rest[3] == "0"
+                else f"{block}/downsample_bn/{_BN_LEAF[leaf]}")
+    kind, k = rest[2][:-1], int(rest[2][-1]) - 1  # conv3 → Conv_2
+    if kind == "conv":
+        return f"{block}/Conv_{k}/kernel"
+    return f"{block}/BatchNorm_{k}/{_BN_LEAF[leaf]}"

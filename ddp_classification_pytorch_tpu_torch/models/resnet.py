@@ -29,11 +29,14 @@ served model casts its conv weights once (`cast_to_compute_dtype`).
 In training mode with a process group of more than one rank, every BN
 takes global batch statistics (`models/batchnorm.py`): the JAX model's
 BatchNorm over a batch sharded on the mesh's `data` axis (`:136-141`).
+With `freeze_bn` every BN normalizes with its running statistics in
+training too and exchanges nothing (the NESTED workload, `:136-141`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Type
+import functools
+from typing import Callable, Optional, Sequence, Type
 
 import torch
 import torch.distributed as dist
@@ -55,16 +58,17 @@ class BasicBlock(nn.Module):
 
     expansion = 1
 
-    def __init__(self, c_in: int, filters: int, stride: int, group=None):
+    def __init__(self, c_in: int, filters: int, stride: int,
+                 norm: Callable[[int], nn.Module] = BatchNorm):
         super().__init__()
         out = filters * self.expansion
         self.conv1 = _conv(c_in, filters, 3, stride)
-        self.bn1 = BatchNorm(filters, process_group=group)
+        self.bn1 = norm(filters)
         self.conv2 = _conv(filters, out, 3)
-        self.bn2 = BatchNorm(out, process_group=group)
+        self.bn2 = norm(out)
         self.downsample = (
             nn.Sequential(_conv(c_in, out, 1, stride),
-                          BatchNorm(out, process_group=group))
+                          norm(out))
             if stride != 1 or c_in != out else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -79,18 +83,19 @@ class Bottleneck(nn.Module):
 
     expansion = 4
 
-    def __init__(self, c_in: int, filters: int, stride: int, group=None):
+    def __init__(self, c_in: int, filters: int, stride: int,
+                 norm: Callable[[int], nn.Module] = BatchNorm):
         super().__init__()
         out = filters * self.expansion
         self.conv1 = _conv(c_in, filters, 1)
-        self.bn1 = BatchNorm(filters, process_group=group)
+        self.bn1 = norm(filters)
         self.conv2 = _conv(filters, filters, 3, stride)
-        self.bn2 = BatchNorm(filters, process_group=group)
+        self.bn2 = norm(filters)
         self.conv3 = _conv(filters, out, 1)
-        self.bn3 = BatchNorm(out, process_group=group)
+        self.bn3 = norm(out)
         self.downsample = (
             nn.Sequential(_conv(c_in, out, 1, stride),
-                          BatchNorm(out, process_group=group))
+                          norm(out))
             if stride != 1 or c_in != out else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -105,27 +110,32 @@ class ResNet(nn.Module):
     """ResNet backbone → pooled features, or logits when `num_classes` > 0.
 
     `group`: the process group whose ranks share every BN's batch
-    statistics in training (None: this process's batch only)."""
+    statistics in training (None: this process's batch only).
+    `freeze_bn`: every BN normalizes with its running statistics in
+    training too (`models/batchnorm.py`)."""
 
     def __init__(self, stage_sizes: Sequence[int],
                  block_cls: Type[nn.Module], num_classes: int = 0,
                  num_filters: int = 64, cifar_stem: bool = False,
                  dtype: torch.dtype = torch.bfloat16,
-                 group: Optional[dist.ProcessGroup] = None):
+                 group: Optional[dist.ProcessGroup] = None,
+                 freeze_bn: bool = False):
         super().__init__()
+        norm = functools.partial(BatchNorm, process_group=group,
+                                 frozen=freeze_bn)
         self.dtype = dtype
         self.cifar_stem = cifar_stem
         if cifar_stem:
             self.conv1 = _conv(3, num_filters, 3)
         else:
             self.conv1 = _conv(3, num_filters, 7, 2)
-        self.bn1 = BatchNorm(num_filters, process_group=group)
+        self.bn1 = norm(num_filters)
         c_in = num_filters
         for i, n_blocks in enumerate(stage_sizes):
             blocks = []
             for j in range(n_blocks):
                 blocks.append(block_cls(c_in, num_filters * 2 ** i,
-                                        2 if (i > 0 and j == 0) else 1, group))
+                                        2 if (i > 0 and j == 0) else 1, norm))
                 c_in = num_filters * 2 ** i * block_cls.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)
@@ -164,11 +174,13 @@ DEPTHS = {
 
 def build_resnet(name: str, num_classes: int = 0, variant: str = "imagenet",
                  dtype: torch.dtype = torch.bfloat16,
-                 group: Optional[dist.ProcessGroup] = None) -> ResNet:
+                 group: Optional[dist.ProcessGroup] = None,
+                 freeze_bn: bool = False) -> ResNet:
     """The published ResNet `name` (JAX `resnet.py:174-191`)."""
     if variant not in ("imagenet", "cifar"):
         raise ValueError(f"unknown ResNet variant {variant!r}; one of "
                          "imagenet, cifar")
     block_cls, stages = DEPTHS[name]
     return ResNet(stages, block_cls, num_classes=num_classes,
-                  cifar_stem=(variant == "cifar"), dtype=dtype, group=group)
+                  cifar_stem=(variant == "cifar"), dtype=dtype, group=group,
+                  freeze_bn=freeze_bn)

@@ -6,9 +6,11 @@ once in DistributedDataParallel under a process group, parallel/ddp.py)
 records, tensorboard scalars and verified checkpoints of the whole train
 state, written by rank 0, which `--resume` and `--auto_resume` pick up on
 every rank. Trains the ResNets (over any number of ranks, with global
-batch statistics), TResNet-M (one rank) and the ViT family, on synthetic
-data, image folders and CIFAR pickles; `cli/serve.py --ckpt` serves the
-conv nets' checkpoints.
+batch statistics; heads fc, arcface and nested, CDR's gradient
+transform), TResNet-M (one rank) and the ViT family, on synthetic data,
+image folders and CIFAR pickles; `cli/serve.py --ckpt` serves the conv
+nets' checkpoints. The nested head's eval is the all-K sweep
+(`nested_eval`: `val_top1` at the best K, `val_top3` there, `best_k`).
 
 Not ported yet (ROADMAP.md): PLC data, the `cdr` rotation and the
 `cifar` preset on image folders (PIL's geometric ops), async checkpoints,
@@ -34,10 +36,11 @@ from ..data.transforms import INPUT_DTYPES, build_transform, preset_for_dataset
 from ..obs.registry import Registry
 from ..parallel import ddp
 from ..utils.logging import EtaLogger, RecordWriter, host0_print
+from ..ops.nested import best_k
 from .checkpoint import CheckpointManager
 from .sentinel import StepSentinel
 from .state import TRESNET_ARCHS, create_train_state, param_count
-from .steps import make_eval_step, make_train_step
+from .steps import make_eval_step, make_nested_eval_step, make_train_step
 
 
 def build_datasets(cfg: Config) -> Tuple[Any, Any]:
@@ -146,6 +149,25 @@ def eval_totals(state, eval_step, batches) -> Dict[str, float]:
     return dict(zip(keys, packed.tolist()))
 
 
+def nested_eval(state, eval_step, batches) -> Dict[str, float]:
+    """The nested head's eval (JAX `loop.py:501-522`): `eval_step`'s
+    per-K counts over this rank's `batches` summed on the device, then
+    across the ranks in one all-reduce; `best_k` picks the K. Returns
+    `val_top1` (at the best K), `val_top3` at that K and `best_k`."""
+    totals = None
+    for batch in batches:
+        totals = _sum_into(totals, eval_step(state, *batch))
+    if totals is None:  # every rank holds as many batches: none has one
+        return {"val_top1": 0.0, "val_top3": 0.0, "best_k": 0}
+    d = totals["top1_k"].shape[0]
+    packed = ddp.sum_across(torch.cat([
+        totals["top1_k"], totals["top3_k"], totals["n"].float()[None]])).cpu()
+    n = max(float(packed[-1]), 1.0)
+    acc, k = best_k(packed[:d], n)
+    return {"val_top1": acc, "val_top3": float(packed[d + k] / n),
+            "best_k": k}
+
+
 class Trainer:
     def __init__(self, cfg: Config, device: torch.device):
         device = ddp.local_device(device)
@@ -181,7 +203,9 @@ class Trainer:
         self.state = create_train_state(cfg, device, self.steps_per_epoch,
                                         group=ddp.group())
         self.train_step = make_train_step(cfg)
-        self.eval_step = make_eval_step(cfg)
+        self.eval_step = (make_nested_eval_step(cfg)
+                          if cfg.model.head == "nested"
+                          else make_eval_step(cfg))
         self.records = (RecordWriter(cfg.run.out_dir)
                         if cfg.run.write_records and primary else None)
         self.tb = None
@@ -256,6 +280,8 @@ class Trainer:
     def evaluate(self) -> Dict[str, float]:
         it = iter(self.val_prefetch)
         try:
+            if self.cfg.model.head == "nested":
+                return nested_eval(self.state, self.eval_step, it)
             totals = eval_totals(self.state, self.eval_step, it)
         finally:
             it.close()

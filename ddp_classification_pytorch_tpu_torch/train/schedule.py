@@ -1,5 +1,5 @@
 """LR schedule + optimizer — the port of the JAX package's
-`train/schedule.py` for one param group.
+`train/schedule.py`.
 
 `build_schedule` is `step -> lr`, the optax schedules of the JAX package
 written out as optax computes them (in float32, except a constant, which
@@ -17,20 +17,43 @@ optax returns as given):
 `build_optimizer` gives `torch.optim.SGD(momentum, weight_decay)` or
 `Adam(weight_decay)`: PyTorch's coupled weight decay adds wd·p to the
 gradient before momentum/Adam, which is optax's `add_decayed_weights`
-chained before `sgd`/`adam`. The trainer sets each update's lr from the
-schedule at the count of updates applied so far (optax keeps that count
-in the optimizer state, so a skipped step does not advance it). The head
-param group, CDR's gradient transform and freeze-BN are not ported yet.
+chained before `sgd`/`adam`. The trainer sets each update's lr from its
+group's schedule at the count of updates applied so far (optax keeps that
+count in the optimizer state, so a skipped step does not advance it).
+
+`param_groups` forms the optimizer's groups from a model (JAX
+`schedule.py:84-162`):
+
+- **The head group.** With `head_lr` or `head_weight_decay` set, the
+  params under `margin.` (the ArcFace margin head, the reference's second
+  optimizer group, arc_main.py:248-253) form a group with that lr and
+  weight decay, under a schedule of the same shape (`head_config`); the
+  rest form the base group. A model without a margin head is a ValueError
+  (JAX `:117-124`).
+- **Freeze-BN.** The params that the JAX package's `_is_bn_param` matches
+  on their flax paths (`models/convert.py::flax_path`) are in no group: no
+  decay, no momentum, no update — JAX's `set_to_zero` at the end of the
+  chain (`:155-162`). They keep `requires_grad`, so their gradients still
+  enter the grad norm (JAX `steps.py:647`). The matcher misses the four
+  downsample BNs (`…/downsample_bn/scale` holds none of its substrings),
+  so it freezes 98 of ResNet-50's 106 BN tensors; the port freezes the
+  same 98 (ROADMAP.md §3: the reference freezes all of them).
+
+CDR's gradient transform is `ops/cdr.py::cdr_mask_`, applied by the train
+step before `optimizer.step()`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable
+import dataclasses
+from typing import Callable, Dict, Iterable, List
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from ..config import OptimConfig
+from ..models.convert import flax_path
 
 Schedule = Callable[[int], float]
 _f32 = np.float32
@@ -79,9 +102,10 @@ def build_schedule(cfg: OptimConfig, steps_per_epoch: int) -> Schedule:
 
 
 def build_optimizer(cfg: OptimConfig,
-                    params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
-    """The optimizer over `params`; its lr is set per update from the
-    schedule (the value given here is the schedule's start)."""
+                    params: Iterable) -> torch.optim.Optimizer:
+    """The optimizer over `params` (parameters, or the groups of
+    `param_groups`); each group's lr is set per update from its schedule
+    (the value given here is the schedule's start)."""
     if cfg.optimizer == "sgd":
         return torch.optim.SGD(params, lr=cfg.lr, momentum=cfg.momentum,
                                weight_decay=cfg.weight_decay)
@@ -89,3 +113,56 @@ def build_optimizer(cfg: OptimConfig,
         return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999),
                                 eps=1e-8, weight_decay=cfg.weight_decay)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+
+
+# the top-level module whose params form the head group (JAX
+# `schedule.py:81`: the ArcFaceModel's "margin" subtree)
+HEAD_GROUP = "margin"
+
+
+def is_bn_param(path: str) -> bool:
+    """The JAX package's `_is_bn_param` (`schedule.py:65-67`) on a
+    "/"-joined flax param path."""
+    keys = path.lower()
+    return ("batchnorm" in keys or "bn_" in keys or keys.endswith("_bn")
+            or "/bn" in keys)
+
+
+def frozen_bn_names(model: nn.Module) -> List[str]:
+    """The names of the params freeze-BN leaves out of the update."""
+    return [n for n, _ in model.named_parameters() if is_bn_param(flax_path(n))]
+
+
+def head_config(cfg: OptimConfig) -> OptimConfig:
+    """The head group's hyperparameters: `head_lr` / `head_weight_decay`
+    where set, else the base group's."""
+    return dataclasses.replace(
+        cfg, lr=cfg.lr if cfg.head_lr is None else cfg.head_lr,
+        weight_decay=(cfg.weight_decay if cfg.head_weight_decay is None
+                      else cfg.head_weight_decay))
+
+
+def two_groups(cfg: OptimConfig) -> bool:
+    return cfg.head_lr is not None or cfg.head_weight_decay is not None
+
+
+def param_groups(cfg: OptimConfig, model: nn.Module,
+                 freeze_bn: bool = False) -> List[Dict]:
+    """The optimizer's param groups for `model`: one (the base), or the
+    base then the head (`"head": True`, with its own lr and weight decay);
+    freeze-BN's params in none."""
+    frozen = set(frozen_bn_names(model)) if freeze_bn else set()
+    named = [(n, p) for n, p in model.named_parameters() if n not in frozen]
+    if not two_groups(cfg):
+        return [{"params": [p for _, p in named]}]
+    head = [p for n, p in named if n.split(".")[0] == HEAD_GROUP]
+    if not head:
+        raise ValueError(
+            f"head_lr/head_weight_decay set but the model has no "
+            f"{HEAD_GROUP!r} head param group (top-level modules: "
+            f"{sorted({n.split('.')[0] for n, _ in named})}); these flags "
+            "apply to the ArcFace margin head")
+    hc = head_config(cfg)
+    return [{"params": [p for n, p in named if n.split(".")[0] != HEAD_GROUP]},
+            {"params": head, "lr": hc.lr, "weight_decay": hc.weight_decay,
+             "head": True}]

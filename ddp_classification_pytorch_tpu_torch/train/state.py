@@ -17,10 +17,18 @@ import torch.nn as nn
 
 from ..config import Config
 from ..models.factory import build_model
+from ..models.heads import ArcMarginHead
 from ..models.resnet import DEPTHS as RESNET_DEPTHS
 from ..models.resnet import ResNet
 from ..models.vit import VIT_CONFIGS
-from .schedule import Schedule, build_optimizer, build_schedule
+from .schedule import (
+    Schedule,
+    build_optimizer,
+    build_schedule,
+    head_config,
+    param_groups,
+    two_groups,
+)
 
 # jax.nn.initializers' truncated normal: the stddev of a standard normal cut
 # at ±2, by which `variance_scaling(..., "truncated_normal")` divides
@@ -41,11 +49,13 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     construction values (γ=1, β=0, mean 0, var 1), as flax's. A ResNet
     starts from the JAX ResNet's distribution: its convs take
     `variance_scaling(2.0, "fan_out", "truncated_normal")` with fan_out =
-    O·kh·kw (JAX `models/resnet.py:132-133`), its fc LeCun normal (flax's
-    Dense default, a truncated normal of fan_in). The other archs' conv and
-    linear weights are N(0, 1/fan_in). `torch.Generator` and `jax.random`
-    give different numbers from one seed; parity tests carry weights
-    across with `models/convert.py`."""
+    O·kh·kw (JAX `models/resnet.py:132-133`), its fc and the heads' Dense
+    layers LeCun normal (flax's Dense default, a truncated normal of
+    fan_in), and the ArcFace margin's (C, D) weight flax's xavier-uniform,
+    U(±sqrt(6 / (C + D))) (JAX `models/heads.py:68-73`). The other archs'
+    conv and linear weights are N(0, 1/fan_in). `torch.Generator` and
+    `jax.random` give different numbers from one seed; parity tests carry
+    weights across with `models/convert.py`."""
     resnet = any(isinstance(m, ResNet) for m in model.modules())
     with torch.no_grad():
         for m in model.modules():
@@ -61,6 +71,10 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
+        for m in model.modules():
+            if isinstance(m, ArcMarginHead):
+                bound = (6.0 / sum(m.weight.shape)) ** 0.5
+                m.weight.uniform_(-bound, bound, generator=generator)
         for name, p in model.named_parameters():
             if name.endswith("pos_embed"):  # the ViT's N(0, 0.02), as flax's
                 p.normal_(0.0, 0.02, generator=generator)
@@ -137,7 +151,9 @@ class TrainState:
 
     `step` counts train steps (skipped ones too); `opt_count` counts the
     updates applied — the count optax keeps in its optimizer state, which
-    the schedule reads, so a skipped step does not advance the lr."""
+    the schedules read, so a skipped step does not advance the lr.
+    `schedule` sets the base group's lr, `head_schedule` that of the head
+    group (`train/schedule.py::param_groups`) where there is one."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
@@ -148,11 +164,21 @@ class TrainState:
     # runs the forward through (parallel/ddp.py), None without a process
     # group; `model` stays the unwrapped module whose state is saved
     ddp: Optional[nn.Module] = None
+    head_schedule: Optional[Schedule] = None
+    # the loader's steps an epoch (CDR's live clip schedule is per epoch)
+    steps_per_epoch: int = 1
 
     @property
     def params(self) -> List[nn.Parameter]:
+        """The params the optimizer updates (freeze-BN's are not)."""
         return [p for group in self.optimizer.param_groups
                 for p in group["params"]]
+
+    def set_lrs(self) -> None:
+        """Each group's lr from its schedule at `opt_count`."""
+        for group in self.optimizer.param_groups:
+            sched = self.head_schedule if group.get("head") else self.schedule
+            group["lr"] = sched(self.opt_count)
 
     def state_dict(self) -> Dict[str, Any]:
         """What resuming needs: the model's f32 master weights and buffers
@@ -192,9 +218,11 @@ def create_train_state(cfg: Config, device: torch.device,
                        group: Optional[dist.ProcessGroup] = None
                        ) -> TrainState:
     """Model with fresh f32 master weights from `run.seed` (or, for a
-    ResNet with `model.pretrained`, overlaid with `pretrained_path`) on
-    `device`, its optimizer and LR schedule. Training is ported for the
-    ResNets, TResNet-M and the ViT family; anything else is a ValueError.
+    ResNet with `model.pretrained`, its backbone overlaid with
+    `pretrained_path`) on `device`, its optimizer (`param_groups`: the head
+    group, freeze-BN) and LR schedules. Training is ported for the
+    ResNets (every head), TResNet-M and the ViT family (head fc); anything
+    else is a ValueError.
     `group` is the process group whose ranks share the ResNet BNs' batch
     statistics. The conv nets go to the device in channels_last, as K1 and
     its training passes take their activations (weights in NCHW could lead
@@ -220,13 +248,19 @@ def create_train_state(cfg: Config, device: torch.device,
         model.to(device=device, memory_format=torch.channels_last)
     else:
         model.to(device)
-    return TrainState(model=model,
-                      optimizer=build_optimizer(cfg.optim, model.parameters()),
-                      schedule=build_schedule(cfg.optim, steps_per_epoch))
+    opt = cfg.optim
+    return TrainState(
+        model=model,
+        optimizer=build_optimizer(
+            opt, param_groups(opt, model, cfg.model.freeze_bn)),
+        schedule=build_schedule(opt, steps_per_epoch),
+        head_schedule=(build_schedule(head_config(opt), steps_per_epoch)
+                       if two_groups(opt) else None),
+        steps_per_epoch=steps_per_epoch)
 
 
 def param_count(state: TrainState) -> int:
-    return sum(p.numel() for p in state.params)
+    return sum(p.numel() for p in state.model.parameters())
 
 
 def create_served_model(cfg: Config, device: torch.device,

@@ -29,6 +29,12 @@ gradients (that file's docstring; weight seed 0).
 (f) `torchrun --nproc_per_node 2 -m ...cli.train --device cpu` resumes a
     1-rank checkpoint and writes one from rank 0 (no `module.` prefix),
     which a 1-rank trainer restores bitwise and trains on.
+(g) The cdr and nested (freeze-BN) presets, two steps each over the two
+    ranks: CDR's thresholds and masked gradients bitwise equal on both
+    ranks, the nested k equal on both (and `nested_k`'s), the replicas
+    bitwise equal after the steps; the nested all-K eval's per-K counts
+    over the 7-sample val set, summed across the ranks, equal those of
+    one process over the same samples, and so does its best K.
 """
 
 import os
@@ -58,9 +64,11 @@ from ddp_classification_pytorch_tpu_torch.models import resnet
 from ddp_classification_pytorch_tpu_torch.models.convert import resnet_from_jax
 from ddp_classification_pytorch_tpu_torch.models.factory import ClassifierModel
 from ddp_classification_pytorch_tpu_torch.train import checkpoint, schedule, steps
-from ddp_classification_pytorch_tpu_torch.train.loop import Trainer
+from ddp_classification_pytorch_tpu_torch.ops.nested import nested_k
+from ddp_classification_pytorch_tpu_torch.train.loop import Trainer, nested_eval
 from ddp_classification_pytorch_tpu_torch.train.state import TrainState
 
+import torch_port_heads as H
 from torch_port_ddp_worker import ArrayDataset
 from torch_port_helpers import OPTIM, random_variables
 
@@ -161,6 +169,9 @@ def spawned(variables, tmp_path_factory):
     data = {
         "bn": {k: t(v) for k, v in _bn_inputs().items()},
         "steps": {"state_dict": resnet_from_jax(*variables),
+                  "fc_state_dict": H.FROM_JAX["fc"](*variables),
+                  "nested_state_dict": H.FROM_JAX["nested"](
+                      *H.variables("nested", IMAGE)),
                   "reduced": REDUCED, "optim": dict(OPTIM),
                   "batches": [(t(i), t(lb)) for i, lb in _batches()],
                   "val_images": t(val_images), "val_labels": t(val_labels),
@@ -424,3 +435,42 @@ def test_checkpoints_cross_world_sizes(tmp_path):
     assert (restored["step"], restored["opt_count"]) == (12, 12)
     last = trainer.run()
     assert last["step_ok"] == 1.0 and trainer.state.step == 20
+
+
+def test_cdr_and_nested_ranks_stay_equal(spawned, ranks):
+    for head in ("cdr", "nested"):
+        r0, r1 = (r[head] for r in ranks)
+        for k in r0["model"]:
+            assert torch.equal(r0["model"][k], r1["model"][k]), (head, k)
+        assert r0["metrics"] == r1["metrics"]
+        assert (r0["step"], r0["opt_count"]) == (r1["step"], r1["opt_count"]) == (2, 2)
+        assert all(m["step_ok"] == 1.0 for m in r0["metrics"])
+    c0, c1 = ranks[0]["cdr"]["masks"], ranks[1]["cdr"]["masks"]
+    assert len(c0) == len(c1) == 2
+    for (t0, g0), (t1, g1) in zip(c0, c1):
+        assert torch.equal(t0, t1)
+        assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    _, cfg = H.cfgs("nested", IMAGE, BATCH)
+    want = [nested_k(cfg.run.seed, s, H.FEAT, cfg.model.nested_std)
+            for s in range(2)]
+    assert ranks[0]["nested"]["ks"] == ranks[1]["nested"]["ks"] == want
+    assert ranks[0]["cdr"]["ks"] == [] and ranks[0]["nested"]["masks"] == []
+
+
+def test_nested_eval_counts_over_two_ranks_match_one_process(spawned, ranks):
+    _, cfg = H.cfgs("nested", IMAGE, BATCH)
+    params, stats = H.variables("nested", IMAGE)
+    state = H.port_state("nested", cfg, params, stats)
+    ds = ArrayDataset(*_val_set())
+    loader = Loader(ds, BATCH, shuffle=False)
+    batches = [(torch.from_numpy(im), torch.from_numpy(lb),
+                torch.from_numpy(loader.valid_mask(k)))
+               for k, (im, lb) in enumerate(loader)]
+    estep = steps.make_nested_eval_step(cfg)
+    outs = [estep(state, *b) for b in batches]
+    for r in ranks:
+        got = r["nested"]["counts"]
+        assert float(got["n"]) == 7.0
+        for key in ("top1_k", "top3_k"):
+            assert torch.equal(got[key], sum(o[key] for o in outs)), key
+        assert r["nested"]["eval"] == nested_eval(state, estep, batches)

@@ -46,7 +46,8 @@ for root, _, files in os.walk(os.path.join(repo, port)):
             names.append(mod[: -len(".__init__")] if mod.endswith(".__init__") else mod)
 for name in sorted(names):
     importlib.import_module(name)
-for name in ("models.resnet", "models.batchnorm", "parallel.ddp"):
+for name in ("models.resnet", "models.batchnorm", "parallel.ddp",
+             "ops.arcface", "ops.cdr", "ops.nested", "models.heads"):
     assert f"{port}.{name}" in names, name
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join(repo, "chip_smoke.py"))

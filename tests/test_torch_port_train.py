@@ -289,6 +289,9 @@ def test_cli_unported_or_bad_config_exits_2(tmp_path, extra):
 
 
 def test_cli_unported_workload_exits_2(tmp_path):
+    """PLC is not ported; the arcface head is ported on the ResNets only
+    (TINY's model is a ViT)."""
+    assert _rc(["plc"] + TINY[1:] + ["--device", "cpu"]) == 2
     assert _rc(["arcface"] + TINY[1:] + ["--device", "cpu"]) == 2
 
 

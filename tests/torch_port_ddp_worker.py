@@ -13,7 +13,12 @@ results to OUT_DIR/rank<R>.pt:
 - `steps`: the reduced ResNet-50 under DistributedDataParallel, one train
   step per batch on this rank's half of it (metrics and the whole state
   after each), then `train/loop.py::eval_totals` over this rank's shard of
-  a val set (the loader's wrap padding masked).
+  a val set (the loader's wrap padding masked);
+- `cdr` / `nested`: the same net under the cdr preset (the masked
+  gradients and threshold of each step) and under the nested head with
+  freeze-BN (the k of each step; first the per-K counts of the all-K eval
+  over this rank's shard of the val set, summed across the ranks, and
+  `nested_eval`'s result), two train steps each, the state after them.
 
 Imports torch, numpy and the port only (no JAX), so a rank starts fast.
 """
@@ -111,6 +116,76 @@ def run_steps(data, rank, world):
     return out
 
 
+def run_heads(data, head, rank, world):
+    """Two steps of the cdr preset (head fc) or of the nested preset under
+    DDP, recording what every rank must agree on."""
+    from ddp_classification_pytorch_tpu_torch.config import get_preset
+    from ddp_classification_pytorch_tpu_torch.data.loader import Loader
+    from ddp_classification_pytorch_tpu_torch.models import factory, heads, resnet
+    from ddp_classification_pytorch_tpu_torch.parallel import ddp
+    from ddp_classification_pytorch_tpu_torch.train import schedule, steps
+    from ddp_classification_pytorch_tpu_torch.train.loop import nested_eval
+    from ddp_classification_pytorch_tpu_torch.train.state import TrainState
+
+    workload = "cdr" if head == "fc" else "nested"
+    cfg = get_preset(workload)
+    cfg.data.dataset, cfg.data.input_dtype = "synthetic", "float32"
+    cfg.data.num_classes = 10
+    for k, v in data["optim"].items():
+        setattr(cfg.optim, k, v)
+    stages = {k: v for k, v in data["reduced"].items() if k != "num_classes"}
+    backbone = resnet.ResNet(
+        block_cls=resnet.Bottleneck, dtype=torch.float32, group=ddp.group(),
+        num_classes=10 if head == "fc" else 0, freeze_bn=cfg.model.freeze_bn,
+        **stages)
+    model = (factory.ClassifierModel(backbone) if head == "fc" else
+             factory.NestedModel(backbone, heads.NetClassifier(
+                 backbone.num_features, 10)))
+    model.load_state_dict(data[f"{head}_state_dict"])
+    model.to(memory_format=torch.channels_last)
+    device = torch.device("cpu")
+    state = TrainState(model, schedule.build_optimizer(
+        cfg.optim, schedule.param_groups(cfg.optim, model,
+                                         cfg.model.freeze_bn)),
+        schedule.build_schedule(cfg.optim, 1), ddp=ddp.wrap(model, device))
+    out = {"masks": [], "ks": []}
+    if head == "nested":
+        ds = ArrayDataset(data["val_images"].numpy(), data["val_labels"].numpy())
+        loader = Loader(ds, data["val_batch"], shuffle=False, host_id=rank,
+                        num_hosts=world)
+        batches = [(torch.from_numpy(im), torch.from_numpy(lb),
+                    torch.from_numpy(loader.valid_mask(k)))
+                   for k, (im, lb) in enumerate(loader)]
+        estep = steps.make_nested_eval_step(cfg)
+        counts = [estep(state, *b) for b in batches]
+        out["counts"] = {key: ddp.sum_across(sum(c[key] for c in counts))
+                         for key in ("top1_k", "top3_k", "n")}
+        out["eval"] = nested_eval(state, estep, batches)
+    real_mask, real_k = steps.cdr_mask_, steps.nested_k
+
+    def mask(pairs, ratio, clip):
+        thresh = real_mask(pairs, ratio, clip)
+        out["masks"].append((thresh.clone(), [g.clone() for _, g in pairs]))
+        return thresh
+
+    def draw(*args):
+        out["ks"].append(real_k(*args))
+        return out["ks"][-1]
+
+    steps.cdr_mask_, steps.nested_k = mask, draw
+    try:
+        step = steps.make_train_step(cfg)
+        out["metrics"] = [
+            {k: float(v) for k, v in step(state, _half(images, rank, world),
+                                          _half(labels, rank, world)).items()}
+            for images, labels in data["batches"][:2]]
+    finally:
+        steps.cdr_mask_, steps.nested_k = real_mask, real_k
+    out["model"] = {k: v.clone() for k, v in model.state_dict().items()}
+    out["step"], out["opt_count"] = state.step, state.opt_count
+    return out
+
+
 def main() -> None:
     from ddp_classification_pytorch_tpu_torch.parallel import ddp
 
@@ -120,7 +195,9 @@ def main() -> None:
         rank, world = ddp.rank(), ddp.world_size()
         assert (rank, world) == ddp.env_world()[:2]
         result = {"bn": run_bn(data["bn"], rank, world),
-                  "steps": run_steps(data["steps"], rank, world)}
+                  "steps": run_steps(data["steps"], rank, world),
+                  "cdr": run_heads(data["steps"], "fc", rank, world),
+                  "nested": run_heads(data["steps"], "nested", rank, world)}
     torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
