@@ -237,9 +237,29 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    sort, the whole mask) against its byte bound, and the nested all-K
    sweep of one 64-image eval batch against its bound and the bytes of its
    (B, 128, C) tiles;
-26. a `{"kernels": [...]}` line (K1-K4, K1s, K1r, K1d; each with its
-   launches on the ResNet-50, ArcFace, CDR and Nested paths: 0), then
-   `{"ok": true, "device": {...}}` last.
+26. the PLC path — `cli/train.py plc` in process (PLCTrainer) on
+   ResNet-50 at full width and depth, 224 px, 14 classes (Clothing1M's),
+   bf16, uint8 wire, 512 synthetic images from the seed at batch 64, two
+   epochs with one warmup epoch: one ordered f(x) pass over the train set
+   and one LRT correction. The loss is finite, no step was skipped, none
+   of the seven kernels launched (PLC is numpy on the host, an eval
+   forward and a probe MLP in the JAX package); `corrected` and `delta`
+   are recorded, `plc_labels.npy` holds 512 labels and `meta.json` δ; the
+   ordered pass's logits, in dataset order, equal the eval forward of
+   the same images in the same batches on the card within
+   PLC_LOGIT_TOL; `--auto_resume --epochs 3` restores the saved labels
+   and δ; `cli/serve.py plc --ckpt` answers 8 requests with the
+   trainer's top-5. Then the η probe (`eta_approximation`) fit on the
+   card on (512, 2048) features from the seed, against the same fit on
+   the CPU from the same init (PLC_ETA_TOL), and type-1 noise injected by
+   `PLCTrainer(cfg, eta=...)` from the card's η: the count and the labels
+   of the CPU's `label_noise` bitwise. Timings: the ordered pass's step
+   at batch 128 (device ms, wall ms, images/s) and the whole pass through
+   the loader, the probe fit, and the host ms of `lrt_correction` and
+   `prob_correction` on (1,000,000, 14) f32 logits;
+27. a `{"kernels": [...]}` line (K1-K4, K1s, K1r, K1d; each with its
+   launches on the ResNet-50, ArcFace, CDR, Nested and PLC paths: 0),
+   then `{"ok": true, "device": {...}}` last.
 
 Numerics on the card: `torch.backends.cudnn.allow_tf32 = False` and
 `torch.backends.cuda.matmul.allow_tf32 = False` (f32 convolutions and
@@ -367,6 +387,21 @@ HEAD_ARGV = {
 HEAD_STEP_BATCH = {"arcface": 32, "cdr": 128, "nested": 128}  # the presets'
 CDR_KEEP_TOL = 1e-6  # the share of |g·v| kept: 0.8 within this
 NESTED_EVAL_BATCH = 64
+# phase 26: PLC on ResNet-50 at full width and depth, 224 px, 14 classes
+# (Clothing1M's), bf16, uint8 wire: 512 synthetic images at batch 64, two
+# epochs with one warmup epoch, so one ordered f(x) pass and one LRT
+# correction
+PLC_ARGV = ["plc", "--dataset", "synthetic", "--model", "resnet50",
+            "--image_size", "224", "--dtype", "bfloat16", "--input_dtype",
+            "uint8", "--synthetic_size", "512", "--num_classes", "14",
+            "--batchsize", "64", "--epochs", "2", "--plc_warmup_epochs", "1",
+            "--device", "cuda"]
+PLC_CLASSES, PLC_N = 14, 512
+PLC_STEP_BATCH = 128  # the preset's batch
+PLC_FEATURES = 2048  # ResNet-50's pooled features: the η probe's input
+PLC_ETA_TOL = 1e-4  # the probe's η on the card vs the CPU (f32, no TF32)
+PLC_LOGIT_TOL = 1e-2  # the ordered pass vs the eval forward, bf16 logits
+PLC_HOST_ROWS = 1_000_000  # Clothing1M's train set: the host corrections
 
 
 def check(cond: bool, msg: str) -> None:
@@ -924,7 +959,7 @@ def same_state(torch, a, b) -> bool:
 
 def train_main_path(torch, device, train_cli, checkpoint, argv, counters,
                     want, tag, then=None, before=None, files=(),
-                    ckpt_name=None):
+                    ckpt_name=None, trainer_cls=None):
     """Phases 8, 12 and 17: cli/train.py's sequence for `argv` in process,
     into a temporary directory (a checkpoint is hundreds of MB): epochs of
     TRAIN_STEPS steps and EVAL_BATCHES eval batches. `counters` names the
@@ -934,15 +969,16 @@ def train_main_path(torch, device, train_cli, checkpoint, argv, counters,
     `files` are written, and the checkpoint restores to the trained state
     (weights, optimizer state, counters). `before(trainer)` runs just before the run, `then(trainer,
     ckpt)` after it, before the directory goes, and returns more of the
-    record. Returns the trainer, its config and the record (with the small
-    records' text)."""
+    record. `trainer_cls` is the CLI's choice for the workload (Trainer
+    unless given). Returns the trainer, its config and the record (with
+    the small records' text)."""
     from ddp_classification_pytorch_tpu_torch.train.loop import Trainer
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         cfg = train_cli.config_from_args(
             train_cli.build_parser().parse_args(argv + ["--out", tmp]))
-        trainer = Trainer(cfg, device)
+        trainer = (trainer_cls or Trainer)(cfg, device)
         check(trainer.steps_per_epoch == TRAIN_STEPS
               and len(trainer.val_loader) == EVAL_BATCHES,
               f"{trainer.steps_per_epoch} train steps / "
@@ -1402,29 +1438,38 @@ def first_batch_recorder(trainer, seen: dict):
 def cli_refuses_folders(train_cli) -> dict:
     """Where the probe found no libjpeg: the train CLI on an image folder
     exits rc 2 and names what is missing (the fixture tree is there; the
-    dataplane is not)."""
+    dataplane is not), through the dataplane (baseline) and through the
+    item route's decoder (the cdr transform): no PIL fallback."""
     import contextlib
     import io
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_nojpeg_")
-    err = io.StringIO()
-    try:
-        train_dir, val_dir = fixture_tree(root)
-        with contextlib.redirect_stderr(err):
-            try:
-                train_cli.main(IF_ARGV + ["--train_dir", train_dir, "--val_dir",
-                                          val_dir, "--epochs", "1", "--out",
-                                          os.path.join(root, "out")])
-                rc = 0
-            except SystemExit as e:
-                rc = e.code
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    msg = err.getvalue().strip().splitlines()[0] if err.getvalue() else ""
-    check(rc == 2 and "-ljpeg" in msg and "jpeglib.h" in msg,
-          f"train CLI on a folder without libjpeg: rc {rc}, {msg!r}")
-    log(f"[dataplane] the train CLI on an image folder: rc {rc}: {msg}")
-    return {"rc": rc, "message": msg}
+    rec = {}
+    for route, extra, names in (("dataplane", [], "native/dataplane.cpp"),
+                                ("decoder", ["--transform", "cdr"],
+                                 "data/csrc/decode.cpp")):
+        root = tempfile.mkdtemp(prefix="chip_smoke_nojpeg_")
+        err = io.StringIO()
+        try:
+            train_dir, val_dir = fixture_tree(root)
+            with contextlib.redirect_stderr(err):
+                try:
+                    train_cli.main(IF_ARGV + extra + [
+                        "--train_dir", train_dir, "--val_dir", val_dir,
+                        "--epochs", "1", "--out", os.path.join(root, "out")])
+                    rc = 0
+                except SystemExit as e:
+                    rc = e.code
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        msg = err.getvalue().strip().splitlines()[0] if err.getvalue() else ""
+        check(rc == 2 and "-ljpeg" in msg and "jpeglib.h" in msg
+              and names in msg,
+              f"train CLI on a folder without libjpeg ({route}): rc {rc}, "
+              f"{msg!r}")
+        log(f"[dataplane] the train CLI on an image folder ({route}): "
+            f"rc {rc}: {msg}")
+        rec[route] = {"rc": rc, "message": msg}
+    return rec
 
 
 def time_train_step(torch, step_fn, state, images, labels, abn_counts,
@@ -2127,6 +2172,202 @@ def head_step_timing(torch, device, train_cli, workload: str,
     return rec
 
 
+def plc_main_path(torch, device, train_cli, serve_cli, checkpoint, fused_abn,
+                  k1, counters) -> dict:
+    """Phase 26: `cli/train.py plc`'s sequence (PLC_ARGV: PLCTrainer, two
+    epochs, warmup 1) through `train_main_path` with every kernel's count
+    0; then, before its directory goes: the correction's record
+    (`corrected`, `delta`) and `plc_labels.npy` (512 labels); the ordered
+    pass's logits in dataset order against the eval forward of the same
+    images in the same batches on the card (PLC_LOGIT_TOL); `--auto_resume
+    --epochs 3` restores the saved labels and δ; `cli/serve.py plc --ckpt`
+    answers 8 requests with the trainer's top-5."""
+    from ddp_classification_pytorch_tpu_torch.train.plc_loop import PLCTrainer
+    from ddp_classification_pytorch_tpu_torch.train.steps import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        device_input_epilogue,
+    )
+
+    def then(tr, ckpt):
+        out = os.path.dirname(ckpt)
+        labels = np.load(os.path.join(out, "plc_labels.npy"))
+        with open(os.path.join(out, "meta.json")) as f:
+            saved_delta = json.load(f)["plc_delta"]
+        check(labels.shape == (PLC_N,) and np.array_equal(
+            labels, tr.train_ds.labels), f"plc_labels.npy: {labels.shape}")
+        check(saved_delta == tr.delta, f"meta δ {saved_delta} != {tr.delta}")
+        # the ordered pass against the plain eval forward, batch by batch
+        t0 = time.perf_counter()
+        f_x = tr.predict_train_logits()
+        pass_s = time.perf_counter() - t0
+        mean, std = (torch.from_numpy(a).view(1, 3, 1, 1).to(device)
+                     for a in (IMAGENET_MEAN, IMAGENET_STD))
+        model, b = tr.state.model.eval(), tr.cfg.data.batch_size
+        err, bitwise = 0.0, True
+        with torch.no_grad():
+            for start in range(0, PLC_N, b):
+                imgs = np.stack([tr.train_ds[i][0]
+                                 for i in range(start, start + b)])
+                x = torch.from_numpy(imgs).to(device).permute(0, 3, 1, 2)
+                want = model(device_input_epilogue(x, mean, std)).float().cpu()
+                got = torch.from_numpy(f_x[start:start + b]).float()
+                err = max(err, (got - want).abs().max().item())
+                bitwise = bitwise and torch.equal(got, want)
+        check(f_x.shape == (PLC_N, PLC_CLASSES) and err <= PLC_LOGIT_TOL,
+              f"plc: ordered pass {f_x.shape} off the eval forward by {err}")
+        # --auto_resume --epochs 3: the labels and δ come back, no injection
+        argv = PLC_ARGV + ["--out", out, "--epochs", "3", "--auto_resume"]
+        cfg = train_cli.config_from_args(
+            train_cli.build_parser().parse_args(argv))
+        again = PLCTrainer(cfg, device)
+        check(again.start_epoch == 2 and again.delta == saved_delta
+              and np.array_equal(again.train_ds.labels, labels)
+              and again.injected == 0,
+              f"plc: auto-resume at epoch {again.start_epoch}, δ {again.delta}")
+        del again
+        served = serve_trained_checkpoint(
+            torch, fused_abn, device, serve_cli, k1, tr, ckpt,
+            np.stack([tr.val_ds[i][0] for i in range(8)]),
+            ["plc" if a == "baseline" else str(PLC_CLASSES)
+             if a == "2173" else a for a in RESNET_SERVE_ARGV],
+            k1_per_forward=0)
+        return {"plc_labels": int(labels.shape[0]), "plc_delta": saved_delta,
+                "ordered_pass_s": pass_s, "ordered_pass_max_abs_err": err,
+                "ordered_pass_bitwise": bitwise, "resumed_epoch": 2,
+                "resumed_delta": saved_delta} | served
+
+    trainer, cfg, rec = train_main_path(
+        torch, device, train_cli, checkpoint, PLC_ARGV, counters,
+        dict.fromkeys(counters, 0), "plc-train", then,
+        files=("plc_labels.npy",), trainer_cls=PLCTrainer)
+    last = rec["epoch"]
+    check("corrected" in last and "delta" in last
+          and len(trainer.corrections_per_epoch) == 1,
+          f"plc: no correction record in {last}")
+    check((cfg.plc.correction, cfg.data.num_classes, cfg.optim.lr,
+           cfg.optim.milestones) == ("lrt", 14, 0.01, (10, 20)),
+          "plc: not the preset")
+    rec["corrections_per_epoch"] = trainer.corrections_per_epoch
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def plc_noise_and_timing(torch, device, train_cli, card: str) -> dict:
+    """Phase 26's second half. The η probe (`eta_approximation`) fit on the
+    card on (512, 2048) features from the seed with 14 classes, against
+    the same fit on the CPU from the same init (PLC_ETA_TOL); a PLCTrainer
+    with type-1 noise injected from the card's η: its count and labels
+    equal the CPU's `label_noise` on that η bitwise. Then the timings: the
+    ordered pass's step at the preset's batch (device ms a batch, wall ms,
+    images/s) and the whole pass over the set through the loader; the
+    probe fit; the host ms of `lrt_correction` (and the softmax before
+    it) and of `prob_correction` on (PLC_HOST_ROWS, 14) f32 logits."""
+    from ddp_classification_pytorch_tpu_torch.data.synthetic import (
+        SyntheticDataset,
+    )
+    from ddp_classification_pytorch_tpu_torch.ops import labelnoise as ln
+    from ddp_classification_pytorch_tpu_torch.train.plc_loop import PLCTrainer
+    from ddp_classification_pytorch_tpu_torch.train.steps import make_predict_step
+
+    rng = np.random.default_rng(26)
+    feats = rng.normal(size=(PLC_N, PLC_FEATURES)).astype(np.float32)
+    ys = rng.integers(0, PLC_CLASSES, PLC_N)
+    init = {k: v.numpy() for k, v in
+            ln.probe_init(PLC_FEATURES, PLC_CLASSES, 0, seed=77).items()}
+    fit = lambda dev: ln.eta_approximation(  # noqa: E731
+        feats, ys, PLC_CLASSES, device=dev, init=init)
+    eta_card = fit(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eta_card = fit(device)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    eta_cpu = fit(torch.device("cpu"))
+    fit_cpu_ms = (time.perf_counter() - t0) * 1e3
+    eta_err = float(np.abs(eta_card - eta_cpu).max())
+    check(eta_card.shape == (PLC_N, PLC_CLASSES) and eta_err <= PLC_ETA_TOL,
+          f"plc: η on the card off the CPU's by {eta_err}")
+    cfg = train_cli.config_from_args(train_cli.build_parser().parse_args(
+        PLC_ARGV + ["--out", tempfile.mkdtemp(prefix="chip_smoke_plc_")]))
+    cfg.plc.noise_type, cfg.run.write_records = 1, False
+    try:
+        tr = PLCTrainer(cfg, device, eta=eta_card)
+        clean = SyntheticDataset(PLC_N, 224, PLC_CLASSES,
+                                 seed=cfg.run.seed).labels
+        want, _, count = ln.label_noise(clean, eta_card, 1, cfg.plc.noise_factor,
+                                        np.random.default_rng(cfg.run.seed))
+        check(tr.injected == count > 0 and np.array_equal(
+            tr.train_ds.labels, want), f"plc: injected {tr.injected}, the "
+            f"CPU's label_noise {count}")
+        # the ordered pass at the preset's batch: one resident batch, then
+        # the whole set through the loader and the prefetcher
+        tr.cfg.data.batch_size = PLC_STEP_BATCH
+        step = make_predict_step(tr.cfg)
+        imgs = torch.from_numpy(rng.integers(
+            0, 256, (PLC_STEP_BATCH, 224, 224, 3), dtype=np.uint8)).to(device)
+        one = lambda: step(tr.state, imgs)  # noqa: E731
+        wall = host_ms(torch, one)
+        label = "plc ordered pass, one batch"
+        with DeviceTimer(torch) as timer:
+            timer.run(label, one, reps=STEP_REPS)
+        res = timer.results()
+        check(res[label][1] is not None,
+              "torch.profiler recorded no kernel of the ordered pass")
+        dev = res[label][0]
+        tr.predict_train_logits()  # the loader's first pass, untimed
+        t0 = time.perf_counter()
+        tr.predict_train_logits()
+        whole_s = time.perf_counter() - t0
+        injected = tr.injected
+        del tr
+    finally:
+        shutil.rmtree(cfg.run.out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    logits = np.random.default_rng(27).normal(
+        0, 2, (PLC_HOST_ROWS, PLC_CLASSES)).astype(np.float32)
+    labels = np.random.default_rng(28).integers(0, PLC_CLASSES, PLC_HOST_ROWS)
+
+    def softmax():
+        z = logits - logits.max(axis=1, keepdims=True)
+        p = np.exp(z)
+        p /= p.sum(axis=1, keepdims=True)
+        return p
+
+    def host(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    p = softmax()
+    rec = {"eta_max_abs_err": eta_err, "eta_fit_card_ms": fit_ms,
+           "eta_fit_cpu_ms": fit_cpu_ms, "injected": injected,
+           "injected_equals_cpu": True,
+           "ordered_pass_batch": PLC_STEP_BATCH,
+           "ordered_pass_device_ms": dev, "ordered_pass_wall_ms": wall,
+           "ordered_pass_device_busy": dev / wall,
+           "ordered_pass_images_per_s": PLC_STEP_BATCH / wall * 1e3,
+           "ordered_pass_launches": len(res[label][1]) / STEP_REPS,
+           "whole_pass_images": PLC_N, "whole_pass_s": whole_s,
+           "whole_pass_images_per_s": PLC_N / whole_s,
+           "host_rows": PLC_HOST_ROWS,
+           "host_softmax_ms": host(softmax),
+           "host_lrt_correction_ms": host(
+               lambda: ln.lrt_correction(labels, p, 0.3, 0.1)),
+           "host_prob_correction_ms": host(
+               lambda: ln.prob_correction(labels, logits,
+                                          np.random.default_rng(0))),
+           "profiler": timer.record()}
+    log(f"[timing] {card}: plc ordered pass and corrections: "
+        f"{json.dumps(rec)}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2759,17 +3000,29 @@ def main() -> int:
             torch, device, train_cli, workload, card)
     report["heads"] = heads_rec
 
+    # --------------------------------------------- 26. the PLC workload --
+    # no TPU kernel here either (PLC is numpy on the host, one eval
+    # forward and a probe MLP in the JAX package), so every count stays 0
+    t0 = time.perf_counter()
+    plc_rec = plc_main_path(torch, device, train_cli, serve_cli, checkpoint,
+                            fused_abn, k1, counters)
+    plc_rec["noise_and_timing"] = plc_noise_and_timing(torch, device,
+                                                       train_cli, card)
+    plc_rec["phase_s"] = time.perf_counter() - t0
+    log(f"[plc] phase 26 took {plc_rec['phase_s']:.1f} s")
+    report["plc"] = plc_rec
+
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
-    # ------------------------------------------------------ 26. summary --
-    # the ResNet-50 path (phase 20) and the ArcFace, CDR and Nested paths
-    # (phases 23-25) launch none of these kernels
+    # ------------------------------------------------------ 27. summary --
+    # the ResNet-50 path (phase 20) and the ArcFace, CDR, Nested and PLC
+    # paths (phases 23-26) launch none of these kernels
     def head_launches(kind):
-        return {f"{w}_path_launches": heads_rec[w]["launches"][kind]
-                for w in heads_rec}
+        return {f"{w}_path_launches": r["launches"][kind]
+                for w, r in (heads_rec | {"plc": plc_rec}).items()}
 
     log(json.dumps({"kernels": [{
         "name": "fused_bn_leaky_relu",

@@ -1,8 +1,9 @@
 """`train` entry point of the port — the JAX train CLI's flags for the
-paths ported so far (the baseline, arcface, cdr and nested workloads on
-the ResNets over any number of cards; the baseline on TResNet-M and the
-ViT family on one; on synthetic data, image folders and CIFAR pickles,
-with resume), on the card.
+paths ported so far (the five reference workloads — baseline, arcface,
+cdr, nested and plc — on the ResNets over any number of cards; the
+baseline on TResNet-M and the ViT family on one; on synthetic data, image
+folders, CIFAR pickles and PLC's annotation datasets, with resume), on
+the card.
 
     torchrun --nproc_per_node 4 -m ddp_classification_pytorch_tpu_torch.cli.train \
         baseline --dataset imagefolder --train_dir T --val_dir V \
@@ -21,6 +22,10 @@ with resume), on the card.
         --flash_attention --batchsize 32 --epochs 1 --out runs/vit
     python -m ddp_classification_pytorch_tpu_torch.cli.train arcface \
         --dataset synthetic --model resnet50 --out runs/arc   # or cdr, nested
+    python -m ddp_classification_pytorch_tpu_torch.cli.train cdr \
+        --folder D --out runs/cdr        # the cdr transform, item route
+    python -m ddp_classification_pytorch_tpu_torch.cli.train plc \
+        --dataset plc --train_dir C1M --out runs/plc  # Clothing1M layout
 
 Under torchrun each process drives the card `LOCAL_RANK` names and joins
 the process group over NCCL (gloo with `--device cpu`); `--batchsize` is
@@ -30,15 +35,16 @@ and writes the records and checkpoints. A plain `python -m` run is the
 same path with no process group. A ResNet or TResNet-M checkpoint it
 writes (`<out>/ckpt_e<N>.pt`, the whole train state) is what
 `cli/serve.py --ckpt` serves (`cli/serve.py arcface` / `nested` for those
-heads; a cdr checkpoint is a plain fc model).
+heads; a cdr or plc checkpoint is a plain fc model). A plc run also
+writes `plc_labels.npy` and δ (`meta.json`'s `plc_delta`), which resume
+restores.
 
 Exit codes, as the JAX CLI's:
 
-- **rc 2**: config errors — an unported workload (plc), dataset, preset,
-  arch or option (`--sharded_ce`, a head on an arch other than the
+- **rc 2**: config errors — an unported dataset, preset, arch or option (`--sharded_ce`, a head on an arch other than the
   ResNets, `--head_lr` on a model without a margin head), a flag this CLI does not take (argparse), bad values, a
   missing data directory, a `--resume` file that fails its sha256, a
-  native dataplane that does not build on this machine, `--dp` other
+  native dataplane (or its decoder) that does not build on this machine, `--dp` other
   than the world size, TResNet-M over more than one rank;
 - **rc 3**: no CUDA device and `--device cpu` not asked for (it never
   carries on on the CPU);
@@ -62,8 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
                     "ResNet, TResNet-M and ViT on synthetic data, image "
                     "folders and CIFAR; torchrun for data parallelism)")
     p.add_argument("workload", choices=["baseline", "arcface", "cdr", "nested", "plc"],
-                   help="which reference silo's recipe to run (ported: "
-                        "baseline, arcface, cdr, nested)")
+                   help="which reference silo's recipe to run")
 
     d = p.add_argument_group("data")
     d.add_argument("--folder", "-f", default="", help="dataset root holding "
@@ -73,8 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--val_dir", default="",
                    help="explicit val dir (overrides --folder)")
     d.add_argument("--dataset", default="",
-                   help="imagefolder | synthetic | cifar10 | cifar100 "
-                        "(plc is not ported)")
+                   help="imagefolder | synthetic | plc | cifar10 | cifar100")
     d.add_argument("--synthetic_size", type=int, default=0,
                    help="train-set size for --dataset synthetic (default 512)")
     d.add_argument("--batchsize", "-b", type=int, default=0)
@@ -92,7 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference's RandomResizedCrop(256))")
     d.add_argument("--transform", default="",
                    help="transform preset for image folders: baseline | "
-                        "clothing1m (cdr and cifar are not ported for folders)")
+                        "clothing1m (the native dataplane) | cdr | cifar "
+                        "(decode and numpy transform per item)")
     d.add_argument("--input_dtype", default="", choices=["", "uint8", "float32"],
                    help="H2D wire format (default uint8: raw pixels, "
                         "normalized on the device)")
@@ -159,6 +164,23 @@ def build_parser() -> argparse.ArgumentParser:
     n.add_argument("--resumePth", default="",
                    help="alias of --resume (NESTED/train.py:481)")
 
+    pl = p.add_argument_group("plc")
+    pl.add_argument("--correction", default="", choices=["", "lrt", "prob"],
+                    help="label-correction method (PLC/utils.py:291,321)")
+    pl.add_argument("--delta", type=float, default=-1.0, help="initial θ threshold")
+    pl.add_argument("--delta_increment", type=float, default=-1.0, help="β step")
+    pl.add_argument("--thd", type=float, default=-1.0, help="prob-correction confidence")
+    pl.add_argument("--plc_warmup_epochs", type=int, default=-1)
+    pl.add_argument("--plc_max_flip_frac", type=float, default=-1.0,
+                    help="cap the label fraction one correction pass may "
+                         "flip, keeping the most-confident flips (1.0 = "
+                         "uncapped reference semantics)")
+    pl.add_argument("--plc_batch_stat_predictions", action="store_true",
+                    help="harvest correction f(x) with each batch's own BN "
+                         "statistics (the reference's during-training "
+                         "flavor, PLC/utils.py:269-271); unsafe on the "
+                         "class-sorted ordered scan")
+
     par = p.add_argument_group("parallelism")
     par.add_argument("--dp", type=int, default=0,
                      help="data-parallel width; must equal the world size "
@@ -188,10 +210,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
-    if args.workload == "plc":
-        raise ValueError("workload 'plc' not yet ported to training in the "
-                         "torch package (ported: baseline, arcface, cdr, "
-                         "nested; ROADMAP.md)")
     if args.sharded_ce:
         raise ValueError("--sharded_ce (the partial-FC ArcFace CE over a "
                          "model axis) is not ported: the port has no model "
@@ -286,6 +304,21 @@ def config_from_args(args: argparse.Namespace) -> Config:
     if args.live_clip_schedule:
         cfg.optim.cdr_dead_schedule = False
 
+    if args.correction:
+        cfg.plc.correction = args.correction
+    if args.delta >= 0:
+        cfg.plc.current_delta = args.delta
+    if args.delta_increment >= 0:
+        cfg.plc.delta_increment = args.delta_increment
+    if args.thd >= 0:
+        cfg.plc.thd = args.thd
+    if args.plc_warmup_epochs >= 0:
+        cfg.plc.warmup_epochs = args.plc_warmup_epochs
+    if args.plc_max_flip_frac >= 0:
+        cfg.plc.max_flip_frac = args.plc_max_flip_frac
+    if args.plc_batch_stat_predictions:
+        cfg.plc.batch_stat_predictions = True
+
     if args.epochs:
         cfg.run.epochs = args.epochs
     if args.seed >= 0:
@@ -313,6 +346,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from ..data.native import DataplaneUnavailable
     from ..parallel import ddp
     from ..train.loop import Trainer
+    from ..train.plc_loop import PLCTrainer
     from ..train.sentinel import SentinelDiverged
     from ..utils.backend_probe import BackendUnavailable, resolve_device
 
@@ -331,7 +365,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     # every way out, the rc 2 and rc 8 exits included
     with ddp.process_group(device) as device:
         try:
-            trainer = Trainer(cfg, device)
+            trainer_cls = PLCTrainer if cfg.workload == "plc" else Trainer
+            trainer = trainer_cls(cfg, device)
         except (ValueError, FileNotFoundError) as e:  # an unported arch,
             # head, dataset or option, a missing data dir, a bad --resume,
             # --dp off the world size: deterministic

@@ -124,6 +124,32 @@ class ParallelConfig:
 
 
 @dataclass
+class PLCConfig:
+    """Progressive label correction (the PLC workload, `train/plc_loop.py`;
+    the JAX `PLCConfig`, field for field): `ops/labelnoise.py`'s
+    corrections applied to the train labels after `warmup_epochs`."""
+
+    correction: str = "lrt"  # lrt | prob
+    current_delta: float = 0.3  # PLC/utils.py:291 θ
+    delta_increment: float = 0.1  # β
+    thd: float = 0.1  # prob_correction confidence threshold (:321)
+    warmup_epochs: int = 2  # epochs of plain training before correction starts
+    # collect f(x) with the prediction batch's own BN statistics (as the
+    # reference harvests softmax during training, utils.py:269-271) rather
+    # than the running averages. Off by default: the ordered correction
+    # scan is class-sorted, so each prediction batch is nearly single-class
+    # and its batch statistics skew the normalization
+    batch_stat_predictions: bool = False
+    # synthetic-noise injection for experiments (utils.py:149-220); -1 = off
+    noise_type: int = -1
+    noise_factor: float = 1.2
+    # cap the fraction of labels one correction pass may flip, keeping the
+    # most confident flips (correction on an immature model confirms
+    # itself); 1.0 = the uncapped reference semantics
+    max_flip_frac: float = 1.0
+
+
+@dataclass
 class RunConfig:
     epochs: int = 100  # NUM_EPOCH, BASELINE/main.py:87
     seed: int = 999  # set_seed(999), BASELINE/main.py:43-50
@@ -208,6 +234,7 @@ class Config:
     optim: OptimConfig = field(default_factory=OptimConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     run: RunConfig = field(default_factory=RunConfig)
+    plc: PLCConfig = field(default_factory=PLCConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
 
 
@@ -263,7 +290,9 @@ def nested_preset() -> Config:
 
 
 def plc_preset() -> Config:
-    """PLC correction training on Clothing1M-scale data (14 classes)."""
+    """PLC correction training on Clothing1M-scale data: ResNet-50, batch
+    128, 14 classes, LRT correction after 2 warmup epochs, SGD 0.01,
+    MultiStepLR([10, 20]), 30 epochs."""
     cfg = Config(workload="plc")
     cfg.data.batch_size = 128
     cfg.data.num_classes = 14  # Clothing1M

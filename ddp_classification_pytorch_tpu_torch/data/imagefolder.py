@@ -6,9 +6,12 @@ CDR/main.py:69-94): class directories under `root`, label = sorted class
 index, images capped per class, optionally only the first `max_classes`
 class dirs. The scan runs once, in sorted order.
 
-In the port the dataset carries paths and labels only: the native
-dataplane (`data/native.py::NativeBatcher`) is its one reader, since the
-port imports no PIL to decode a single item with.
+The dataset carries paths, labels and a `Transform`. The baseline and
+clothing1m kinds are read a whole batch at a time by the native dataplane
+(`data/native.py::NativeBatcher`); the others (cdr, cifar) take the item
+route, as the JAX package's do: `__getitem__` decodes one file with
+`data/native.py::decode_image` (the port imports no PIL) and applies the
+transform.
 """
 
 from __future__ import annotations
@@ -16,9 +19,11 @@ from __future__ import annotations
 import dataclasses
 import glob
 import os
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .transforms import Transform
 
 # what the JAX scan lists; the dataplane decodes JPEG and PNG, and names a
 # BMP or WebP file it cannot decode (ROADMAP.md)
@@ -50,20 +55,31 @@ def scan_image_folder(root: str, imgs_per_class: int = 0,
 
 @dataclasses.dataclass
 class ImageFolderDataset:
-    """Paths and labels of a scanned folder, for the native batcher."""
+    """Paths and labels of a scanned folder: batches from the native
+    batcher, or items through `transform`."""
 
     paths: Sequence[str]
     labels: np.ndarray
     class_names: Sequence[str]
+    transform: Optional[Transform] = None
 
     @classmethod
     def from_root(cls, root: str, imgs_per_class: int = 0,
-                  max_classes: int = 0) -> "ImageFolderDataset":
+                  max_classes: int = 0,
+                  transform: Optional[Transform] = None
+                  ) -> "ImageFolderDataset":
         paths, labels, names = scan_image_folder(root, imgs_per_class,
                                                  max_classes)
         if not paths:
             raise FileNotFoundError(f"no class dirs with images under {root!r}")
-        return cls(paths, np.asarray(labels, np.int32), names)
+        return cls(paths, np.asarray(labels, np.int32), names, transform)
+
+    def __getitem__(self, i: int, rng: Optional[np.random.Generator] = None):
+        """(transformed image, label) of one file, decoded natively."""
+        from .native import decode_image
+
+        rng = rng or np.random.default_rng()
+        return self.transform(decode_image(self.paths[i]), rng), int(self.labels[i])
 
     def __len__(self) -> int:
         return len(self.paths)

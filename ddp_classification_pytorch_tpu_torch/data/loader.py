@@ -50,7 +50,7 @@ class Loader:
     """Iterates (images, labels) numpy batches: images keep the dataset's
     dtype (uint8 on the default wire), labels int32. `dataset` supports
     `__len__` and, without a `batcher`, `__getitem__(i, rng)` → (HWC
-    image, int label). `batcher(indices, epoch, batch_idx)` → (images,
+    image, int label[, index]). `batcher(indices, epoch, batch_idx)` → (images,
     labels) replaces the per-item path (`data/native.py`). `host_id` and
     `num_hosts` are this process's rank and the world size: the loader
     yields that rank's shard."""
@@ -123,8 +123,10 @@ class Loader:
             items = list(self._pool.map(load, enumerate(indices)))
         else:
             items = [load(ji) for ji in enumerate(indices)]
-        images = np.stack([im for im, _ in items])
-        labels = np.asarray([lb for _, lb in items], np.int32)
+        # an item may carry its index after the label (the PLC dataset's
+        # (image, label, index)); the loader knows the index already
+        images = np.stack([it[0] for it in items])
+        labels = np.asarray([it[1] for it in items], np.int32)
         return images, labels
 
     def _batches(self) -> Tuple[np.ndarray, int]:

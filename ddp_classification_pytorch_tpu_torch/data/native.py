@@ -21,6 +21,12 @@ The port imports no PIL, so this is its only decoder:
   does not say which. Where the JAX binding retries such slots through
   PIL, `NativeBatcher` raises `DataplaneDecodeError` naming the file
   (`dp_probe_image` tells a broken file from a black image).
+
+`decode_image` is the item route's decoder (the JAX package's
+`Image.open(...).convert("RGB")`): a second library, built the same way
+from `data/csrc/decode.cpp`, which includes `native/dataplane.cpp`
+unchanged and exports its decoder alone. A failed build of it is the
+same `DataplaneUnavailable`; there is no PIL fallback.
 """
 
 from __future__ import annotations
@@ -40,7 +46,9 @@ from .transforms import IMAGENET_MEAN, IMAGENET_STD, build_transform
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SOURCE = os.path.join(_REPO, "native", "dataplane.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+DECODE_SOURCE = os.path.join(_HERE, "csrc", "decode.cpp")
+BUILD_DIR = os.path.join(_HERE, "build")
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 # full build first, then JPEG-only (PNGs then fail their slot, loudly)
 LINK_VARIANTS = (("-ljpeg", "-lpng", "-lpthread"),
@@ -63,9 +71,21 @@ def library_path(variant: Sequence[str]) -> str:
     return os.path.join(BUILD_DIR, f"libdataplane-{h.hexdigest()[:16]}.so")
 
 
-def _compile(variant: Sequence[str]) -> Tuple[Optional[str], str]:
+def decoder_path(variant: Sequence[str]) -> str:
+    """Where the decoder's build with these link flags lives (named by
+    both sources: the decoder includes the dataplane's)."""
+    h = hashlib.sha256(" ".join((*CXX_FLAGS, "-I", *variant)).encode())
+    for path in (DECODE_SOURCE, SOURCE):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libdecode-{h.hexdigest()[:16]}.so")
+
+
+def _compile(variant: Sequence[str], out: Optional[str] = None,
+             source: str = SOURCE, extra: Sequence[str] = ()
+             ) -> Tuple[Optional[str], str]:
     """(library path, "") on success, (None, compiler output) on failure."""
-    out = library_path(variant)
+    out = out or library_path(variant)
     if os.path.isfile(out):
         return out, ""
     gxx = shutil.which("g++")
@@ -73,7 +93,7 @@ def _compile(variant: Sequence[str]) -> Tuple[Optional[str], str]:
         return None, "g++ not found on PATH"
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [gxx, *CXX_FLAGS, "-o", tmp, SOURCE, *variant]
+    cmd = [gxx, *CXX_FLAGS, *extra, "-o", tmp, source, *variant]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         if os.path.exists(tmp):
@@ -109,6 +129,25 @@ def probe_toolchain() -> Dict[str, object]:
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_decoder: Optional[ctypes.CDLL] = None
+
+
+def _build_and_load(what: str, build) -> ctypes.CDLL:
+    """The first of `LINK_VARIANTS` that `build(variant)` compiles and that
+    loads; `DataplaneUnavailable` naming `what` when none does."""
+    errors: List[str] = []
+    for variant in LINK_VARIANTS:
+        path, err = build(variant)
+        if path is not None:
+            try:  # a build copied from another machine may not load
+                return ctypes.CDLL(path)
+            except OSError as e:
+                err = f"{path} does not load: {e}"
+        errors.append(err)
+    missing = ", ".join(k for k, v in probe_toolchain().items() if not v)
+    raise DataplaneUnavailable(
+        f"{what} does not build on this machine (missing: "
+        f"{missing or 'nothing probed'}):\n" + "\n".join(errors))
 
 
 def get_lib() -> ctypes.CDLL:
@@ -118,23 +157,8 @@ def get_lib() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        errors: List[str] = []
-        for variant in LINK_VARIANTS:
-            path, err = _compile(variant)
-            if path is not None:
-                try:  # a build copied from another machine may not load
-                    lib = ctypes.CDLL(path)
-                    break
-                except OSError as e:
-                    err = f"{path} does not load: {e}"
-            errors.append(err)
-        else:
-            missing = ", ".join(
-                k for k, v in probe_toolchain().items() if not v)
-            raise DataplaneUnavailable(
-                "the native dataplane (native/dataplane.cpp) does not build "
-                f"on this machine (missing: {missing or 'nothing probed'}):\n"
-                + "\n".join(errors))
+        lib = _build_and_load("the native dataplane (native/dataplane.cpp)",
+                              _compile)
         lib.dp_has_png.restype = ctypes.c_int
         lib.dp_has_png.argtypes = []
         lib.dp_probe_image.restype = ctypes.c_int
@@ -151,6 +175,44 @@ def get_lib() -> ctypes.CDLL:
         ]
         _lib = lib
         return lib
+
+
+def get_decoder() -> ctypes.CDLL:
+    """The loaded decoder (`data/csrc/decode.cpp`), building it on first
+    use; raises `DataplaneUnavailable` when no build succeeds."""
+    global _decoder
+    with _lock:
+        if _decoder is not None:
+            return _decoder
+        lib = _build_and_load(
+            "the decoder (data/csrc/decode.cpp with native/dataplane.cpp)",
+            lambda v: _compile(v, decoder_path(v), DECODE_SOURCE,
+                               ("-I", _REPO)))
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.dpx_decode.restype = ctypes.c_int
+        lib.dpx_decode.argtypes = [ctypes.c_char_p, ctypes.POINTER(u8p),
+                                   ctypes.POINTER(ctypes.c_int),
+                                   ctypes.POINTER(ctypes.c_int)]
+        lib.dpx_free.restype = None
+        lib.dpx_free.argtypes = [u8p]
+        _decoder = lib
+        return lib
+
+
+def decode_image(path: str) -> np.ndarray:
+    """The file at `path` as (H, W, 3) uint8 RGB (JPEG, or PNG where
+    libpng was there to build with); `DataplaneDecodeError` naming the
+    file when it does not decode."""
+    lib = get_decoder()
+    buf = ctypes.POINTER(ctypes.c_uint8)()
+    w, h = ctypes.c_int(), ctypes.c_int()
+    if lib.dpx_decode(os.fsencode(path), ctypes.byref(buf), ctypes.byref(w),
+                      ctypes.byref(h)) != 0:
+        raise DataplaneDecodeError(f"the decoder could not decode {path}")
+    try:
+        return np.ctypeslib.as_array(buf, shape=(h.value, w.value, 3)).copy()
+    finally:
+        lib.dpx_free(buf)
 
 
 def probe_image(path: str) -> Optional[Tuple[int, int]]:

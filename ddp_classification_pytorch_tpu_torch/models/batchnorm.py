@@ -3,7 +3,8 @@ ranks — the BatchNorm of the JAX package's `models/resnet.py:136-141`
 (flax 0.12.3, momentum 0.9, epsilon 1e-5, `axis_name` for the data axis)
 and of TResNet's identity ABNs (`models/tresnet.py:63-67` there).
 
-Training mode computes f32 batch statistics as flax does:
+Training mode computes f32 batch statistics as flax does (f64 ones in an
+f64 net, as flax's promotion gives):
 mean = E[x], var = max(E[x²] − E[x]², 0), and y = (x − mean)·(rsqrt(var +
 eps)·γ) + β in f32, written in x's dtype. The running statistics take
 ra = 0.9·ra + 0.1·batch with the *biased* batch variance (torch's
@@ -90,7 +91,8 @@ class BatchNorm(nn.Module):
         if self.frozen or not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        xf = x.float()
+        # f32 math for the 16- and 32-bit dtypes; an f64 net keeps f64
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = xf.mean(dim=(0, 2, 3))
         mean2 = (xf * xf).mean(dim=(0, 2, 3))
         if self.synced():

@@ -12,10 +12,13 @@ image folders and CIFAR pickles; `cli/serve.py --ckpt` serves the conv
 nets' checkpoints. The nested head's eval is the all-K sweep
 (`nested_eval`: `val_top1` at the best K, `val_top3` there, `best_k`).
 
-Not ported yet (ROADMAP.md): PLC data, the `cdr` rotation and the
-`cifar` preset on image folders (PIL's geometric ops), async checkpoints,
-`h2d_overlap`, the profiler window, the pod fleet, chaos hooks and the
-compile sentinel.
+Image folders of the `cdr` and `cifar` kinds, and PLC's annotation
+datasets, take the item route (`data/native.py::decode_image` and the
+numpy `Transform` on the loader's threads), the JAX package's PIL route.
+The PLC workload's trainer is `train/plc_loop.py::PLCTrainer`.
+
+Not ported yet (ROADMAP.md): async checkpoints, `h2d_overlap`, the
+profiler window, the pod fleet, chaos hooks and the compile sentinel.
 """
 
 from __future__ import annotations
@@ -45,8 +48,8 @@ from .steps import make_eval_step, make_nested_eval_step, make_train_step
 
 def build_datasets(cfg: Config) -> Tuple[Any, Any]:
     """(train_ds, val_ds): the JAX package's (`loop.py:88-147`) for
-    synthetic data, image folders (paths for the native dataplane) and
-    CIFAR pickles. What is not ported is a ValueError (rc 2)."""
+    synthetic data, image folders, CIFAR pickles and PLC's annotation
+    datasets. A dataset kind it does not know is a ValueError (rc 2)."""
     d = cfg.data
     if d.input_dtype not in INPUT_DTYPES:
         raise ValueError(
@@ -62,30 +65,31 @@ def build_datasets(cfg: Config) -> Tuple[Any, Any]:
     preset = preset_for_dataset(d.dataset, d.transform)
     if preset is None:
         raise ValueError(f"unknown dataset {d.dataset!r}")
-    if d.dataset == "plc":
-        raise ValueError("dataset 'plc' not yet ported to the torch package "
-                         "(ported: synthetic, imagefolder, cifar10, "
-                         "cifar100; ROADMAP.md)")
     if not d.train_dir:
         raise ValueError(f"dataset {d.dataset!r} needs --train_dir (or "
                          "--folder)")
-    if d.dataset == "imagefolder":
-        if preset not in native.NativeBatcher.SUPPORTED:
-            raise ValueError(
-                f"transform {preset!r} on image folders is not yet ported to "
-                "the torch package: the port decodes folders with the native "
-                f"dataplane only, which runs "
-                f"{', '.join(native.NativeBatcher.SUPPORTED)} (ROADMAP.md)")
-        train = ImageFolderDataset.from_root(d.train_dir, d.imgs_per_class,
-                                             d.max_classes)
-        val = ImageFolderDataset.from_root(d.val_dir or d.train_dir,
-                                           d.imgs_per_class, d.max_classes)
-        return train, val
-    from ..data.cifar import CIFARDataset
-
     t_train, t_val = (build_transform(preset, train, d.image_size,
                                       d.train_crop_size, d.input_dtype)
                       for train in (True, False))
+    if d.dataset == "imagefolder":
+        train = ImageFolderDataset.from_root(d.train_dir, d.imgs_per_class,
+                                             d.max_classes, t_train)
+        val = ImageFolderDataset.from_root(d.val_dir or d.train_dir,
+                                           d.imgs_per_class, d.max_classes,
+                                           t_val)
+        return train, val
+    if d.dataset == "plc":
+        # Clothing1M's annotation layout (PLC/FolderDataset.py:9-75): the
+        # dirs are data roots holding annotations/ with the key lists
+        from ..data.plc import PLCDataset
+
+        train = PLCDataset.from_annotations(d.train_dir, "train", t_train,
+                                            cls_size=d.imgs_per_class or 0)
+        val = PLCDataset.from_annotations(d.val_dir or d.train_dir, "val",
+                                          t_val)
+        return train, val
+    from ..data.cifar import CIFARDataset
+
     train = CIFARDataset(d.train_dir, True, t_train, kind=d.dataset)
     val = CIFARDataset(d.val_dir or d.train_dir, False, t_val, kind=d.dataset)
     if d.num_classes != train.num_classes:
@@ -98,13 +102,23 @@ def build_datasets(cfg: Config) -> Tuple[Any, Any]:
 
 def make_native_batcher(ds, cfg: Config, train: bool
                         ) -> Optional[native.NativeBatcher]:
-    """The dataplane's batcher for an image folder (None for other data)."""
+    """The dataplane's batcher for an image folder whose transform it runs
+    (baseline, clothing1m); None for other data, which takes the item
+    route (JAX `make_native_batcher`)."""
     d = cfg.data
-    if not isinstance(ds, ImageFolderDataset):
+    if (not isinstance(ds, ImageFolderDataset)
+            or d.transform not in native.NativeBatcher.SUPPORTED):
         return None
     return native.NativeBatcher(ds, d.transform, train, d.image_size,
                                 d.train_crop_size, cfg.run.seed,
                                 d.num_workers, out_dtype=d.input_dtype)
+
+
+def decodes_items(ds) -> bool:
+    """Whether the dataset's items decode files (`decode_image`)."""
+    from ..data.plc import PLCDataset
+
+    return isinstance(ds, (ImageFolderDataset, PLCDataset))
 
 
 def _sum_into(totals: Optional[Dict[str, torch.Tensor]],
@@ -169,20 +183,32 @@ def nested_eval(state, eval_step, batches) -> Dict[str, float]:
 
 
 class Trainer:
-    def __init__(self, cfg: Config, device: torch.device):
+    """`train_ds` / `val_ds` replace `build_datasets(cfg)` (as the JAX
+    Trainer takes them)."""
+
+    def __init__(self, cfg: Config, device: torch.device,
+                 train_ds: Any = None, val_ds: Any = None):
         device = ddp.local_device(device)
         self.cfg, self.device = cfg, device
         world, primary = ddp.world_size(), ddp.is_primary()
         check_world(cfg, world)
         self.obs = Registry()
         self.sentinel = StepSentinel(cfg.run.max_bad_steps, registry=self.obs)
-        self.train_ds, self.val_ds = build_datasets(cfg)
+        if train_ds is None:
+            train_ds, val_ds = build_datasets(cfg)
+        self.train_ds, self.val_ds = train_ds, val_ds
         train_batcher = make_native_batcher(self.train_ds, cfg, train=True)
         val_batcher = make_native_batcher(self.val_ds, cfg, train=False)
         self.native_dataplane = train_batcher is not None
+        # build now: DataplaneUnavailable is rc 2, never a fallback
         if self.native_dataplane:
-            native.get_lib()  # build now: DataplaneUnavailable is rc 2
+            native.get_lib()
             host0_print("[trainer] native C++ dataplane active")
+        elif decodes_items(self.train_ds):
+            native.get_decoder()
+            preset = preset_for_dataset(cfg.data.dataset, cfg.data.transform)
+            host0_print(f"[trainer] native decoder active (item route, "
+                        f"transform {preset})")
         d = cfg.data
         shard = dict(host_id=ddp.rank(), num_hosts=world)
         self.train_loader = Loader(

@@ -1,7 +1,8 @@
 """Step functions of the port — the JAX package's `train/steps.py` for
 serving (the uint8 input epilogue, the top-k predict) and for training
 (`make_train_step`, `make_eval_step`, `make_nested_eval_step`), for the
-heads fc, arcface and nested and the CDR gradient transform.
+heads fc, arcface and nested and the CDR gradient transform, and PLC's
+ordered f(x) pass (`make_predict_step`).
 
 PyTorch runs eagerly, so a "step" here is a plain function over the state
 and device tensors; there is nothing to trace or compile.
@@ -261,6 +262,42 @@ def make_eval_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
                     "top1": (topk_hits(logits, labels, 1) * valid).sum(),
                     "top3": (topk_hits(logits, labels, 3) * valid).sum(),
                     "n": valid.sum()}
+
+    return step
+
+
+def make_predict_step(cfg: Config, batch_stat_mode: bool = False
+                      ) -> Callable[["TrainState", torch.Tensor], torch.Tensor]:
+    """`(state, images (B, H, W, 3)) -> (B, C) logits`: the PLC correction
+    pass's f(x) over the train set (JAX `make_predict_step`,
+    `steps.py:774-804`).
+
+    The uint8 epilogue without a flip, then the model's forward with no
+    labels and no mask (the heads' scores, as in eval). By default eval
+    mode, on the running statistics. `batch_stat_mode` normalizes with
+    the prediction batch's own statistics, as the reference harvests its
+    softmax during training (PLC/utils.py:269-271): training mode, under
+    a process group the global batch's statistics (`models/batchnorm.py`,
+    flax's mutable batch_stats under the mesh), and the running buffers
+    are put back afterwards (JAX discards the mutation). It is safe only
+    on shuffled batches: the ordered scan is class-sorted, so each batch
+    is nearly single-class."""
+    consts: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def step(state: "TrainState", images: torch.Tensor) -> torch.Tensor:
+        model = state.model
+        with torch.no_grad():
+            x = device_input_epilogue(images.permute(0, 3, 1, 2),
+                                      *_cached_consts(consts, images.device))
+            if not batch_stat_mode:
+                return model.eval()(x)
+            buffers = list(model.buffers())
+            kept = torch._foreach_mul(buffers, 1.0) if buffers else []
+            try:
+                return model.train()(x)
+            finally:
+                if buffers:
+                    torch._foreach_copy_(buffers, kept)
 
     return step
 

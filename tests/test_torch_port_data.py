@@ -1,12 +1,19 @@
 """The port's data path against the JAX package, on the CPU: transforms,
 CIFAR, the folder scan, the native dataplane's batcher, the loader with
 worker threads, the device prefetcher, the train-time flip, and one train
-step of the reduced TResNet on a uint8 image batch with the flip.
+step of the reduced TResNet on a uint8 image batch with the flip; the
+item route that stands in for the JAX package's PIL route (the native
+decoder, PIL's BILINEAR resize and rotate in numpy, the four `Transform`
+kinds on decoded files, `cli/train.py cdr` and `--transform cifar` on
+folders).
 
 All bitwise, except the train step: there f32 with the tolerances of the
 TResNet slice's checks (loss 1e-5, grad norm 1e-2 relative, running
 statistics 1e-3 relative to their largest value), weights carried by
-`tresnet_from_jax`.
+`tresnet_from_jax`. The item route is bitwise on arrays PIL decoded; from
+the file (libjpeg here, PIL's decoder there) it is held to PIXELS: at
+most 2 grey levels apart on at least 99% of the pixel values (the two
+decoders may round an IDCT differently).
 """
 
 import copy
@@ -47,6 +54,16 @@ from ddp_classification_pytorch_tpu_torch.train.state import TrainState
 from torch_port_helpers import OPTIM, REDUCED, init_variables, randomize_bn
 
 CPU = torch.device("cpu")
+JPEGS = [f"tests/data/torch_port_jpeg/img{i}.jpg" for i in range(8)]
+PIXELS = dict(levels=2, share=0.99)
+
+
+def _assert_pixels_close(got, want, msg=""):
+    """Within PIXELS of each other (same shape and dtype)."""
+    assert got.shape == want.shape and got.dtype == want.dtype, msg
+    off = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    assert (off <= PIXELS["levels"]).mean() >= PIXELS["share"], (
+        msg, int(off.max()), float((off > 0).mean()))
 
 
 # -------------------------------------------------------------- transforms --
@@ -81,8 +98,81 @@ def test_normalize_and_presets_match_jax():
             b = jax_tf.build_transform(preset, train, 224, 256, "uint8")
             assert (a.kind, a.train, a.crop_size, a.out_size, a.out_dtype) == (
                 b.kind, b.train, b.crop_size, b.out_size, b.out_dtype)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tf.build_transform("cdr", True)(img, np.random.default_rng(0))
+    # every kind runs on a decoded array now (the cdr rotation included)
+    big = np.random.default_rng(2).integers(0, 256, (60, 80, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(
+        tf.build_transform("cdr", True, 32, 40)(big, np.random.default_rng(0)),
+        jax_tf.build_transform("cdr", True, 32, 40)(Image.fromarray(big),
+                                                    np.random.default_rng(0)))
+
+
+# ------------------------------------------- PIL's geometry, in numpy --
+
+@pytest.mark.parametrize("size,box", [
+    ((224, 224), None), ((256, 300), None), ((600, 500), None),
+    ((224, 224), (10, 20, 300, 260)), ((64, 64), (3.5, 2.25, 200.5, 170.75)),
+    ((500, 90), (0, 0, 375, 333))], ids=lambda v: str(v))
+def test_resize_matches_pil(size, box):
+    for path in JPEGS[:4]:
+        with Image.open(path) as im:
+            im = im.convert("RGB")
+            want = np.asarray(im.resize(size, Image.BILINEAR, box=box))
+            got = tf.resize(np.asarray(im), size, box)
+        np.testing.assert_array_equal(got, want, err_msg=path)
+        _assert_pixels_close(tf.resize(native.decode_image(path), size, box),
+                             want, path)
+
+
+@pytest.mark.parametrize("angle", [-14.3, 7.7, 0.01, 12.0])
+def test_rotate_matches_pil(angle):
+    for path in JPEGS[4:]:
+        with Image.open(path) as im:
+            im = im.convert("RGB")
+            want = np.asarray(im.rotate(angle, Image.BILINEAR))
+            np.testing.assert_array_equal(tf.rotate(np.asarray(im), angle),
+                                          want, err_msg=path)
+        _assert_pixels_close(tf.rotate(native.decode_image(path), angle),
+                             want, path)
+
+
+def test_random_resized_crop_boxes_are_bitwise_jax(monkeypatch):
+    """The same generator gives the JAX function's box (PIL's resize is
+    spied on) and the same pixels; the generators end in the same state."""
+    boxes = []
+    real = Image.Image.resize
+    monkeypatch.setattr(Image.Image, "resize", lambda self, size, resample,
+                        box=None: boxes.append(box) or real(self, size,
+                                                            resample, box=box))
+    for i, path in enumerate(JPEGS):
+        for scale in ((0.08, 1.0), (0.8, 1.0), (1.5, 2.0)):  # the last: fallback
+            with Image.open(path) as im:
+                im = im.convert("RGB")
+                r1, r2, r3 = (np.random.default_rng(i) for _ in range(3))
+                want = np.asarray(jax_tf.random_resized_crop(im, r1, 48, scale))
+                got = tf.random_resized_crop(np.asarray(im), r2, 48, scale)
+                assert tf.crop_box(im.width, im.height, r3, scale) == boxes[-1]
+            np.testing.assert_array_equal(got, want)
+            assert r1.random() == r2.random() == r3.random()
+
+
+@pytest.mark.parametrize("wire", ["uint8", "float32"])
+@pytest.mark.parametrize("kind", ["cdr", "cifar", "baseline", "clothing1m"])
+def test_item_route_transforms_match_jax_on_folders(tree, kind, wire):
+    """Folder items through each kind, train and eval, decoded natively,
+    against the JAX dataset's PIL route with the same generators."""
+    for train in (True, False):
+        mine = imagefolder.ImageFolderDataset.from_root(
+            str(tree / "train"), transform=tf.build_transform(kind, train, 32, 40, wire))
+        theirs = jax_folder.ImageFolderDataset.from_root(
+            str(tree / "train"), jax_tf.build_transform(kind, train, 32, 40, wire))
+        for i in range(len(mine)):
+            a, la = mine.__getitem__(i, np.random.default_rng(i))
+            b, lb = theirs.__getitem__(i, np.random.default_rng(i))
+            assert la == lb
+            if wire == "uint8":
+                _assert_pixels_close(a, b, (kind, train, i))
+            else:  # normalized: 2 levels of 255 over the smallest σ
+                np.testing.assert_allclose(a, b, atol=2 / 255 / 0.224 + 1e-6)
 
 
 # ------------------------------------------------------------------- CIFAR --
@@ -530,10 +620,13 @@ def test_build_datasets_for_folders_and_cifar(tree, tmp_path):
     assert (len(train), len(val), train.num_classes) == (18, 9, 3)
     assert isinstance(loop.make_native_batcher(train, cfg, True),
                       native.NativeBatcher)
-    for transform in ("cdr", "cifar"):  # PIL geometry on folders: rc 2
+    for transform in ("cdr", "cifar"):  # the item route: no batcher
         cfg.data.transform = transform
-        with pytest.raises(ValueError, match="not yet ported"):
-            loop.build_datasets(cfg)
+        train, val = loop.build_datasets(cfg)
+        assert loop.make_native_batcher(train, cfg, True) is None
+        assert (train.transform.kind, train.transform.train,
+                val.transform.train) == (transform, True, False)
+        assert loop.decodes_items(train)
     cfg = get_preset("baseline")
     cfg.data.dataset, cfg.data.num_classes = "cifar100", 100
     cfg.data.train_dir = _write_cifar(tmp_path, "cifar100",
@@ -541,6 +634,55 @@ def test_build_datasets_for_folders_and_cifar(tree, tmp_path):
     train, val = loop.build_datasets(cfg)
     assert (len(train), len(val)) == (12, 4)
     assert loop.make_native_batcher(train, cfg, True) is None
-    cfg.data.dataset = "plc"
-    with pytest.raises(ValueError, match="not yet ported"):
+    cfg.data.dataset = "plc"  # PLC's annotation layout: missing here
+    with pytest.raises(FileNotFoundError, match="annotations"):
         loop.build_datasets(cfg)
+
+
+def _small_tree(root, px=32):
+    """train/ and val/ of two classes of px × px JPEGs."""
+    rng = np.random.default_rng(12)
+    for split in ("train", "val"):
+        for cls in "ab":
+            (root / split / cls).mkdir(parents=True)
+            for i in range(3):
+                _jpeg(root / split / cls / f"{i}.jpg", rng, px, px)
+    return root
+
+
+@pytest.mark.parametrize("workload,extra", [
+    ("cdr", ["--image_size", "32", "--crop_size", "40"]),
+    ("baseline", ["--transform", "cifar", "--image_size", "32"])],
+    ids=["cdr", "cifar"])
+def test_cli_trains_on_folders_through_the_item_route(tmp_path, capsys,
+                                                      workload, extra):
+    from ddp_classification_pytorch_tpu_torch.cli import train as train_cli
+
+    root = _small_tree(tmp_path / "data")
+    try:
+        train_cli.main([workload, "--folder", str(root), "--model", "resnet18",
+                        "--num_classes", "2", "--batchsize", "4", "--epochs", "1",
+                        "--dtype", "float32", "--num_workers", "2",
+                        "--device", "cpu", "--out", str(tmp_path / "run"),
+                        *extra])
+    except SystemExit as e:
+        raise AssertionError(f"rc {e.code}") from None
+    out = capsys.readouterr().out
+    assert "native decoder active (item route, transform " in out
+    assert (tmp_path / "run" / "ckpt_e0.pt").exists()
+
+
+def test_decoder_build_failure_is_rc2_and_no_pil_fallback(monkeypatch, tmp_path):
+    from ddp_classification_pytorch_tpu_torch.cli import train as train_cli
+
+    monkeypatch.setattr(native, "_decoder", None)
+    monkeypatch.setattr(native, "LINK_VARIANTS", (("-lno_such_library_x",),))
+    with pytest.raises(native.DataplaneUnavailable, match="no_such_library_x"):
+        native.decode_image(JPEGS[0])
+    root = _small_tree(tmp_path / "data")
+    with pytest.raises(SystemExit) as e:
+        train_cli.main(["cdr", "--folder", str(root), "--model", "resnet18",
+                        "--num_classes", "2", "--image_size", "32",
+                        "--batchsize", "4", "--epochs", "1", "--device", "cpu",
+                        "--out", str(tmp_path / "run")])
+    assert e.value.code == 2

@@ -35,6 +35,11 @@ gradients (that file's docstring; weight seed 0).
     bitwise equal after the steps; the nested all-K eval's per-K counts
     over the 7-sample val set, summed across the ranks, equal those of
     one process over the same samples, and so does its best K.
+(h) PLC's ordered f(x) pass over the 7-sample set at batch 2 a rank (each
+    rank's contiguous slice, padded by wrapping to 8, gathered with
+    `all_gather_into_tensor`): every rank holds the logits of one process
+    at batch 4 in dataset order, and after one LRT correction both ranks
+    hold its labels, δ and count.
 """
 
 import os
@@ -78,6 +83,7 @@ TOL = dict(atol=1e-5, rtol=1e-4)
 WORLD, IMAGE, BATCH = 2, 64, 4  # BATCH: the global batch
 REDUCED = dict(stage_sizes=(1, 1, 1, 1), num_filters=8, num_classes=10)
 TIMEOUT_S = 180
+PLC_DELTA = 0.6  # high enough that the random net's pass flips labels
 
 
 def _free_port() -> int:
@@ -175,7 +181,8 @@ def spawned(variables, tmp_path_factory):
                   "reduced": REDUCED, "optim": dict(OPTIM),
                   "batches": [(t(i), t(lb)) for i, lb in _batches()],
                   "val_images": t(val_images), "val_labels": t(val_labels),
-                  "val_batch": BATCH // WORLD}}
+                  "val_batch": BATCH // WORLD, "plc_delta": PLC_DELTA,
+                  "out": str(tmp)}}
     inp = str(tmp / "in.pt")
     torch.save(data, inp)
     env = _rank_env(WORLD_SIZE=str(WORLD))
@@ -474,3 +481,32 @@ def test_nested_eval_counts_over_two_ranks_match_one_process(spawned, ranks):
         for key in ("top1_k", "top3_k"):
             assert torch.equal(got[key], sum(o[key] for o in outs)), key
         assert r["nested"]["eval"] == nested_eval(state, estep, batches)
+
+
+def test_plc_pass_and_correction_over_two_ranks_match_one_process(
+        spawned, ranks, variables, tmp_path, monkeypatch):
+    from ddp_classification_pytorch_tpu_torch.train import loop
+    from ddp_classification_pytorch_tpu_torch.train.plc_loop import PLCTrainer
+    from torch_port_ddp_worker import plc_config
+
+    cfg = plc_config({"plc_delta": PLC_DELTA}, BATCH)
+    cfg.run.out_dir = str(tmp_path)
+    model = ClassifierModel(resnet.ResNet(block_cls=resnet.Bottleneck,
+                                          dtype=torch.float32, **REDUCED))
+    model.backbone.load_state_dict(resnet_from_jax(*variables))
+    model.to(memory_format=torch.channels_last)
+    monkeypatch.setattr(loop, "create_train_state", lambda *a, **k: TrainState(
+        model, schedule.build_optimizer(cfg.optim, model.parameters()),
+        schedule.build_schedule(cfg.optim, 1)))
+    ds = ArrayDataset(*_val_set())
+    trainer = PLCTrainer(cfg, torch.device("cpu"), ds, ds)
+    want = trainer.predict_train_logits()
+    changed = trainer.correct_labels()
+    assert want.shape == (7, 10) and changed > 0
+    for r in ranks:
+        got = r["plc"]
+        np.testing.assert_allclose(got["logits"].numpy(), want, rtol=1e-6,
+                                   atol=1e-6)
+        assert np.array_equal(got["labels"].numpy(), ds.labels)
+        assert (got["delta"], got["changed"]) == (trainer.delta, changed)
+    assert torch.equal(ranks[0]["plc"]["logits"], ranks[1]["plc"]["logits"])

@@ -47,8 +47,12 @@ for root, _, files in os.walk(os.path.join(repo, port)):
 for name in sorted(names):
     importlib.import_module(name)
 for name in ("models.resnet", "models.batchnorm", "parallel.ddp",
-             "ops.arcface", "ops.cdr", "ops.nested", "models.heads"):
+             "ops.arcface", "ops.cdr", "ops.nested", "models.heads",
+             "ops.labelnoise", "data.plc", "train.plc_loop"):
     assert f"{port}.{name}" in names, name
+# the item route's decoder is the port's own C++ source, built from the
+# repo (it includes the dataplane's source; PIL stays refused)
+assert os.path.isfile(os.path.join(repo, port, "data", "csrc", "decode.cpp"))
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join(repo, "chip_smoke.py"))
 spec.loader.exec_module(importlib.util.module_from_spec(spec))

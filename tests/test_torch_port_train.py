@@ -289,10 +289,13 @@ def test_cli_unported_or_bad_config_exits_2(tmp_path, extra):
 
 
 def test_cli_unported_workload_exits_2(tmp_path):
-    """PLC is not ported; the arcface head is ported on the ResNets only
-    (TINY's model is a ViT)."""
-    assert _rc(["plc"] + TINY[1:] + ["--device", "cpu"]) == 2
+    """The arcface head is ported on the ResNets only (TINY's model is a
+    ViT): rc 2. PLC trains the ViT too (its head is the plain fc): rc 0,
+    with the correction record."""
     assert _rc(["arcface"] + TINY[1:] + ["--device", "cpu"]) == 2
+    assert _rc(["plc"] + TINY[1:] + ["--device", "cpu", "--plc_warmup_epochs",
+                                     "0", "--out", str(tmp_path / "plc")]) == 0
+    assert (tmp_path / "plc" / "plc_labels.npy").exists()
 
 
 def test_cli_exits_8_after_max_bad_steps_consecutive_skips(monkeypatch, tmp_path):

@@ -18,7 +18,10 @@ results to OUT_DIR/rank<R>.pt:
   gradients and threshold of each step) and under the nested head with
   freeze-BN (the k of each step; first the per-K counts of the all-K eval
   over this rank's shard of the val set, summed across the ranks, and
-  `nested_eval`'s result), two train steps each, the state after them.
+  `nested_eval`'s result), two train steps each, the state after them;
+- `plc`: a `PLCTrainer` over the reduced ResNet-50 (its fc state) on the
+  val set as the train set: the ordered pass's logits gathered from the
+  ranks, then one LRT correction: the labels, δ and the count.
 
 Imports torch, numpy and the port only (no JAX), so a rank starts fast.
 """
@@ -186,6 +189,47 @@ def run_heads(data, head, rank, world):
     return out
 
 
+def run_plc(data, rank, world):
+    from ddp_classification_pytorch_tpu_torch.models import factory, resnet
+    from ddp_classification_pytorch_tpu_torch.parallel import ddp
+    from ddp_classification_pytorch_tpu_torch.train import loop, schedule
+    from ddp_classification_pytorch_tpu_torch.train.plc_loop import PLCTrainer
+    from ddp_classification_pytorch_tpu_torch.train.state import TrainState
+
+    cfg = plc_config(data, data["val_batch"])
+    cfg.run.out_dir = os.path.join(data["out"], f"plc{rank}")
+
+    def state(*args, **kw):
+        model = factory.ClassifierModel(resnet.ResNet(
+            block_cls=resnet.Bottleneck, dtype=torch.float32,
+            group=ddp.group(), **data["reduced"]))
+        model.load_state_dict(data["fc_state_dict"])
+        model.to(memory_format=torch.channels_last)
+        return TrainState(model, schedule.build_optimizer(
+            cfg.optim, model.parameters()), schedule.build_schedule(cfg.optim, 1))
+
+    loop.create_train_state = state
+    ds = ArrayDataset(data["val_images"].numpy(), data["val_labels"].numpy())
+    trainer = PLCTrainer(cfg, torch.device("cpu"), ds, ds)
+    logits = torch.from_numpy(trainer.predict_train_logits())
+    changed = trainer.correct_labels()
+    return {"logits": logits, "labels": torch.from_numpy(ds.labels.copy()),
+            "delta": trainer.delta, "changed": changed}
+
+
+def plc_config(data, batch):
+    """The plc preset at the reduced net's sizes (no records written)."""
+    from ddp_classification_pytorch_tpu_torch.config import get_preset
+
+    cfg = get_preset("plc")
+    cfg.data.dataset, cfg.data.input_dtype = "synthetic", "float32"
+    cfg.data.num_classes, cfg.data.batch_size = 10, batch
+    cfg.data.num_workers = 0
+    cfg.run.write_records = False
+    cfg.plc.current_delta = data["plc_delta"]
+    return cfg
+
+
 def main() -> None:
     from ddp_classification_pytorch_tpu_torch.parallel import ddp
 
@@ -197,7 +241,8 @@ def main() -> None:
         result = {"bn": run_bn(data["bn"], rank, world),
                   "steps": run_steps(data["steps"], rank, world),
                   "cdr": run_heads(data["steps"], "fc", rank, world),
-                  "nested": run_heads(data["steps"], "nested", rank, world)}
+                  "nested": run_heads(data["steps"], "nested", rank, world),
+                  "plc": run_plc(data["steps"], rank, world)}
     torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
