@@ -7,8 +7,9 @@ real-data input (an image folder through the native dataplane, or CIFAR
 pickles where the dataplane cannot be built), resuming it and serving the
 resumed checkpoint, training ResNet-50 (the reference's default model)
 and serving its checkpoint, the same short run under torchrun over NCCL,
-and the reference's ArcFace, CDR and Nested workloads on ResNet-50 — on
-one NVIDIA GPU.
+the reference's ArcFace, CDR, Nested and PLC workloads on ResNet-50, and
+serving over HTTP with hot reload, the fleet's drain token and admission
+control, and ViT-B/16 through the flash forward — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -257,9 +258,49 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    at batch 128 (device ms, wall ms, images/s) and the whole pass through
    the loader, the probe fit, and the host ms of `lrt_correction` and
    `prob_correction` on (1,000,000, 14) f32 logits;
-27. a `{"kernels": [...]}` line (K1-K4, K1s, K1r, K1d; each with its
-   launches on the ResNet-50, ArcFace, CDR, Nested and PLC paths: 0),
-   then `{"ok": true, "device": {...}}` last.
+27. the HTTP serve path — (a) phase 12's TResNet-M checkpoint copied
+   into a watch dir and served in process as `cli/serve.py --watch --port
+   --fleet_dir --admission_deadline_ms` wires it (`cli/serve.py::Serving`:
+   the engine, a `CheckpointWatcher`, a `FleetMember`, an
+   `AdmissionController`, `serve/http.py` on a free port; 224 px, 2173
+   classes, bf16, uint8 wire, buckets 1/2/4/8), every launch count set
+   to 0 just before; (b) 8 sequential requests (admission's first
+   measured service rate), then 16 from 4 client threads — 8 JPEGs of
+   500x375 and 8 PNGs, one grayscale and one RGBA, made from the seed
+   with PIL — all 200; the wire arrays the server hands the engine are
+   bitwise the smoke's own PIL decode + the port's val transform, and
+   each answer's top-1 equals the engine's direct `submit` of that array,
+   probabilities within HTTP_TOL; (c) `/healthz`: ok, the checkpoint's
+   sha256 and epoch, the watcher alive, leader, serving; `/metrics` holds
+   the serve_, engine_, watcher_, fleet_ and admission_ families; (d) a
+   later epoch with changed weights published as a trainer does (bytes,
+   then sidecar): generation and digest move to it, the answers are a
+   direct forward of the new weights', the drain token is released; a
+   newer torn candidate becomes `*.corrupt`, `reloads_rejected` rises by
+   1, the generation stays, requests still get 200; (e) a second engine
+   with a queue of 4, its batcher held until a burst of 64 concurrent
+   requests has been answered or queued: 4 × 200, the rest 503 busy with
+   `Retry-After: 1`, those through an admission controller with a 1-ms
+   deadline shed with `shed_tenant`; over (a)-(e) K1 rose by exactly 36
+   a forward (warmups, both engines' batches, the direct forward) and no
+   other kernel launched; (g) timings: client ms per request (p50, p99)
+   at concurrency 1 and 8 and images/s, host ms of decode + transform
+   per image, the served forward's device ms per bucket used; (f) after
+   the in-process drain, `cli/serve.py --watch --port --fleet_dir --out`
+   as a subprocess on the card: /healthz, one POST 200 (epoch 1), SIGTERM
+   → rc 0 and `drained clean`, its events (`SCENARIO_EVENTS`) hold
+   serve_ready, verify_ok, swap, drain_begin and drain_end and pass the
+   schema; (h) ViT-B/16 at 512 px (1024 tokens), bf16, through
+   `build_engine` with `model.flash_attention` set: K2 12 × the forwards
+   (warmups and 8 selfcheck requests) and nothing else, then one batch of
+   8 through K2 and through its plain version: probabilities within
+   VIT_SERVE_TOL, top-5 equality and top-1 agreement reported, and the
+   forward's wall and device ms with K2's share;
+28. a `{"kernels": [...]}` line (K1-K4, K1s, K1r, K1d; each with its
+   launches on the ResNet-50, ArcFace, CDR, Nested and PLC paths: 0, on
+   the HTTP serve path (`serve_http_path_launches`: K1 36 a forward, the
+   others 0) and on the ViT serve leg (`vit_serve_path_launches`: K2 12
+   a forward, the others 0)), then `{"ok": true, "device": {...}}` last.
 
 Numerics on the card: `torch.backends.cudnn.allow_tf32 = False` and
 `torch.backends.cuda.matmul.allow_tf32 = False` (f32 convolutions and
@@ -2368,6 +2409,550 @@ def plc_noise_and_timing(torch, device, train_cli, card: str) -> dict:
     return rec
 
 
+# phase 27: the HTTP serve path in process (serve/http.py over the engine,
+# the checkpoint watcher, a fleet member and admission control), TResNet-M
+# as phase 4 serves it, over phase 12's checkpoint; then the CLI with
+# --watch --port as a subprocess, and ViT-B/16 served through K2
+HTTP_ARGV = SERVE_ARGV[:SERVE_ARGV.index("--selfcheck")] + ["--device", "cuda"]
+HTTP_CLIENTS, HTTP_REQUESTS = 4, 16  # (b): 8 JPEGs of 500x375, 8 PNGs
+HTTP_WARM = 8  # sequential requests first: admission's measured rate
+HTTP_BURST, HTTP_BURST_QUEUE = 64, 4  # (e)
+HTTP_TOL = 1e-2  # served vs direct probabilities, bf16
+HTTP_DEADLINE_MS = 60000  # the main server's admission deadline: no shed
+HTTP_TIMED = {1: 32, 8: 64}  # (g): requests at each client concurrency
+HTTP_FAMILIES = ("serve_", "engine_", "watcher_", "fleet_", "admission_")
+VIT_SERVE_ARGV = ["baseline", "--model", "vit_b16", "--image_size", "512",
+                  "--num_classes", "1000", "--dtype", "bfloat16",
+                  "--input_dtype", "uint8", "--buckets", "1,2,4,8",
+                  "--max_batch", "8", "--selfcheck", "8", "--device", "cuda"]
+VIT_SERVE_TOL = 1e-2  # K2 vs its plain version, served probabilities, bf16
+
+
+def http_images(seed: int):
+    """(kind, encoded bytes) of HTTP_REQUESTS images made from `seed` with
+    PIL: 8 JPEGs of 500x375 (the fixture images' size) and 8 non-square
+    PNGs, the first grayscale, the second RGBA."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+
+    def picture(w, h):
+        smooth = rng.integers(0, 256, (6, 8, 3)).astype(np.uint8)
+        arr = np.asarray(Image.fromarray(smooth).resize((w, h), Image.BILINEAR))
+        noise = rng.integers(-16, 17, arr.shape)
+        return np.clip(arr.astype(np.int16) + noise, 0, 255).astype(np.uint8)
+
+    out = []
+    for i in range(HTTP_REQUESTS):
+        buf = io.BytesIO()
+        if i < HTTP_REQUESTS // 2:
+            Image.fromarray(picture(500, 375)).save(buf, format="JPEG",
+                                                    quality=90)
+            out.append(("jpeg", buf.getvalue()))
+            continue
+        j = i - HTTP_REQUESTS // 2
+        img = Image.fromarray(picture(300 + 24 * j, 260 + 10 * j))
+        if j == 0:
+            img = img.convert("L")
+        elif j == 1:
+            img.putalpha(Image.fromarray(picture(*img.size)[..., 0]))
+        img.save(buf, format="PNG")
+        out.append((img.mode, buf.getvalue()))
+    return out
+
+
+def pil_wire(data: bytes, transform) -> np.ndarray:
+    """The smoke's own decode: PIL to RGB, then the port's val transform."""
+    import io
+
+    from PIL import Image
+
+    img = Image.open(io.BytesIO(data)).convert("RGB")
+    return transform(np.asarray(img, np.uint8), np.random.default_rng(0))
+
+
+def http_call(base: str, method: str, path: str, body=None, headers=None):
+    """(status, Retry-After, JSON body or text, client ms) of one request."""
+    import urllib.request
+    from urllib.error import HTTPError
+
+    req = urllib.request.Request(base + path, data=body, method=method,
+                                 headers=headers or {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            code, hdrs, raw = r.status, r.headers, r.read()
+    except HTTPError as e:
+        code, hdrs, raw = e.code, e.headers, e.read()
+    ms = (time.perf_counter() - t0) * 1e3
+    payload = (json.loads(raw) if hdrs.get("Content-Type") == "application/json"
+               else raw.decode())
+    return code, hdrs.get("Retry-After"), payload, ms
+
+
+def pil_route(data: bytes, resize: int, crop: int) -> np.ndarray:
+    """A yardstick for the host's per-image work, not the port's route:
+    PIL's own decode, BILINEAR resize of the shorter side and center crop
+    in C (the JAX front end's `resize_center_crop`, `transforms.py:83-91`
+    there)."""
+    import io
+
+    from PIL import Image
+
+    img = Image.open(io.BytesIO(data)).convert("RGB")
+    w, h = img.size
+    nw, nh = ((resize, int(h * resize / w)) if w < h
+              else (int(w * resize / h), resize))
+    img = img.resize((nw, nh), Image.BILINEAR)
+    x, y = (nw - crop) // 2, (nh - crop) // 2
+    return np.asarray(img.crop((x, y, x + crop, y + crop)), np.uint8)
+
+
+def nearest_rank(values, q: float) -> float:
+    s = sorted(values)
+    return float(s[int(round(q / 100 * (len(s) - 1)))])
+
+
+def wait_for(cond, timeout_s: float, what: str):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        got = cond()
+        if got:
+            return got
+        time.sleep(0.05)
+    raise RuntimeError(f"chip_smoke: timed out after {timeout_s} s waiting "
+                       f"for {what}")
+
+
+def serve_http_phase(torch, device, serve_cli, checkpoint, counters, root,
+                     card, name) -> dict:
+    """Phase 27 (a)-(g): the in-process server over phase 12's checkpoint
+    in `root`/run; returns the record (with `launches`: every counter's
+    rise over (a)-(e))."""
+    from ddp_classification_pytorch_tpu_torch.data.transforms import (
+        build_transform,
+    )
+    from ddp_classification_pytorch_tpu_torch.serve import http as http_mod
+    from ddp_classification_pytorch_tpu_torch.serve.engine import ServingEngine
+    from ddp_classification_pytorch_tpu_torch.serve.fleet import (
+        AdmissionController,
+        wave_token_path,
+    )
+    from ddp_classification_pytorch_tpu_torch.serve.metrics import ServeMetrics
+    from ddp_classification_pytorch_tpu_torch.train.state import (
+        create_served_model,
+    )
+    from ddp_classification_pytorch_tpu_torch.train.steps import (
+        make_topk_predict_step,
+    )
+
+    run, fleet_dir = os.path.join(root, "run"), os.path.join(root, "fleet")
+    src = os.path.join(run, "ckpt_e0.pt")
+    digest0 = checkpoint.file_digest(src)
+    port = free_port()
+    cfg = serve_cli.config_from_args(serve_cli.build_parser().parse_args(
+        HTTP_ARGV + ["--watch", run, "--port", str(port), "--reload_poll_s",
+                     "0.2", "--fleet_dir", fleet_dir,
+                     "--admission_deadline_ms", str(HTTP_DEADLINE_MS),
+                     "--admission_tenants", "a:3,b:1"]))
+    h, k = cfg.data.image_size, cfg.serve.topk
+    transform = build_transform("baseline", train=False, image_size=h,
+                                crop_size=cfg.data.train_crop_size,
+                                out_dtype="uint8")
+    images = http_images(cfg.run.seed)
+    expected = [pil_wire(data, transform) for _, data in images]
+    base = f"http://127.0.0.1:{port}"
+    rec = {"argv": HTTP_ARGV, "card": card}
+
+    def post(i, tenant="a"):
+        return http_call(base, "POST", "/predict", images[i][1],
+                         {"X-Tenant": tenant})
+
+    def all_ok(answers, gen, digest, what):
+        bad = [(c, p) for c, _, p, _ in answers
+               if c != 200 or p["generation"] != gen or p["digest"] != digest]
+        check(not bad, f"{what}: {bad[:2]}")
+
+    # ------------------------------------------------- (a) the server --
+    for f in counters.values():  # count only this path's launches
+        f.launches = 0
+    t0 = time.perf_counter()
+    serving = serve_cli.Serving(cfg, device)
+    engine, watcher, fleet = serving.engine, serving.watcher, serving.fleet
+    metrics = engine.metrics
+    check(watcher.loaded_epoch == 0, f"restore_initial served epoch "
+          f"{watcher.loaded_epoch}, expected phase 12's 0")
+    engine.warmup()
+    serving.start()
+    rec["startup_s"] = time.perf_counter() - t0
+    direct_forwards = 0
+    engine2 = None
+    try:
+        # ------------------------------------------ (b) the requests --
+        warm = [post(i % HTTP_REQUESTS) for i in range(HTTP_WARM)]
+        all_ok(warm, 0, digest0, "sequential requests")
+        seen = []
+        inner = engine.transform
+
+        def recording(arr, rng):  # what the server hands the engine
+            out = inner(arr, rng)
+            seen.append(out)
+            return out
+
+        engine.transform = recording
+        with ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+            answers = list(pool.map(post, range(HTTP_REQUESTS)))
+        engine.transform = inner
+        all_ok(answers, 0, digest0, "concurrent requests")
+        check(sorted(a.tobytes() for a in seen)
+              == sorted(e.tobytes() for e in expected),
+              "the server's wire arrays differ from PIL decode + the port's "
+              "val transform")
+        direct = [f.result(timeout=120) for f in
+                  [engine.submit(w) for w in expected]]
+        diffs = []
+        for (_, _, body, _), p in zip(answers, direct):
+            check(body["topk"][0][0] == int(p.indices[0]),
+                  f"HTTP top-1 {body['topk'][0]} != direct {p.indices[0]}")
+            diffs.append(float(np.abs(np.asarray([s for _, s in body["topk"]])
+                                      - p.scores).max()))
+        check(max(diffs) <= HTTP_TOL, f"HTTP vs direct scores {max(diffs)}")
+        rec["requests"] = {"n": len(answers) + len(warm),
+                           "kinds": [kd for kd, _ in images],
+                           "wire_bitwise_pil": True, "top1_equal_direct": True,
+                           "max_score_diff_vs_direct": max(diffs)}
+        log(f"[serve-http] (b) {HTTP_WARM} sequential + {HTTP_REQUESTS} "
+            f"requests from {HTTP_CLIENTS} threads: 200, wire arrays bitwise "
+            f"PIL + the port's transform, top-1 = direct submit, max |Δp| "
+            f"{max(diffs):.3g}")
+
+        # --------------------------------------------- (c) /healthz --
+        health = http_call(base, "GET", "/healthz")[2]
+        check(health["ok"] is True and health["digest"] == digest0
+              and health["generation"] == 0 and health["watcher_alive"] is True
+              and health["fleet_role"] == "leader"
+              and health["wave_state"] == "serving",
+              f"/healthz: {json.dumps(health)[:400]}")
+        text = http_call(base, "GET", "/metrics")[2]
+        families = sorted({line.split()[0].split("{")[0]
+                           for line in text.splitlines()
+                           if line and not line.startswith("#")})
+        missing = [p for p in HTTP_FAMILIES
+                   if not any(f.startswith(p) for f in families)]
+        check(not missing, f"/metrics lacks {missing}")
+        rec["healthz"], rec["metric_families"] = health, families
+        log(f"[serve-http] (c) /healthz ok, digest {digest0[:12]}…, "
+            f"generation 0, watcher alive, leader, serving; /metrics "
+            f"{len(families)} families")
+
+        # ------------------------------------------ (d) hot reload --
+        stage = os.path.join(root, "stage")
+        os.makedirs(stage, exist_ok=True)
+
+        def publish(sd, epoch, tear=False):
+            # as a trainer publishes: the bytes, then the sidecar
+            path = os.path.join(stage, f"ckpt_e{epoch}.pt")
+            checkpoint.save(sd, path)
+            if tear:
+                with open(path, "r+b") as fh:
+                    fh.seek(100)
+                    fh.write(b"\xde\xad\xbe\xef")
+            for p in (path, checkpoint.checksum_path(path)):
+                os.replace(p, os.path.join(run, os.path.basename(p)))
+            return os.path.join(run, os.path.basename(path))
+
+        sd = checkpoint.model_state(checkpoint.restore(src))
+        new_sd = {n: (t * 1.25 if t.is_floating_point()
+                      and "running" not in n else t) for n, t in sd.items()}
+        t0 = time.perf_counter()
+        e1 = publish(new_sd, 1)
+        wait_for(lambda: watcher.loaded_epoch == 1, 120, "the swap to epoch 1")
+        rec["reload_s"] = time.perf_counter() - t0
+        digest1 = checkpoint.file_digest(e1)
+        with ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+            answers = list(pool.map(post, range(8)))
+        all_ok(answers, 1, digest1, "after the swap")
+        new_model = create_served_model(cfg, device, new_sd)
+        predict = make_topk_predict_step(cfg, k)
+        batch = torch.from_numpy(np.stack(expected[:8])).to(device)
+        p_new, i_new = predict(new_model, batch)
+        direct_forwards += 1
+        p_new, i_new = p_new.cpu().numpy(), i_new.cpu().numpy()
+        diff = max(float(np.abs(np.asarray([s for _, s in b["topk"]])
+                                - p_new[j]).max())
+                   for j, (_, _, b, _) in enumerate(answers))
+        check(all(b["topk"][0][0] == int(i_new[j, 0])
+                  for j, (_, _, b, _) in enumerate(answers))
+              and diff <= HTTP_TOL,
+              f"answers after the swap are not the new weights' (|Δp| {diff})")
+        check(not os.path.exists(wave_token_path(fleet_dir))
+              and fleet.state == "serving" and fleet.generation == 1,
+              f"drain token not released: state {fleet.state}, generation "
+              f"{fleet.generation}")
+        health = http_call(base, "GET", "/healthz")[2]
+        check(health["generation"] == 1 and health["digest"] == digest1
+              and health["lease_generation"] == 1, f"/healthz after the "
+              f"swap: {health['generation']} {health['digest'][:12]}")
+        rejected = metrics.reloads_rejected
+        e2 = publish({n: t * 1.5 if t.is_floating_point() and "running"
+                      not in n else t for n, t in sd.items()}, 2, tear=True)
+        wait_for(lambda: os.path.exists(e2 + ".corrupt"), 120,
+                 "the torn epoch 2 to be quarantined")
+        wait_for(lambda: metrics.reloads_rejected == rejected + 1, 10,
+                 "reloads_rejected to rise")
+        after = [post(i) for i in range(2)]
+        all_ok(after, 1, digest1, "after the torn candidate")
+        check(watcher.loaded_epoch == 1 and metrics.reloads_rejected
+              == rejected + 1 and metrics.reloads == 1,
+              f"torn candidate: epoch {watcher.loaded_epoch}, rejected "
+              f"{metrics.reloads_rejected}")
+        rec["reload"] = {"epoch1_digest": digest1, "max_score_diff_vs_new":
+                         diff, "torn_quarantined": True,
+                         "reloads": metrics.reloads,
+                         "reloads_rejected": metrics.reloads_rejected}
+        log(f"[serve-http] (d) epoch 1 swapped in {rec['reload_s']:.2f} s "
+            f"after publishing (answers = the new weights, |Δp| {diff:.3g}; "
+            f"drain token released); torn epoch 2 quarantined, "
+            f"reloads_rejected {metrics.reloads_rejected}, still epoch 1")
+
+        # --------------------------------------- (e) backpressure --
+        # a second engine over the new weights with a queue of
+        # HTTP_BURST_QUEUE, its batcher held until the burst has been
+        # answered or queued: the queue fills, the rest are refused
+        bcfg = serve_cli.config_from_args(serve_cli.build_parser().parse_args(
+            HTTP_ARGV + ["--ckpt", e1, "--queue_depth", str(HTTP_BURST_QUEUE)]))
+        engine2 = ServingEngine.from_config(bcfg, new_model, predict, device,
+                                            metrics=ServeMetrics())
+        shedder = AdmissionController(engine2, tenants="a:3,b:1",
+                                      deadline_ms=1.0, rate_fn=lambda: 1.0)
+        servers = [http_mod.start_server(engine2, 0),
+                   http_mod.start_server(engine2, 0, admission=shedder)]
+        bases = [f"http://127.0.0.1:{s.server_address[1]}" for s in servers]
+        try:
+            with ThreadPoolExecutor(HTTP_BURST) as pool:
+                futs = [pool.submit(http_call, bases[i % 4 == 3], "POST",
+                                    "/predict", images[i % HTTP_REQUESTS][1],
+                                    {"X-Tenant": "b"}) for i in range(HTTP_BURST)]
+                wait_for(lambda: sum(f.done() for f in futs)
+                         == HTTP_BURST - HTTP_BURST_QUEUE
+                         and engine2.queue_depth == HTTP_BURST_QUEUE, 120,
+                         "the burst to fill the queue")
+                engine2.start()
+                burst = [f.result() for f in futs]
+        finally:
+            for s in servers:
+                s.shutdown()
+                s.server_close()
+            engine2.drain()
+        busy = [(c, ra, p) for c, ra, p, _ in burst if c == 503]
+        ok = [p for c, _, p, _ in burst if c == 200]
+        shed = [p for c, ra, p in busy if "est_wait_ms" in p]
+        check(len(ok) == HTTP_BURST_QUEUE and len(busy) == HTTP_BURST - len(ok)
+              and all(ra == "1" and p["state"] == "busy" for _, ra, p in busy),
+              f"burst: {len(ok)} answered, {len(busy)} busy, "
+              f"{[(c, ra) for c, ra, _ in busy][:3]}")
+        check(shed and all(p["shed_tenant"] == "b" for p in shed),
+              "no admission shed with shed_tenant")
+        rec["burst"] = {"requests": HTTP_BURST, "queue_depth": HTTP_BURST_QUEUE,
+                        "answered": len(ok), "busy": len(busy),
+                        "admission_shed": len(shed)}
+        log(f"[serve-http] (e) burst of {HTTP_BURST} against queue_depth "
+            f"{HTTP_BURST_QUEUE}: {len(ok)} × 200, {len(busy)} × 503 busy "
+            f"(Retry-After: 1), {len(shed)} of them shed by admission "
+            f"(shed_tenant b)")
+
+        # the launches of (a)-(e): K1 36 a forward, nothing else
+        forwards = (len(engine.buckets) + metrics.batches
+                    + engine2.metrics.batches + direct_forwards)
+        launches = {kd: f.launches for kd, f in counters.items()}
+        want = dict.fromkeys(counters, 0) | {"k1": ABN_SITES * forwards}
+        check(launches == want, f"HTTP path launches {launches}, expected "
+              f"{want} ({forwards} forwards)")
+        rec.update(launches=launches, forwards=forwards)
+        del new_model
+
+        # ----------------------------------------------- (g) timings --
+        def per_image_ms(fn):
+            out = []
+            for _, data in images:
+                runs = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    fn(data)
+                    runs.append((time.perf_counter() - t0) * 1e3)
+                out.append(statistics.median(runs))
+            half = HTTP_REQUESTS // 2
+            return {"median": statistics.median(out),
+                    "jpeg_500x375": statistics.median(out[:half]),
+                    "png": statistics.median(out[half:])}
+
+        rng0 = np.random.default_rng(0)
+        timing = {
+            "decode_transform_ms": per_image_ms(lambda d: engine.transform(
+                http_mod.decode_image(d), rng0)),
+            "decode_only_ms": per_image_ms(http_mod.decode_image),
+            "yardstick_pil_route_ms": per_image_ms(lambda d: pil_route(
+                d, cfg.data.train_crop_size, h))}
+        for conc, n in HTTP_TIMED.items():
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(conc) as pool:
+                res = list(pool.map(lambda i: post(i % HTTP_REQUESTS), range(n)))
+            wall = time.perf_counter() - t0
+            check(all(c == 200 for c, *_ in res), f"timed run at {conc}: "
+                  f"{[c for c, *_ in res if c != 200][:3]}")
+            lat = [ms for *_, ms in res]
+            timing[f"concurrency_{conc}"] = {
+                "requests": n, "p50_ms": nearest_rank(lat, 50),
+                "p99_ms": nearest_rank(lat, 99), "images_per_s": n / wall}
+        served = engine._state
+        buckets = sorted(engine.seen_buckets)
+        with DeviceTimer(torch, lambda: (counters["k1"].launches,)) as timer:
+            for b in buckets:
+                im = torch.zeros((b, h, h, 3), dtype=torch.uint8, device=device)
+                timer.run(f"forward {b}", lambda im=im: predict(served, im),
+                          reps=10)
+        res = timer.results()
+        timing["forward_device_ms"] = {b: res[f"forward {b}"][0]
+                                       for b in buckets}
+        timing["bucket_hist"] = metrics.snapshot()["bucket_hist"]
+        rec["timing"] = timing
+        rec["profiler"] = timer.record()
+        log(f"[timing] {card}: HTTP serve path, TResNet-M 224 px bf16 "
+            f"(client ms per request through urllib, admission and the "
+            f"watcher on; decode_transform_ms: PIL + the val transform on "
+            f"the host, per image, decode_only_ms its PIL decode; "
+            f"yardstick_pil_route_ms: PIL's decode + resize + crop in C, "
+            f"the JAX front end's host ops, not the port's route; "
+            f"forward_device_ms: the served forward per bucket used): "
+            f"{json.dumps(timing)}")
+        log(f"[timing] clocks.sm, clocks.max.sm, power.draw: {clocks()}")
+    finally:
+        serving.drain()
+    return rec
+
+
+def serve_cli_http(root, card) -> dict:
+    """Phase 27 (f): `cli/serve.py --watch --port --fleet_dir --out` as a
+    subprocess on the card: one POST answered, SIGTERM drains with rc 0,
+    and its events (SCENARIO_EVENTS) hold the serve path's records."""
+    import signal
+
+    from ddp_classification_pytorch_tpu_torch.obs.events import (
+        read_events,
+        validate_events,
+    )
+
+    port = free_port()
+    events = os.path.join(root, "cli_events.jsonl")
+    cmd = [sys.executable, "-m", "ddp_classification_pytorch_tpu_torch.cli.serve",
+           *HTTP_ARGV, "--watch", os.path.join(root, "run"), "--port",
+           str(port), "--fleet_dir", os.path.join(root, "cli_fleet"),
+           "--out", os.path.join(root, "cli_out"), "--reload_poll_s", "0.5"]
+    env = dict(os.environ, SCENARIO_EVENTS=events, SCENARIO_SOURCE="replica0",
+               PYTHONPATH=REPO)
+    base = f"http://127.0.0.1:{port}"
+    data = http_images(1)[0][1]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        def up():
+            check(proc.poll() is None, "the serve CLI exited early")
+            try:
+                return http_call(base, "GET", "/healthz")[2]
+            except OSError:
+                return None
+
+        health = wait_for(up, 300, "the serve CLI's /healthz")
+        ready_s = time.perf_counter() - t0
+        code, _, body, ms = http_call(base, "POST", "/predict", data)
+        check(code == 200 and len(body["topk"]) == 5
+              and body["generation"] == 1, f"CLI POST: {code} {body}")
+        check(health["ok"] and health["fleet_role"] == "leader",
+              f"CLI /healthz {health}")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out, err = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+    check(proc.returncode == 0 and "[serve] drained clean" in out,
+          f"serve CLI rc {proc.returncode}:\n{out[-1500:]}\n{err[-1500:]}")
+    log_ = read_events(events)
+    kinds = [r["kind"] for r in log_]
+    need = ("serve_ready", "verify_ok", "swap", "drain_begin", "drain_end")
+    check(all(kd in kinds for kd in need) and not validate_events(log_),
+          f"CLI events {kinds}: {validate_events(log_)}")
+    rec = {"ready_s": ready_s, "post_ms": ms, "generation": body["generation"],
+           "rc": proc.returncode, "events": kinds}
+    log(f"[serve-http] (f) {card}: cli/serve.py --watch --port as a "
+        f"subprocess: /healthz after {ready_s:.1f} s, one POST 200 in "
+        f"{ms:.1f} ms (epoch 1), SIGTERM rc 0, drained clean; events {kinds}")
+    return rec
+
+
+def vit_serve_leg(torch, device, serve_cli, fa, counters, card) -> dict:
+    """Phase 27 (h): ViT-B/16 at 512 px (1024 tokens), bf16, served through
+    `build_engine` from a config with `model.flash_attention`: K2 12 times
+    a forward; then one batch of 8 with `flash_forward` and with its plain
+    version, the served top-5 and probabilities compared."""
+    from ddp_classification_pytorch_tpu_torch.train.steps import (
+        make_topk_predict_step,
+    )
+
+    cfg = serve_cli.config_from_args(
+        serve_cli.build_parser().parse_args(VIT_SERVE_ARGV))
+    cfg.model.flash_attention = True  # the CLI keeps JAX's default, off
+    for f in counters.values():
+        f.launches = 0
+    engine = serve_cli.build_engine(cfg, device)
+    engine.warmup()
+    preds = serve_cli.run_selfcheck(engine, cfg, 8)
+    forwards = len(engine.buckets) + engine.metrics.batches
+    launches = {kd: f.launches for kd, f in counters.items()}
+    want = dict.fromkeys(counters, 0) | {"fwd": VIT_BLOCKS * forwards}
+    check(launches == want and all(np.isfinite(p.scores).all() for p in preds),
+          f"ViT serve launches {launches}, expected {want}")
+    model = engine._state
+    predict = make_topk_predict_step(cfg, 5)
+    h = cfg.data.image_size
+    imgs = torch.from_numpy(np.random.default_rng(cfg.run.seed).integers(
+        0, 256, (8, h, h, 3)).astype(np.uint8)).to(device)
+    kp, ki = predict(model, imgs)
+    before = fa.flash_forward.launches
+    kernel = fa.flash_forward
+    fa.flash_forward = fa.flash_forward_ref
+    try:
+        pp, pi = predict(model, imgs)
+        torch.cuda.synchronize()
+    finally:
+        fa.flash_forward = kernel
+    check(fa.flash_forward.launches == before, "the plain forward launched K2")
+    diff = (kp - pp).abs().max().item()
+    top5 = bool(torch.equal(ki, pi))
+    top1 = (ki[:, 0] == pi[:, 0]).float().mean().item()
+    check(diff <= VIT_SERVE_TOL, f"ViT served probabilities, K2 vs plain: "
+          f"max |Δp| {diff}")
+    wall = wall_ms(torch, lambda: predict(model, imgs))
+    with DeviceTimer(torch, lambda: (fa.flash_forward.launches,)) as timer:
+        timer.run("vit forward 8", lambda: predict(model, imgs), reps=5)
+    dev = timer.results()["vit forward 8"][0]
+    k2_ms, k2_n = timer.kernel_ms("vit forward 8", "flash_fwd_kernel")
+    rec = {"argv": VIT_SERVE_ARGV, "flash_attention": True, "launches": launches,
+           "forwards": forwards, "top5_equal_plain": top5,
+           "top1_agreement_plain": top1, "max_prob_diff_plain": diff,
+           "forward8_wall_ms": wall, "forward8_device_ms": dev,
+           "k2_x12_ms": k2_ms, "k2_launches_per_forward": k2_n}
+    log(f"[serve-http] (h) {card}: ViT-B/16 512 px bf16 served with "
+        f"flash_attention: {json.dumps(rec)}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2820,6 +3405,16 @@ def main() -> int:
         abn_err = {k: max(v, err[k]) for k, v in abn_err.items()}
 
     # ------------------------------ 12. the TResNet-M training path --
+    # its checkpoint (with the sidecar) is also what phase 27 serves over
+    # HTTP: copied into a watch dir of its own before the run's goes
+    http_root = tempfile.mkdtemp(prefix="chip_smoke_http_")
+
+    def keep_for_http(ckpt):
+        os.makedirs(os.path.join(http_root, "run"))
+        for f in (ckpt, checkpoint.checksum_path(ckpt)):
+            shutil.copy(f, os.path.join(http_root, "run", os.path.basename(f)))
+        return {}
+
     fused_abn.FusedBNLeakyReLU.layout_copies = 0
     trainer, tres_cfg, tres_rec = train_main_path(
         torch, device, train_cli, checkpoint, TRESNET_TRAIN_ARGV,
@@ -2829,7 +3424,8 @@ def main() -> int:
          "k1d": ABN_SITES * TRAIN_STEPS}, "tresnet-train",
         lambda tr, ckpt: serve_trained_checkpoint(
             torch, fused_abn, device, serve_cli, k1, tr, ckpt,
-            np.stack([tr.val_ds[i][0] for i in range(8)])))
+            np.stack([tr.val_ds[i][0] for i in range(8)])) | keep_for_http(
+                ckpt))
     report["tresnet_train"] = tres_rec
 
     # ----------------- 13. the TResNet-M training slice, kernel vs plain --
@@ -3012,17 +3608,37 @@ def main() -> int:
     log(f"[plc] phase 26 took {plc_rec['phase_s']:.1f} s")
     report["plc"] = plc_rec
 
+    # ------------------------------------- 27. the HTTP serve path --
+    # phase 12's checkpoint served over HTTP in process (K1 36 a forward,
+    # every other count 0), the CLI with --watch --port as a subprocess,
+    # then ViT-B/16 served through K2
+    t0 = time.perf_counter()
+    try:
+        http_rec = serve_http_phase(torch, device, serve_cli, checkpoint,
+                                    counters, http_root, card, name)
+        http_rec["cli"] = serve_cli_http(http_root, card)
+    finally:
+        shutil.rmtree(http_root, ignore_errors=True)
+    vit_serve_rec = vit_serve_leg(torch, device, serve_cli, fa, counters, card)
+    http_rec["phase_s"] = time.perf_counter() - t0
+    log(f"[serve-http] phase 27 took {http_rec['phase_s']:.1f} s")
+    report["serve_http"] = http_rec
+    report["vit_serve"] = vit_serve_rec
+
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
-    # ------------------------------------------------------ 27. summary --
+    # ------------------------------------------------------ 28. summary --
     # the ResNet-50 path (phase 20) and the ArcFace, CDR, Nested and PLC
-    # paths (phases 23-26) launch none of these kernels
+    # paths (phases 23-26) launch none of these kernels; the HTTP path
+    # (phase 27) launches K1 only, the ViT serve leg K2 only
     def head_launches(kind):
         return {f"{w}_path_launches": r["launches"][kind]
-                for w, r in (heads_rec | {"plc": plc_rec}).items()}
+                for w, r in (heads_rec | {"plc": plc_rec}).items()} | {
+            "serve_http_path_launches": http_rec["launches"][kind],
+            "vit_serve_path_launches": vit_serve_rec["launches"][kind]}
 
     log(json.dumps({"kernels": [{
         "name": "fused_bn_leaky_relu",

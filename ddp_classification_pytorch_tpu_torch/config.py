@@ -191,7 +191,40 @@ class ServeConfig:
     buckets: Sequence[int] = ()
     topk: int = 5  # classes returned per request
     checkpoint: str = ""  # explicit checkpoint to serve (verified; rc 2 if corrupt)
+    watch_dir: str = ""  # run dir to poll for checkpoint hot-reload
+    reload_poll_s: float = 5.0  # hot-reload poll cadence
+    port: int = 0  # >0: stdlib http front-end on this port (serve/http.py)
     log_every_s: float = 10.0  # metrics console line cadence
+    # --- serve-fleet control plane (serve/fleet.py) ---
+    # shared fleet run dir ("" = fleet off, lone-replica mode). Replicas
+    # sharing it heartbeat via $FLEET_DIR/serve_fleet/lease.r<id> and
+    # serialize hot reloads through the single drain token (rolling wave).
+    fleet_dir: str = ""
+    fleet_replica: int = 0  # this replica's id in the shared fleet dir
+    fleet_ttl_s: float = 15.0  # lease/token freshness horizon (mtime vs now)
+    # admission control above the engine queue: 0 = off (engine bound only);
+    # >0 = shed when measured wait (depth / observed service rate) exceeds
+    # this deadline (fair-share shed at 1x, any-tenant shed at 2x)
+    admission_deadline_ms: float = 0.0
+    # per-tenant weighted fair shares, "name:weight,name:weight"
+    # ("" = single 'default' tenant at weight 1)
+    admission_tenants: str = ""
+
+    def validate_fleet(self) -> None:
+        """Config-shaped fleet/admission validation (ValueError = rc 2)."""
+        if self.fleet_replica < 0:
+            raise ValueError(
+                f"serve.fleet_replica must be >= 0, got {self.fleet_replica}")
+        if self.fleet_ttl_s <= 0:
+            raise ValueError(
+                f"serve.fleet_ttl_s must be > 0, got {self.fleet_ttl_s}")
+        if self.admission_deadline_ms < 0:
+            raise ValueError(
+                f"serve.admission_deadline_ms must be >= 0, "
+                f"got {self.admission_deadline_ms}")
+        from .serve.fleet import parse_tenants
+
+        parse_tenants(self.admission_tenants)
 
     def resolve_buckets(self) -> tuple:
         """Validated ascending bucket tuple (ValueError = config-shaped, the

@@ -1,1 +1,2 @@
-"""Observability of the port: the stdlib metrics registry."""
+"""Observability of the port: the stdlib metrics registry and the event
+plane (`events.jsonl`)."""

@@ -26,6 +26,11 @@ of the JAX package's `serve/engine.py`, on one device.
 - **Graceful drain.** `drain()` stops intake (further submits raise
   `EngineClosed`), flushes everything already queued, and joins the
   batcher — the SIGTERM rc-0 contract of `cli/serve.py`.
+- **Image intake.** `submit_image()` takes a decoded HWC uint8 RGB array
+  (`serve/http.py` decodes request bodies) through the eval pipeline's
+  val `Transform` (resize + center crop in numpy, uint8 wire) on the
+  caller's thread, then `submit()`s it; it never touches the device, so
+  HTTP handler threads transform in parallel.
 
 The engine is fully exercisable in-process: construct it without `start()`
 and drive `process_once()` directly — no thread.
@@ -95,6 +100,8 @@ class ServingEngine:
         queue_depth: int = 64,
         buckets: Sequence[int] = (1, 2, 4, 8),
         metrics: Optional[Any] = None,
+        transform: Optional[Callable[[np.ndarray, np.random.Generator],
+                                     np.ndarray]] = None,
     ):
         buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not buckets or buckets[0] < 1:
@@ -104,6 +111,7 @@ class ServingEngine:
                 f"max_batch={max_batch} exceeds largest bucket {buckets[-1]}")
         self._state = state
         self._predict = predict
+        self.transform = transform  # val Transform for submit_image
         self.device = torch.device(device)
         self.image_size = int(image_size)
         self._np_dtype = np.uint8 if input_dtype == "uint8" else np.float32
@@ -143,7 +151,16 @@ class ServingEngine:
 
     @classmethod
     def from_config(cls, cfg, state, predict, device, metrics=None):
-        """Engine wired from a Config tree (serve + data sections)."""
+        """Engine wired from a Config tree (serve + data sections). The val
+        transform of the data section's preset feeds `submit_image` (the
+        JAX CLI's `build_transform(preset, train=False, ...)`); a dataset
+        kind without one (synthetic) leaves it None."""
+        from ..data.transforms import build_transform, preset_for_dataset
+
+        preset = preset_for_dataset(cfg.data.dataset, cfg.data.transform)
+        transform = None if preset is None else build_transform(
+            preset, train=False, image_size=cfg.data.image_size,
+            crop_size=cfg.data.train_crop_size, out_dtype=cfg.data.input_dtype)
         return cls(
             state, predict,
             image_size=cfg.data.image_size,
@@ -154,12 +171,17 @@ class ServingEngine:
             queue_depth=cfg.serve.queue_depth,
             buckets=cfg.serve.resolve_buckets(),
             metrics=metrics,
+            transform=transform,
         )
 
     # -------------------------------------------------------------- intake --
     @property
     def queue_depth(self) -> int:
         return self._q.qsize()
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
 
     def submit(self, image: Any) -> Future:
         """Enqueue one request; resolves to a `Prediction`.
@@ -185,6 +207,20 @@ class ServingEngine:
         self.metrics.record_submit()
         return req.future
 
+    def submit_image(self, img: np.ndarray) -> Future:
+        """Transform a decoded (H, W, 3) uint8 RGB image through the SAME
+        val `data.transforms.Transform` the eval pipeline uses — resize /
+        center crop on the host, the wire dtype out — then submit."""
+        if self.transform is None:
+            raise ValueError("engine has no transform; pass the val "
+                             "Transform (build_transform(train=False, "
+                             "out_dtype=input_dtype)) at construction")
+        arr = np.asarray(img)
+        if arr.ndim != 3 or arr.shape[2] != 3 or arr.dtype != np.uint8:
+            raise ValueError(f"submit_image takes an (H, W, 3) uint8 RGB "
+                             f"array, got {arr.shape} {arr.dtype}")
+        return self.submit(self.transform(arr, np.random.default_rng(0)))
+
     # ---------------------------------------------------------- hot reload --
     def swap_state(self, new_state: nn.Module, digest: str = "",
                    generation: int = -1) -> None:
@@ -198,8 +234,15 @@ class ServingEngine:
 
     @property
     def params_digest(self) -> str:
+        """sha256 of the checkpoint currently answering ("fresh" = init
+        weights, nothing adopted yet)."""
         with self._swap_lock:
             return self._digest
+
+    @property
+    def params_generation(self) -> int:
+        with self._swap_lock:
+            return self._generation
 
     def state_compatible(self, new_state: nn.Module) -> bool:
         """Whether `new_state` can take over from the model serving now:

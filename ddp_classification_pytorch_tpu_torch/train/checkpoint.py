@@ -19,6 +19,14 @@ through — the JAX package's `train/checkpoint.py` for one process
   and `meta.json` while the other ranks wait at a barrier, and every rank
   restores. A file written by a run of one world size resumes in a run
   of another.
+- The event plane (`obs/events.py`, armed by `SCENARIO_EVENTS`): a
+  verified epoch file emits `publish` (epoch, path, digest, world_size)
+  once its sidecar has landed, and every quarantine emits `quarantine`
+  (path, reason), as the JAX manager does — so a serve replica's watcher
+  (`serve/reload.py`) and the trainer write one `events.jsonl`.
+- `CheckpointManager.verified_candidates` is the hot-reload scan: epoch
+  files newest first, each verified and loaded (a failure quarantined and
+  the next newest tried), with the verified sidecar's digest.
 
 Reading the JAX package's flax msgpack checkpoints is not ported yet: the
 GPU machine has no `msgpack` (ROADMAP.md). `models/convert.py` carries
@@ -31,10 +39,11 @@ import hashlib
 import json
 import os
 import re
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import torch
 
+from ..obs.events import emit
 from ..parallel import ddp
 from ..utils.logging import host0_print
 
@@ -105,6 +114,39 @@ def restore(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def file_digest(path: str) -> str:
+    """sha256 of a checkpoint's bytes: its sidecar's, when well formed
+    (already proven to match by `verify`), else hashed directly."""
+    try:
+        with open(checksum_path(path)) as f:
+            expected = f.read().strip()
+        if _DIGEST.fullmatch(expected):
+            return expected
+    except OSError:
+        pass
+    return _sha256_file(path)
+
+
+def load_verified(path: str, mmap: bool = False) -> Optional[Dict[str, Any]]:
+    """The file at `path` if it verifies and loads on the CPU, else None,
+    with the file quarantined (`*.corrupt`) — the keep-going contract that
+    `--auto_resume` and the hot-reload watcher share. `mmap` maps the file
+    instead of reading it, so tensors never used (a train state's
+    optimizer part, for a server) are never read."""
+    if not os.path.exists(path):
+        return None  # lost a quarantine race with another process
+    err = verify(path)
+    if err is not None:
+        quarantine_file(path, err)
+        return None
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True,
+                          mmap=mmap)
+    except (OSError, ValueError, RuntimeError, EOFError) as e:
+        quarantine_file(path, f"cannot be restored: {e}")
+        return None
+
+
 def model_state(obj: Mapping[str, Any]) -> Mapping[str, torch.Tensor]:
     """The model's weights in a restored file: the `model` part of a train
     state, or the file itself when it holds bare weights."""
@@ -119,7 +161,10 @@ def quarantine_file(path: str, reason: str) -> None:
     try:
         os.replace(path, dst)
     except OSError:
+        # another process (a trainer's resume, a replica's watcher) moved
+        # it first: the second rename is a no-op, one *.corrupt remains
         return
+    emit("quarantine", path=path, reason=reason)
     if os.path.exists(checksum_path(path)):
         os.replace(checksum_path(path), dst + ".sha256")
     host0_print(f"[ckpt] quarantined corrupt checkpoint {path} -> {dst} "
@@ -204,7 +249,11 @@ class CheckpointManager:
             if paths:
                 sd = _to_cpu(state.state_dict())  # one host copy for every path
                 for path in paths:
-                    save(sd, path)
+                    digest = save(sd, path)
+                    if path != self.best_path:
+                        # visible to watchers once its sidecar has landed
+                        emit("publish", epoch=epoch, path=path,
+                             digest=digest, world_size=ddp.world_size())
             self._write_meta(**meta)
             if paths and self.keep > 0:
                 self._prune()
@@ -241,19 +290,37 @@ class CheckpointManager:
 
     def _restore_verified(self, state, path: str) -> bool:
         """Restore `path` if it verifies and loads; quarantine it if not."""
-        if not os.path.exists(path):
-            return False
-        err = verify(path)
-        if err is not None:
-            quarantine_file(path, err)
+        obj = load_verified(path)
+        if obj is None:
             return False
         try:
-            state.load_state_dict(torch.load(path, map_location="cpu",
-                                             weights_only=True))
-        except (OSError, ValueError, RuntimeError, EOFError) as e:
+            state.load_state_dict(obj)
+        except (ValueError, RuntimeError, KeyError) as e:
             quarantine_file(path, f"cannot be restored: {e}")
             return False
         return True
+
+    def verified_candidates(self, newer_than: int = -1
+                            ) -> Iterator[Tuple[int, str, Optional[Dict],
+                                                str]]:
+        """The hot-reload scan: (epoch, path, loaded file or None, digest)
+        for each `ckpt_e{N}.pt` with N > `newer_than`, newest first. A file
+        whose sidecar has not landed yet is not published: it is skipped,
+        not quarantined (`save` writes the sidecar strictly after the
+        file, so a poll can fall between the two; the next poll sees it).
+        A file that fails its sidecar or does not load is quarantined and
+        yields None (its digest ""), and the scan goes on to the next
+        newest; `*.corrupt` files never match. Files are memory-mapped, so
+        a server reads only the tensors it uses. Lazy: a caller that takes
+        the first candidate it can serve verifies no older file."""
+        for e in sorted(self._epoch_checkpoints(), reverse=True):
+            if e <= newer_than:
+                break
+            path = self.epoch_path(e)
+            if not os.path.exists(checksum_path(path)):
+                continue
+            obj = load_verified(path, mmap=True)
+            yield e, path, obj, (file_digest(path) if obj is not None else "")
 
     def restore_latest(self, state) -> Tuple[Any, int]:
         """(state, next_epoch): the newest epoch checkpoint that verifies and

@@ -268,12 +268,17 @@ def create_served_model(cfg: Config, device: torch.device,
                         ) -> nn.Module:
     """Build the served model for `cfg` on `device`: init from `run.seed`
     (or load `state_dict`, e.g. a verified checkpoint), then apply the
-    dtype policy once, move to the device in channels_last, and set eval
-    mode. Raises ValueError for an arch or head not ported yet."""
-    if cfg.model.arch not in CONV_ARCHS:
+    dtype policy once (the convolutional nets cast their weights to the
+    compute dtype; a ViT keeps its f32 masters and casts per call, as in
+    training), move to the device (channels_last for the convolutional
+    nets), and set eval mode. A ViT built from a config with
+    `model.flash_attention` runs the flash forward (K2) in every block at
+    T ≥ `flash_min_tokens`. Raises ValueError for an arch or head not
+    ported yet."""
+    if cfg.model.arch not in TRAIN_ARCHS:
         raise ValueError(f"serving arch {cfg.model.arch!r} not yet ported to "
                          f"the torch package (ported: "
-                         f"{', '.join(CONV_ARCHS)}; ROADMAP.md)")
+                         f"{', '.join(TRAIN_ARCHS)}; ROADMAP.md)")
     model = build_model(cfg.model, cfg.data.num_classes, cfg.data.image_size)
     if state_dict is None:
         init_weights_(model, torch.Generator().manual_seed(cfg.run.seed))
@@ -283,6 +288,9 @@ def create_served_model(cfg: Config, device: torch.device,
         except RuntimeError as e:  # missing/unexpected keys, wrong shapes
             raise ValueError(f"weights do not fit {cfg.model.arch} with "
                              f"{cfg.data.num_classes} classes: {e}") from None
-    model.backbone.cast_to_compute_dtype()
-    model.to(device=device, memory_format=torch.channels_last)
+    if cfg.model.arch in CONV_ARCHS:
+        model.backbone.cast_to_compute_dtype()
+        model.to(device=device, memory_format=torch.channels_last)
+    else:
+        model.to(device)
     return model.eval()

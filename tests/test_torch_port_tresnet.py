@@ -30,12 +30,21 @@ from ddp_classification_pytorch_tpu_torch.train.state import init_weights_
 
 from torch_port_helpers import REDUCED, init_variables, randomize_bn
 
+@pytest.fixture(scope="module")
+def jax_variables():
+    """The reduced JAX TResNet's init, made once for the module: a conv
+    net's parameters and statistics do not depend on the image size (the
+    init at 104 px gives the same values as at 64), so both sizes below
+    share it."""
+    return init_variables(JaxTResNet(dtype=jnp.float32, **REDUCED), 64)
+
+
 @pytest.mark.parametrize("image_size", [64, 104])
-def test_reduced_tresnet_forward_matches_jax(image_size):
+def test_reduced_tresnet_forward_matches_jax(image_size, jax_variables):
     model = JaxTResNet(dtype=jnp.float32, **REDUCED)
     rng = np.random.default_rng(image_size)
     x = rng.normal(0, 1, (2, image_size, image_size, 3)).astype(np.float32)
-    variables = init_variables(model, image_size)
+    variables = jax_variables
     params, stats = randomize_bn(variables["params"], variables["batch_stats"],
                                  rng)
     apply = jax.jit(lambda p, s, x: model.apply(
