@@ -300,7 +300,29 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    launches on the ResNet-50, ArcFace, CDR, Nested and PLC paths: 0, on
    the HTTP serve path (`serve_http_path_launches`: K1 36 a forward, the
    others 0) and on the ViT serve leg (`vit_serve_path_launches`: K2 12
-   a forward, the others 0)), then `{"ok": true, "device": {...}}` last.
+   a forward, the others 0) and on the recovery path of phase 29
+   (`recovery_path_launches`), then `{"ok": true, "device": {...}}` last;
+29. (run before the summary line) the recovery chain on the card —
+   (a) `Trainer` on TResNet-M at full width (224 px, 2173 classes, bf16,
+   batch 32, 256 synthetic images: 8 steps an epoch, 2 epochs) with
+   `--fault_spec nan_loss@step=2..3,ckpt_io@epoch=1`, every launch count
+   set to 0 just before the run: steps 2-3 are skipped (the parameters
+   and buffers bitwise equal before step 2 and after step 3, the
+   sentinel counts 2), the counts are exactly the path's (K1 36 a train
+   step and eval batch, K1s/K1r/K1d 36 a train step, K2-K4 0), then
+   `restore_latest` quarantines the torn `ckpt_e1.pt` and falls back to
+   `ckpt_e0.pt`; the longest silent stretch between the heartbeat's
+   touches (from its arming) is measured; (b) `cli/supervise.py` over
+   `cli/train.py --multihost --auto_resume` as subprocesses on the card
+   (TResNet-M as in (a), 3 epochs, FLEET_* for an elastic pod of one,
+   zero backoffs, MAX_RESTARTS 5, `--hang_timeout_s` T = the larger of
+   RECOVERY_T_MIN_S and twice (a)'s stretch) with `--fault_spec
+   nan_loss@step=2..3,loader_io@batch=5,peer_slow@step=12,ckpt_io@epoch=1,
+   sigterm@step=19`: `restarts.log` reads rc 1, 7, 143 (restarts) then
+   rc 0 (exit), `ckpt_e1.pt.corrupt` exists and the last run resumed
+   from `ckpt_e0.pt` at epoch 1, `history.json` holds epochs 0-2 once,
+   the generation file reads 3, the membership `gen=3 world=0` beside a
+   lease, the supervisor exits 0; the phase prints its time.
 
 Numerics on the card: `torch.backends.cudnn.allow_tf32 = False` and
 `torch.backends.cuda.matmul.allow_tf32 = False` (f32 convolutions and
@@ -313,6 +335,7 @@ Details land in `chiprun_out/chip_smoke.json`.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -443,6 +466,17 @@ PLC_FEATURES = 2048  # ResNet-50's pooled features: the η probe's input
 PLC_ETA_TOL = 1e-4  # the probe's η on the card vs the CPU (f32, no TF32)
 PLC_LOGIT_TOL = 1e-2  # the ordered pass vs the eval forward, bf16 logits
 PLC_HOST_ROWS = 1_000_000  # Clothing1M's train set: the host corrections
+# phase 29: the recovery chain on TResNet-M as phase 12 trains it. (a) in
+# process: 2 epochs with a nan_loss window over steps 2-3 and the epoch-1
+# checkpoint torn; (b) the supervisor over the CLI with every host-side
+# fault, 3 epochs
+RECOVERY_ARGV = [a if b != "--epochs" else "2" for b, a in
+                 zip([None] + TRESNET_TRAIN_ARGV, TRESNET_TRAIN_ARGV)] + [
+    "--log_every", "4", "--fault_spec", "nan_loss@step=2..3,ckpt_io@epoch=1"]
+RECOVERY_SPEC = ("nan_loss@step=2..3,loader_io@batch=5,peer_slow@step=12,"
+                 "ckpt_io@epoch=1,sigterm@step=19")
+RECOVERY_T_MIN_S = 20.0  # the hang timeout's floor, seconds
+RECOVERY_RCS = [1, 7, 143, 0]  # loader_io, peer_slow, sigterm, done
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2953,6 +2987,180 @@ def vit_serve_leg(torch, device, serve_cli, fa, counters, card) -> dict:
     return rec
 
 
+# phase 29: the recovery chain on the card, (a) in process for the launch
+# counts and the skipped window, (b) the supervisor over the CLI for the
+# exit-code contract
+
+def recovery_in_process(torch, device, train_cli, checkpoint, counters,
+                        card: str) -> dict:
+    """Phase 29 (a): RECOVERY_ARGV through `Trainer` into a temporary
+    directory, every count in `counters` set to 0 just before `run()`: the
+    counts are exactly the TResNet-M path's (K1 36 a train step and eval
+    batch, K1s/K1r/K1d 36 a train step, the others 0; a skipped step
+    still runs its forward and backward), the sentinel skips steps 2 and
+    3, the model's parameters and buffers are bitwise equal before step 2
+    and after step 3, and `restore_latest` quarantines the torn
+    `ckpt_e1.pt` and restores `ckpt_e0.pt`. Returns the record, with the
+    longest silent stretch between the heartbeat's touches (from the
+    Trainer's construction, when it is armed)."""
+    from ddp_classification_pytorch_tpu_torch.train.loop import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
+    try:
+        cfg = train_cli.config_from_args(train_cli.build_parser().parse_args(
+            RECOVERY_ARGV + ["--out", tmp]))
+        touches = [time.monotonic()]
+        trainer = Trainer(cfg, device)
+        check(trainer.steps_per_epoch == TRAIN_STEPS
+              and len(trainer.val_loader) == EVAL_BATCHES and trainer.chaos,
+              f"{trainer.steps_per_epoch} steps, {len(trainer.val_loader)} "
+              f"eval batches, plan {trainer.chaos!s}")
+        touch, step_fn, window = (trainer._heartbeat.touch, trainer.train_step,
+                                  {})
+
+        def timed_touch():
+            touches.append(time.monotonic())
+            touch()
+
+        def watched_step(state, *args, **kw):
+            # bitwise copies on the card before step 2 and after step 3
+            if state.step == 2:
+                window["before"] = [t.clone() for t in
+                                    state.model.state_dict().values()]
+            out = step_fn(state, *args, **kw)
+            if state.step == 4:
+                window["after"] = [t.clone() for t in
+                                   state.model.state_dict().values()]
+            return out
+
+        trainer._heartbeat.touch, trainer.train_step = timed_touch, watched_step
+        for f in counters.values():  # count only the main path's
+            f.launches = 0
+        t0 = time.perf_counter()
+        last = trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        epochs = cfg.run.epochs
+        want = dict.fromkeys(counters, 0) | {
+            "k1": ABN_SITES * epochs * (TRAIN_STEPS + EVAL_BATCHES),
+            "k1s": ABN_SITES * epochs * TRAIN_STEPS,
+            "k1r": ABN_SITES * epochs * TRAIN_STEPS,
+            "k1d": ABN_SITES * epochs * TRAIN_STEPS}
+        check(launches == want, f"recovery launches {launches}, expected "
+                                f"{want}")
+        check(trainer.sentinel.skipped_total == 2
+              and trainer.state.step == epochs * TRAIN_STEPS,
+              f"skipped {trainer.sentinel.skipped_total} steps of "
+              f"{trainer.state.step}, expected 2 (steps 2-3) of "
+              f"{epochs * TRAIN_STEPS}")
+        check(len(window) == 2 and all(
+            torch.equal(a, b) for a, b in zip(window["before"],
+                                              window["after"])),
+              "the nan_loss window changed the parameters or buffers")
+        check(np.isfinite(last["loss"]) and last["step_ok"] == 1.0,
+              f"epoch {epochs - 1}: {last}")
+        torn = os.path.join(tmp, "ckpt_e1.pt")
+        check(checkpoint.verify(torn) is not None,
+              "ckpt_io left ckpt_e1.pt verifying")
+        _, next_epoch = checkpoint.CheckpointManager(tmp).restore_latest(
+            trainer.state)
+        check(next_epoch == 1 and os.path.exists(torn + ".corrupt")
+              and not os.path.exists(torn)
+              and same_state(torch, checkpoint.restore(
+                  os.path.join(tmp, "ckpt_e0.pt")),
+                  trainer.state.state_dict()),
+              f"restore_latest: next epoch {next_epoch}, expected ckpt_e1.pt "
+              "quarantined and ckpt_e0.pt restored")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gaps = np.diff(touches)
+    rec = {"argv": RECOVERY_ARGV, "launches": launches, "wall_s": wall,
+           "epoch": last, "skipped_steps": trainer.sentinel.skipped_total,
+           "touches": len(touches) - 1,
+           "slowest_silent_s": float(gaps.max()),
+           "first_silent_s": float(gaps[0]), "card": card}
+    log(f"[recovery] (a) {json.dumps(rec)}")
+    return rec
+
+
+def recovery_supervised(hang_s: float, card: str) -> dict:
+    """Phase 29 (b): `cli/supervise.py` over the train CLI as subprocesses
+    on the card (TResNet-M as RECOVERY_ARGV, 3 epochs, `--multihost` on
+    an elastic pod of one, `--hang_timeout_s hang_s`, RECOVERY_SPEC):
+    restarts at rc 1, 7 and 143, then exit 0; the torn checkpoint
+    quarantined and the last run resumed from ckpt_e0.pt; history,
+    generation, membership and lease as the contract says. peer_slow
+    stalls hang_s + 5 s plus the watchdog's poll period (hang_s / 4), so
+    the watchdog fires inside the stall whatever the phase of its poll."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drill_")
+    out = os.path.join(tmp, "run")
+    argv = [a if b != "--epochs" else "3" for b, a in zip(
+        [None] + TRESNET_TRAIN_ARGV, TRESNET_TRAIN_ARGV)] + [
+        "--log_every", "4", "--out", out, "--multihost",
+        "--hang_timeout_s", str(hang_s), "--fault_spec", RECOVERY_SPEC]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("CHAOS_", "FLEET_"))
+           and k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                         "MASTER_PORT")}
+    env.update(FLEET_COORDINATOR=f"127.0.0.1:{free_port()}",
+               FLEET_NUM_PROCESSES="1", FLEET_PROCESS_ID="0",
+               FLEET_ELASTIC="1", CHAOS_PEER_SLOW_S=str(hang_s * 1.25 + 5),
+               RUNTIME_BACKOFF_S="0", OUTAGE_BACKOFF_S="0",
+               REFORM_BACKOFF_S="0", MAX_RESTARTS="5")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "ddp_classification_pytorch_tpu_torch.cli.supervise", *argv],
+            cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            stdout, stderr = proc.communicate()
+            raise RuntimeError(f"chip_smoke: the supervised drill ran past "
+                               f"600 s:\n{stdout[-3000:]}\n{stderr[-3000:]}")
+        wall = time.perf_counter() - t0
+        tail = f"\n{stdout[-4000:]}\n{stderr[-4000:]}"
+        check(proc.returncode == 0, f"supervisor rc {proc.returncode}{tail}")
+        with open(os.path.join(out, "restarts.log")) as f:
+            lines = f.read().splitlines()
+        fields = [dict(t.split("=", 1) for t in line.split()[1:])
+                  for line in lines]
+        check([int(f["rc"]) for f in fields] == RECOVERY_RCS
+              and [f["action"] for f in fields] == ["restart"] * 3 + ["exit"],
+              f"restarts.log: {lines}{tail}")
+        last_run = stdout.rsplit("[fleet] rendezvous ok", 1)[-1]
+        check(os.path.exists(os.path.join(out, "ckpt_e1.pt.corrupt"))
+              and "quarantined corrupt checkpoint " + os.path.join(
+                  out, "ckpt_e1.pt") in last_run
+              and f"auto-resumed from {out} at epoch 1" in last_run,
+              f"the last run did not resume from ckpt_e0.pt{tail}")
+        with open(os.path.join(out, "history.json")) as f:
+            history = json.load(f)
+        check(len(history["loss"]) == 3 and None not in history["loss"],
+              f"history.json: {history}")
+        with open(os.path.join(out, "generation")) as f:
+            generation = f.read().strip()
+        with open(os.path.join(out, "fleet", "membership")) as f:
+            membership = f.read().strip()
+        check(generation == "3" and membership == "gen=3 world=0"
+              and os.path.exists(os.path.join(out, "fleet", "lease.p0")),
+              f"generation {generation!r}, membership {membership!r}")
+        chaos_lines = [ln for ln in stderr.splitlines()
+                       if ln.startswith(("# chaos", "# trainer["))]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"argv": argv, "hang_timeout_s": hang_s,
+           "peer_slow_s": hang_s * 1.25 + 5, "restarts_log": lines,
+           "chaos": chaos_lines, "membership": membership,
+           "generation": int(generation), "wall_s": wall, "card": card}
+    log(f"[recovery] (b) {json.dumps(rec)}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3625,6 +3833,23 @@ def main() -> int:
     report["serve_http"] = http_rec
     report["vit_serve"] = vit_serve_rec
 
+    # ------------------------------------------- 29. the recovery chain --
+    # run here, before the summary line that carries its launch counts
+    t0 = time.perf_counter()
+    recovery_rec = recovery_in_process(torch, device, train_cli, checkpoint,
+                                       counters, card)
+    hang_s = max(RECOVERY_T_MIN_S,
+                 float(np.ceil(2 * recovery_rec["slowest_silent_s"])))
+    log(f"[recovery] hang timeout T = {hang_s:.0f} s (slowest silent "
+        f"stretch {recovery_rec['slowest_silent_s']:.3f} s in process; "
+        f"{card})")
+    gc.collect()  # the drill's processes share the card with this one
+    torch.cuda.empty_cache()
+    recovery_rec["supervised"] = recovery_supervised(hang_s, card)
+    recovery_rec["phase_s"] = time.perf_counter() - t0
+    log(f"[recovery] phase 29 took {recovery_rec['phase_s']:.1f} s ({card})")
+    report["recovery"] = recovery_rec
+
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as f:
@@ -3638,7 +3863,8 @@ def main() -> int:
         return {f"{w}_path_launches": r["launches"][kind]
                 for w, r in (heads_rec | {"plc": plc_rec}).items()} | {
             "serve_http_path_launches": http_rec["launches"][kind],
-            "vit_serve_path_launches": vit_serve_rec["launches"][kind]}
+            "vit_serve_path_launches": vit_serve_rec["launches"][kind],
+            "recovery_path_launches": recovery_rec["launches"][kind]}
 
     log(json.dumps({"kernels": [{
         "name": "fused_bn_leaky_relu",

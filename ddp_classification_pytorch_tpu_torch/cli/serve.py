@@ -316,11 +316,16 @@ class Serving:
                 registry=metrics.registry)
         if cfg.serve.watch_dir:
             from ..serve.reload import CheckpointWatcher
+            from ..utils import chaos as chaoslib
 
+            # watcher_io drills aim CHAOS_FAULT_SPEC at a replica; its
+            # one-shot markers live under this replica's own out dir, not
+            # the shared watch dir (each replica owns its poll counter)
+            plan = chaoslib.plan_for_run("", cfg.run.out_dir or ".", 0)
             self.watcher = CheckpointWatcher(
                 cfg.serve.watch_dir, engine, served_model_builder(cfg, device),
                 poll_s=cfg.serve.reload_poll_s, metrics=metrics,
-                fleet=self.fleet)
+                fleet=self.fleet, chaos=plan if plan else None)
             loaded = self.watcher.restore_initial()
             host0_print(f"[serve] watching {cfg.serve.watch_dir} "
                         + (f"(serving epoch {loaded})" if loaded >= 0 else

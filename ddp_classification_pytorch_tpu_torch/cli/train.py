@@ -39,17 +39,48 @@ heads; a cdr or plc checkpoint is a plain fc model). A plc run also
 writes `plc_labels.npy` and δ (`meta.json`'s `plc_delta`), which resume
 restores.
 
+An explicit pod (`--multihost`) rendezvouses from the ``FLEET_*``
+variables instead of torchrun's (`parallel/fleet.py::initialize_with_retry`:
+bounded retries, elastic membership from lease files under
+``FLEET_ELASTIC=1``); `cli/supervise.py` restarts a run with
+`--auto_resume` by its exit code. `--fault_spec` (or ``CHAOS_FAULT_SPEC``)
+stages faults (`utils/chaos.py`) and `--hang_timeout_s` arms the hang
+watchdog:
+
+    FLEET_COORDINATOR=10.0.0.1:29500 FLEET_NUM_PROCESSES=2 FLEET_PROCESS_ID=0 \
+    python -m ddp_classification_pytorch_tpu_torch.cli.supervise baseline \
+        --dataset synthetic --model resnet50 --out runs/pod --multihost \
+        --hang_timeout_s 600 --fault_spec "sigterm@step=20"
+
+The reference's `--world_size`, `--local_rank` / `--local-rank` (which
+`torch.distributed.launch` adds) and `--gpu` are accepted and ignored.
+
 Exit codes, as the JAX CLI's:
 
+- **rc 1**: an unhandled exception (a loader IO error, an OOM): transient,
+  the supervisor restarts it after a backoff;
 - **rc 2**: config errors — an unported dataset, preset, arch or option (`--sharded_ce`, a head on an arch other than the
   ResNets, `--head_lr` on a model without a margin head), a flag this CLI does not take (argparse), bad values, a
   missing data directory, a `--resume` file that fails its sha256, a
   native dataplane (or its decoder) that does not build on this machine, `--dp` other
-  than the world size, TResNet-M over more than one rank;
+  than the world size, TResNet-M over more than one rank, a malformed
+  `--fault_spec`, malformed ``FLEET_*`` variables (`FleetConfigError`);
 - **rc 3**: no CUDA device and `--device cpu` not asked for (it never
   carries on on the CPU);
+- **rc 6**: the `--multihost` rendezvous never completed within its
+  retries (`RendezvousFailed`);
+- **rc 7**: the hang watchdog fired (no progress for `--hang_timeout_s`);
 - **rc 8**: `run.max_bad_steps` consecutive non-finite steps (diverged;
-  deterministic, a supervisor must not restart it).
+  deterministic, a supervisor must not restart it);
+- **rc 9**: the ranks restored different checkpoints, or joined different
+  worlds (`PodInconsistent`);
+- **rc 10**: the surviving world cannot train (`PodUnviable`: below
+  ``FLEET_MIN_PROCESSES`` or off `--dp`);
+- **rc 11**: the pod's membership changed (`PodReform`): every rank exits
+  at the epoch boundary to re-form;
+- **`PodAbort.code`**: a rank's abort intent exchanged at the epoch
+  boundary, the same on every rank (143 for a deferred SIGTERM, 8 for a
+  divergence on a pod).
 """
 
 from __future__ import annotations
@@ -188,6 +219,11 @@ def build_parser() -> argparse.ArgumentParser:
     par.add_argument("--sharded_ce", action="store_true",
                      help="the partial-FC ArcFace CE over a model axis: not "
                           "ported (rc 2)")
+    par.add_argument("--multihost", action="store_true",
+                     help="join an explicit pod from FLEET_COORDINATOR / "
+                          "FLEET_NUM_PROCESSES / FLEET_PROCESS_ID with "
+                          "bounded retries (parallel/fleet.py); torchrun's "
+                          "processes need no flag")
 
     r = p.add_argument_group("run")
     r.add_argument("--seed", type=int, default=-1)
@@ -206,6 +242,37 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--device", default="", choices=["", "cuda", "cpu"],
                    help="default cuda; cpu only when asked (rc 3 when cuda "
                         "is missing and cpu was not asked for)")
+    r.add_argument("--hang_timeout_s", type=float, default=0.0,
+                   help="mid-run hang watchdog: exit 7 when no host-observed "
+                        "progress lands for this many seconds, so "
+                        "cli/supervise.py + --auto_resume can recover (0 = "
+                        "off; set WELL above the slowest silent stretch — "
+                        "on a cold build cache the kernels' first nvcc "
+                        "build happens inside it)")
+    r.add_argument("--max_bad_steps", type=int, default=-1,
+                   help="non-finite step sentinel: after N CONSECUTIVE "
+                        "skipped steps exit 8 ('diverged' — deterministic, "
+                        "the supervisor does not restart it). Default 25; "
+                        "0 = skip forever, never exit")
+    r.add_argument("--fault_spec", default="",
+                   help="deterministic fault injection (utils/chaos.py), "
+                        "e.g. 'nan_loss@step=7..9,ckpt_io@epoch=1,"
+                        "loader_io@batch=3,sigterm@step=20'; "
+                        "CHAOS_FAULT_SPEC overrides")
+
+    compat = p.add_argument_group("reference-CLI compatibility (ignored)")
+    compat.add_argument("--world_size", type=int, default=None,
+                        help="ignored: the world is torchrun's (or "
+                             "--multihost's FLEET_NUM_PROCESSES)")
+    compat.add_argument("--local_rank", "--local-rank", dest="local_rank",
+                        type=int, default=None,
+                        help="ignored: the card is LOCAL_RANK's, which "
+                             "torchrun sets (torch.distributed.launch also "
+                             "passes --local-rank=N)")
+    compat.add_argument("--gpu", default=None,
+                        help="ignored: device selection is --device and "
+                             "LOCAL_RANK's (CDR/main.py:51, "
+                             "NESTED/train.py:473 pass it)")
     return p
 
 
@@ -337,16 +404,22 @@ def config_from_args(args: argparse.Namespace) -> Config:
         cfg.run.save_best_only = True
     if args.keep_checkpoints:
         cfg.run.keep_checkpoints = args.keep_checkpoints
+    if args.hang_timeout_s:
+        cfg.run.hang_timeout_s = args.hang_timeout_s
+    if args.max_bad_steps >= 0:
+        cfg.run.max_bad_steps = args.max_bad_steps
+    if args.fault_spec:
+        cfg.run.fault_spec = args.fault_spec
     if cfg.data.batch_size < 1 or cfg.run.log_every < 1:
         raise ValueError("--batchsize and --log_every must be >= 1")
     return cfg
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    from ..data.native import DataplaneUnavailable
     from ..parallel import ddp
-    from ..train.loop import Trainer
-    from ..train.plc_loop import PLCTrainer
+    from ..parallel.fleet import (FleetConfigError, PodAbort,
+                                  PodInconsistent, PodReform, PodUnviable,
+                                  RendezvousFailed, initialize_with_retry)
     from ..train.sentinel import SentinelDiverged
     from ..utils.backend_probe import BackendUnavailable, resolve_device
 
@@ -356,31 +429,68 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     except ValueError as e:
         print(f"[trainer] config error: {e}", file=sys.stderr)
         raise SystemExit(2) from None
+    if (args.world_size is not None or args.local_rank is not None
+            or args.gpu is not None):
+        print("[compat] --world_size/--local_rank/--gpu are ignored: the "
+              "world and the card come from torchrun's variables "
+              "(or --multihost's FLEET_*)")
     try:
         device = resolve_device(args.device)
     except BackendUnavailable as e:
         print(f"[trainer] backend unreachable: {e}", file=sys.stderr)
         raise SystemExit(3) from None
-    # torchrun's process group, if it started this process; torn down on
-    # every way out, the rc 2 and rc 8 exits included
-    with ddp.process_group(device) as device:
-        try:
-            trainer_cls = PLCTrainer if cfg.workload == "plc" else Trainer
-            trainer = trainer_cls(cfg, device)
-        except (ValueError, FileNotFoundError) as e:  # an unported arch,
-            # head, dataset or option, a missing data dir, a bad --resume,
-            # --dp off the world size: deterministic
-            print(f"[trainer] config error: {e}", file=sys.stderr)
-            raise SystemExit(2) from None
-        except DataplaneUnavailable as e:
-            print(f"[trainer] native dataplane unavailable: {e}",
-                  file=sys.stderr)
-            raise SystemExit(2) from None
-        try:
-            trainer.run()
-        except SentinelDiverged as e:
-            print(f"[trainer] diverged: {e}", file=sys.stderr)
-            raise SystemExit(SentinelDiverged.exit_code) from None
+    rendezvous = None
+    if args.multihost:
+        # the retrying rendezvous from FLEET_*, paced by the shared
+        # $OUT/generation file; --dp gates an elastic world's viability
+        def rendezvous(dev):
+            initialize_with_retry(out_dir=cfg.run.out_dir, device=dev,
+                                  data_parallel=cfg.parallel.data_parallel)
+    try:
+        # the process group (torchrun's or the pod's), torn down on every
+        # way out; the rc 2 and rc 8 exits included
+        with ddp.process_group(device, rendezvous) as device:
+            _train(cfg, device)
+    except (FleetConfigError, PodInconsistent, PodUnviable,
+            RendezvousFailed) as e:
+        # FleetConfigError (malformed FLEET_*) is rc 2, deterministic;
+        # PodInconsistent rc 9 (split-brain resume or membership),
+        # PodUnviable rc 10 and RendezvousFailed rc 6 are outage-shaped
+        print(f"[trainer] {type(e).__name__}: {e}", file=sys.stderr)
+        raise SystemExit(e.exit_code) from None
+    except SentinelDiverged as e:
+        print(f"[trainer] diverged: {e}", file=sys.stderr)
+        raise SystemExit(SentinelDiverged.exit_code) from None
+    except PodAbort as e:
+        # a rank's abort intent (a deferred SIGTERM 143, a divergence 8)
+        # exchanged at the epoch boundary: every rank exits with it
+        print(f"[trainer] {e}", file=sys.stderr)
+        raise SystemExit(e.code) from None
+    except PodReform as e:
+        print(f"[trainer] pod-reform: {e}", file=sys.stderr)
+        raise SystemExit(PodReform.exit_code) from None
+
+
+def _train(cfg: Config, device) -> None:
+    """Build the workload's trainer (its config-shaped failures rc 2) and
+    run it."""
+    from ..data.native import DataplaneUnavailable
+    from ..train.loop import Trainer
+    from ..train.plc_loop import PLCTrainer
+
+    try:
+        trainer = (PLCTrainer if cfg.workload == "plc" else Trainer)(
+            cfg, device)
+    except (ValueError, FileNotFoundError) as e:  # an unported arch,
+        # head, dataset or option, a missing data dir, a bad --resume,
+        # --dp off the world size, a malformed --fault_spec: deterministic
+        print(f"[trainer] config error: {e}", file=sys.stderr)
+        raise SystemExit(2) from None
+    except DataplaneUnavailable as e:
+        print(f"[trainer] native dataplane unavailable: {e}",
+              file=sys.stderr)
+        raise SystemExit(2) from None
+    trainer.run()
 
 
 if __name__ == "__main__":

@@ -169,6 +169,15 @@ class RunConfig:
     # consecutive non-finite (skipped) steps before the run exits rc 8;
     # 0 = skip forever
     max_bad_steps: int = 25
+    # the hang watchdog (utils/backend_probe.py::StepHeartbeat): exit rc 7
+    # when no host-observed progress lands for this many seconds; set it
+    # above the slowest silent stretch (a cold kernel build included);
+    # 0 = off
+    hang_timeout_s: float = 0.0
+    # deterministic fault injection (utils/chaos.py), e.g.
+    # "nan_loss@step=7,ckpt_io@epoch=1,loader_io@batch=3,sigterm@step=20";
+    # CHAOS_FAULT_SPEC overrides; empty = every hook inert
+    fault_spec: str = ""
 
 
 @dataclass

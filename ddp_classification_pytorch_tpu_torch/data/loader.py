@@ -53,14 +53,17 @@ class Loader:
     image, int label[, index]). `batcher(indices, epoch, batch_idx)` → (images,
     labels) replaces the per-item path (`data/native.py`). `host_id` and
     `num_hosts` are this process's rank and the world size: the loader
-    yields that rank's shard."""
+    yields that rank's shard. `chaos` (a `utils/chaos.py::FaultPlan`)
+    makes its loader_io faults raise IOError from the matching (epoch,
+    batch), once (JAX `loader.py:101-104,189-190`)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 999, drop_last: bool = False,
                  num_workers: int = 0, prefetch: int = 2,
                  batcher: Optional[Callable[[np.ndarray, int, int], Batch]] = None,
-                 host_id: int = 0, num_hosts: int = 1):
+                 host_id: int = 0, num_hosts: int = 1, chaos=None):
         self.dataset = dataset
+        self.chaos = chaos
         self.batch_size = batch_size
         self.host_id, self.num_hosts = host_id, num_hosts
         self.shuffle = shuffle
@@ -108,6 +111,8 @@ class Loader:
         return (pos < len(self.dataset)).astype(np.float32)
 
     def _load_batch(self, batch_idx: int, indices: np.ndarray) -> Batch:
+        if self.chaos is not None:
+            self.chaos.maybe_fail_loader(epoch=self.epoch, batch=batch_idx)
         if self.batcher is not None:
             return self.batcher(indices, self.epoch, batch_idx)
         epoch = self.epoch

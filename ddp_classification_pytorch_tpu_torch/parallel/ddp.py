@@ -21,13 +21,21 @@ gloo on the card). A process that torchrun did not start (no
 - `sum_across` sums a tensor of counts (or of per-rank means, divided
   afterwards) across the ranks: the train step's loss and top-k counts,
   the eval's sums.
+- Explicit pods (`cli/train.py --multihost`) do not come from torchrun:
+  `parallel/fleet.py::initialize_with_retry` rendezvouses from the
+  ``FLEET_*`` variables and brings the group up through `init_group`.
+- `init_group` also makes the control plane's group: a second group over
+  gloo on the same ranks, which carries the fleet's small host
+  collectives (`parallel/fleet.py`) as CPU tensors, so they never
+  interleave with NCCL's stream of gradients and BN statistics.
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
 import os
-from typing import Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -81,15 +89,6 @@ def barrier() -> None:
         dist.barrier()
 
 
-def agree(value) -> bool:
-    """Whether every rank holds the same (picklable) `value`."""
-    if not initialized():
-        return True
-    got = [None] * world_size()
-    dist.all_gather_object(got, value)
-    return all(g == value for g in got)
-
-
 def local_device(device: torch.device) -> torch.device:
     """This rank's device: `cuda:LOCAL_RANK` for a CUDA `device` in a
     process torchrun started, else `device`."""
@@ -98,30 +97,70 @@ def local_device(device: torch.device) -> torch.device:
     return device
 
 
-@contextlib.contextmanager
-def process_group(device: torch.device) -> Iterator[torch.device]:
-    """Within the block this process is in torchrun's group (when torchrun
-    started it: NCCL on its own card, made current, or gloo on the CPU)
-    and the yielded device is its own; the group is torn down on the way
-    out, whatever ends the block."""
-    device = local_device(device)
-    if not launched():
-        yield device
-        return
-    rank_, world, _ = env_world()
-    addr = os.environ.get("MASTER_ADDR", "localhost")
+# the control plane's gloo group (`init_group`), None below two ranks
+_CONTROL: Optional[dist.ProcessGroup] = None
+
+
+def control_group() -> dist.ProcessGroup:
+    """The gloo group the fleet's host collectives run on."""
+    if _CONTROL is None:
+        raise RuntimeError("no control group: the world has fewer than "
+                           "two ranks")
+    return _CONTROL
+
+
+def init_group(device: torch.device, init_method: str, world: int,
+               rank_: int, timeout_s: Optional[float] = None) -> None:
+    """Join the world group at `init_method` (NCCL on the card, gloo on
+    the CPU), then, over more than one rank, make the control plane's
+    gloo group on the same ranks (a world of one exchanges nothing)."""
+    global _CONTROL
     kw = {}
     if device.type == "cuda":
-        torch.cuda.set_device(device)
         kw["device_id"] = device
+    if timeout_s is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(
-        "nccl" if device.type == "cuda" else "gloo",
-        init_method=f"tcp://{addr}:{os.environ['MASTER_PORT']}",
+        "nccl" if device.type == "cuda" else "gloo", init_method=init_method,
         rank=rank_, world_size=world, **kw)
+    _CONTROL = dist.new_group(backend="gloo") if world > 1 else None
+
+
+def shutdown() -> None:
+    """Tear the groups down (a no-op without them)."""
+    global _CONTROL
+    if initialized():
+        dist.destroy_process_group()
+    _CONTROL = None
+
+
+@contextlib.contextmanager
+def process_group(device: torch.device,
+                  rendezvous: Optional[Callable[[torch.device], None]] = None
+                  ) -> Iterator[torch.device]:
+    """Within the block this process is in its group and the yielded
+    device is its own (its card made current); the group is torn down on
+    the way out, whatever ends the block. The group is torchrun's, when
+    torchrun started the process, or the one `rendezvous(device)` brings
+    up through `init_group` (`--multihost`: the fleet's retrying
+    rendezvous from the ``FLEET_*`` variables); else there is none."""
+    device = local_device(device)
+    if rendezvous is None and not launched():
+        yield device
+        return
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     try:
+        if rendezvous is not None:
+            rendezvous(device)
+        else:
+            rank_, world, _ = env_world()
+            addr = os.environ.get("MASTER_ADDR", "localhost")
+            init_group(device, f"tcp://{addr}:{os.environ['MASTER_PORT']}",
+                       world, rank_)
         yield device
     finally:
-        dist.destroy_process_group()
+        shutdown()
 
 
 def wrap(model: nn.Module, device: torch.device) -> nn.Module:

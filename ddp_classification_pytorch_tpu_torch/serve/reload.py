@@ -43,8 +43,9 @@ thread == a stale lease), and the hot swap itself is token-gated — the
 replica only swaps while holding the fleet's single drain token, which
 makes the reload a rolling wave with at most one replica out at a time.
 
-The JAX watcher's fault-injection hook (`chaos=`) is not ported: the port
-has no `utils/chaos.py` yet (ROADMAP.md).
+`chaos` (a `utils/chaos.py::FaultPlan`) stages the fs flake: its
+watcher_io faults make the matching poll raise `OSError(EIO)`, which the
+backoff layer absorbs like any other (JAX `reload.py:76,157-158`).
 """
 
 from __future__ import annotations
@@ -76,8 +77,10 @@ class CheckpointWatcher:
         metrics: Optional[Any] = None,
         max_backoff_s: float = 30.0,
         fleet: Optional[Any] = None,
+        chaos: Optional[Any] = None,
     ):
         self.manager = CheckpointManager(run_dir, save_every_epoch=False)
+        self.chaos = chaos  # FaultPlan for watcher_io drills; None = never
         self.engine = engine
         self.build = build
         self.poll_s = max(float(poll_s), 0.1)
@@ -196,6 +199,8 @@ class CheckpointWatcher:
         # the lease rewrite IS the replica heartbeat: piggybacking it on
         # the poll tick means a wedged watcher goes visibly stale
         self._heartbeat()
+        if self.chaos:
+            self.chaos.maybe_fail_watcher_poll(poll=self.polls)
         for e, path, digest, model in self._scan():
             if model is None:
                 continue

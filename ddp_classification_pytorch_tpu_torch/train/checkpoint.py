@@ -27,6 +27,16 @@ through — the JAX package's `train/checkpoint.py` for one process
 - `CheckpointManager.verified_candidates` is the hot-reload scan: epoch
   files newest first, each verified and loaded (a failure quarantined and
   the next newest tried), with the verified sidecar's digest.
+- Over several ranks `--auto_resume` is the fleet's consensus
+  (`parallel/fleet.py::consensus_restore_latest`): rank 0 alone scans
+  (`restore_latest_with_provenance`, quarantining what fails), the others
+  restore exactly the file it names (`restore_exact`, which never
+  quarantines). A file without its sidecar is never picked: the JAX
+  manager accepts it as "legacy", the port quarantines it (ROADMAP.md §3).
+- Fault injection (`utils/chaos.py`): `ckpt_io` and `publish_corrupt`
+  tear the landed file to half its bytes AFTER its sha256 was computed,
+  so the sidecar no longer vouches for it; a torn publish emits
+  `publish_torn` (JAX `checkpoint.py:170-178,278-296`).
 
 Reading the JAX package's flax msgpack checkpoints is not ported yet: the
 GPU machine has no `msgpack` (ROADMAP.md). `models/convert.py` carries
@@ -39,7 +49,8 @@ import hashlib
 import json
 import os
 import re
-from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Tuple)
 
 import torch
 
@@ -72,13 +83,18 @@ def _to_cpu(obj: Any) -> Any:
     return obj
 
 
-def save(obj: Mapping[str, Any], path: str) -> str:
+def save(obj: Mapping[str, Any], path: str,
+         tear: Optional[Callable[[str], Any]] = None) -> str:
     """Atomically write `obj` (a state dict, nested dicts allowed; tensors
-    moved to the CPU) and its sidecar; returns the file's sha256."""
+    moved to the CPU) and its sidecar; returns the file's sha256. `tear`
+    (fault injection) is called with `path` once the bytes have landed
+    and their digest is known, before the sidecar is written."""
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(_to_cpu(obj), tmp)
+    digest = _sha256_file(tmp)
     os.replace(tmp, path)
-    digest = _sha256_file(path)
+    if tear is not None:
+        tear(path)
     sc_tmp = f"{checksum_path(path)}.{os.getpid()}.tmp"
     with open(sc_tmp, "w") as f:
         f.write(digest + "\n")
@@ -179,11 +195,15 @@ class CheckpointManager:
     `ckpt_e{N}.pt` every epoch (unless `best_only`), `ckpt_best.pt` when
     the metric improves (the same bytes), then `meta.json` (`last_epoch`,
     `best_epoch`, `best_metric`) strictly after the bytes; with `keep` > 0
-    only the newest `keep` epoch files stay."""
+    only the newest `keep` epoch files stay. `chaos` (a
+    `utils/chaos.py::FaultPlan`) tears the files of its ckpt_io and
+    publish_corrupt epochs."""
 
     def __init__(self, out_dir: str, save_every_epoch: bool = True,
-                 best_only: bool = False, keep: int = 0):
+                 best_only: bool = False, keep: int = 0,
+                 chaos: Optional[Any] = None):
         self.out_dir = out_dir
+        self._chaos = chaos
         self.save_every_epoch = save_every_epoch
         self.best_only = best_only
         self.keep = keep
@@ -249,11 +269,17 @@ class CheckpointManager:
             if paths:
                 sd = _to_cpu(state.state_dict())  # one host copy for every path
                 for path in paths:
-                    digest = save(sd, path)
+                    torn: List[bool] = []
+                    digest = save(sd, path, tear=None if self._chaos is None
+                                  else lambda p: torn.append(
+                                      self._chaos.maybe_corrupt_checkpoint(
+                                          p, epoch=epoch)))
                     if path != self.best_path:
                         # visible to watchers once its sidecar has landed
                         emit("publish", epoch=epoch, path=path,
                              digest=digest, world_size=ddp.world_size())
+                        if any(torn):
+                            emit("publish_torn", epoch=epoch, path=path)
             self._write_meta(**meta)
             if paths and self.keep > 0:
                 self._prune()
@@ -327,13 +353,40 @@ class CheckpointManager:
         loads, else `ckpt_best.pt`; a bad candidate is quarantined and the
         next newest tried. next_epoch is 0 when there is nothing to
         restore."""
+        state, next_epoch, _, _ = self.restore_latest_with_provenance(state)
+        return state, next_epoch
+
+    def restore_latest_with_provenance(
+            self, state) -> Tuple[Any, int, Optional[str], Optional[str]]:
+        """`restore_latest` that also says WHAT it restored: (state,
+        next_epoch, path, sha256), path and digest None on a fresh start
+        (what the fleet's consensus broadcasts from rank 0)."""
         for e in sorted(self._epoch_checkpoints(), reverse=True):
-            if self._restore_verified(state, self.epoch_path(e)):
+            path = self.epoch_path(e)
+            if self._restore_verified(state, path):
                 self.best_metric = self.read_meta().get("best_metric",
                                                         float("-inf"))
-                return state, e + 1
+                return state, e + 1, path, file_digest(path)
         if self._restore_verified(state, self.best_path):
             meta = self.read_meta()
             self.best_metric = meta.get("best_metric", float("-inf"))
-            return state, int(meta.get("best_epoch", -1)) + 1
-        return state, 0
+            return (state, int(meta.get("best_epoch", -1)) + 1,
+                    self.best_path, file_digest(self.best_path))
+        return state, 0, None, None
+
+    def restore_exact(self, state, path: str,
+                      expected_digest: str) -> Optional[Any]:
+        """A follower's consensus restore: load `path` into `state` iff
+        its bytes hash to `expected_digest` (rank 0's choice); None when
+        the file is missing, differs or does not load. Never quarantines:
+        scanning and renaming are rank 0's alone, so a bad file makes ONE
+        `*.corrupt`; a follower's failure surfaces in the fleet's digest
+        agreement (rc 9) instead."""
+        try:
+            if _sha256_file(path) != expected_digest:
+                return None
+            state.load_state_dict(torch.load(path, map_location="cpu",
+                                             weights_only=True))
+        except (OSError, ValueError, RuntimeError, KeyError, EOFError):
+            return None
+        return state

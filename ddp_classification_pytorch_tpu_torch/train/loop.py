@@ -17,8 +17,20 @@ datasets, take the item route (`data/native.py::decode_image` and the
 numpy `Transform` on the loader's threads), the JAX package's PIL route.
 The PLC workload's trainer is `train/plc_loop.py::PLCTrainer`.
 
+The run-control spine is the JAX trainer's (`loop.py:161-212,287-298,
+321-353,421-444,550-560` there): the hang watchdog
+(`utils/backend_probe.py::StepHeartbeat`, armed first, touched at the log
+cadence, at the epoch end and after each sync point, stopped on every way
+out), the fault plan (`utils/chaos.py`, inert without a spec), and over
+more than one rank (or on an elastic pod) the fleet
+(`parallel/fleet.py`): SIGTERM deferred to the epoch boundary, a
+divergence noted as abort intent instead of raised mid-epoch, the lease
+refreshed at the log cadence, one abort exchange after each epoch's
+steps (before eval and save: every rank leaves with the same rc), and
+`--auto_resume` as the resume consensus.
+
 Not ported yet (ROADMAP.md): async checkpoints, `h2d_overlap`, the
-profiler window, the pod fleet, chaos hooks and the compile sentinel.
+profiler window and the compile sentinel.
 """
 
 from __future__ import annotations
@@ -38,10 +50,13 @@ from ..data.synthetic import SyntheticDataset
 from ..data.transforms import INPUT_DTYPES, build_transform, preset_for_dataset
 from ..obs.registry import Registry
 from ..parallel import ddp
+from ..parallel import fleet as fleetlib
+from ..utils import chaos as chaoslib
+from ..utils.backend_probe import StepHeartbeat
 from ..utils.logging import EtaLogger, RecordWriter, host0_print
 from ..ops.nested import best_k
 from .checkpoint import CheckpointManager
-from .sentinel import StepSentinel
+from .sentinel import SentinelDiverged, StepSentinel
 from .state import TRESNET_ARCHS, create_train_state, param_count
 from .steps import make_eval_step, make_nested_eval_step, make_train_step
 
@@ -188,11 +203,39 @@ class Trainer:
 
     def __init__(self, cfg: Config, device: torch.device,
                  train_ds: Any = None, val_ds: Any = None):
+        # the hang watchdog (inert at hang_timeout_s 0), armed FIRST: the
+        # construction below already does device work (the kernels' first
+        # build, the state's placement, the restore)
+        self._heartbeat = StepHeartbeat(
+            cfg.run.hang_timeout_s, where=f"trainer[{cfg.workload}]").start()
+        try:
+            self._build(cfg, device, train_ds, val_ds)
+        except BaseException:
+            self._heartbeat.stop()
+            raise
+
+    def _build(self, cfg: Config, device: torch.device, train_ds: Any,
+               val_ds: Any) -> None:
         device = ddp.local_device(device)
         self.cfg, self.device = cfg, device
         world, primary = ddp.world_size(), ddp.is_primary()
+        # a malformed spec is a ValueError here: rc 2 at the CLI. The
+        # one-shot markers live under <out>/chaos; the rank feeds the
+        # CHAOS_HOST gate
+        self.chaos = chaoslib.plan_for_run(cfg.run.fault_spec, cfg.run.out_dir)
+        if self.chaos:
+            host0_print(f"[chaos] fault plan active: {self.chaos}")
         check_world(cfg, world)
         self.obs = Registry()
+        # the pod's epoch-boundary exchange and SIGTERM deferral over more
+        # than one rank; an elastic pod keeps the coordinator at world 1,
+        # to refresh its lease and see a recovered peer's fresh one
+        elastic = fleetlib.elastic_enabled() and bool(cfg.run.out_dir)
+        self.fleet = (fleetlib.FleetCoordinator(
+            out_dir=cfg.run.out_dir if elastic else "", registry=self.obs)
+            if world > 1 or elastic else None)
+        if self.fleet is not None and world > 1:
+            self._defer_sigterm_to_epoch_boundary()
         self.sentinel = StepSentinel(cfg.run.max_bad_steps, registry=self.obs)
         if train_ds is None:
             train_ds, val_ds = build_datasets(cfg)
@@ -214,7 +257,7 @@ class Trainer:
         self.train_loader = Loader(
             self.train_ds, d.batch_size, shuffle=True, seed=cfg.run.seed,
             num_workers=d.num_workers, prefetch=d.prefetch,
-            batcher=train_batcher, **shard)
+            batcher=train_batcher, chaos=self.chaos or None, **shard)
         self.val_loader = Loader(
             self.val_ds, d.batch_size, shuffle=False, seed=cfg.run.seed,
             num_workers=d.num_workers, prefetch=d.prefetch,
@@ -228,7 +271,7 @@ class Trainer:
         self.steps_per_epoch = max(len(self.train_loader), 1)
         self.state = create_train_state(cfg, device, self.steps_per_epoch,
                                         group=ddp.group())
-        self.train_step = make_train_step(cfg)
+        self.train_step = make_train_step(cfg, chaos=self.chaos or None)
         self.eval_step = (make_nested_eval_step(cfg)
                           if cfg.model.head == "nested"
                           else make_eval_step(cfg))
@@ -241,7 +284,8 @@ class Trainer:
             self.tb = SummaryWriter(os.path.join(cfg.run.out_dir, "tb"))
         self.ckpt = CheckpointManager(
             cfg.run.out_dir, save_every_epoch=cfg.run.save_every_epoch,
-            best_only=cfg.run.save_best_only, keep=cfg.run.keep_checkpoints)
+            best_only=cfg.run.save_best_only, keep=cfg.run.keep_checkpoints,
+            chaos=self.chaos or None)
         self.start_epoch = 0
         if cfg.run.resume:
             self.ckpt.restore(self.state, cfg.run.resume)
@@ -252,15 +296,12 @@ class Trainer:
             host0_print(f"resumed from {cfg.run.resume} at epoch "
                         f"{self.start_epoch}")
         elif cfg.run.auto_resume:
-            # rank 0 scans first (it quarantines a corrupt file); the
-            # others then find what it found
-            if not primary:
-                ddp.barrier()
-            self.state, self.start_epoch = self.ckpt.restore_latest(self.state)
-            if primary:
-                ddp.barrier()
-            if not ddp.agree(self.start_epoch):
-                raise RuntimeError("ranks auto-resumed at different epochs")
+            # the resume consensus: rank 0 alone scans, verifies and
+            # quarantines, every rank restores the file it names and the
+            # ranks prove it with a digest all-gather (PodInconsistent,
+            # rc 9); one rank takes the plain restore_latest
+            self.state, self.start_epoch = fleetlib.consensus_restore_latest(
+                self.ckpt, self.state)
             if self.start_epoch:
                 host0_print(f"auto-resumed from {cfg.run.out_dir} at epoch "
                             f"{self.start_epoch}")
@@ -271,6 +312,8 @@ class Trainer:
             self.state.ddp = ddp.wrap(self.state.model, device)
         if self.records is not None and self.native_dataplane:
             self.records.append_txt("# native C++ dataplane active")
+        # the global step counter, the chaos step hooks' coordinate
+        self._host_step = self.state.step
         host0_print(
             f"[trainer] workload={cfg.workload} arch={cfg.model.arch} "
             f"params={param_count(self.state):,} device={device} "
@@ -279,6 +322,48 @@ class Trainer:
             f"dtype={cfg.model.dtype} flash={cfg.model.flash_attention} "
             f"steps/epoch={self.steps_per_epoch}")
 
+    # ---------------------------------------------------------------- fleet --
+    def _defer_sigterm_to_epoch_boundary(self) -> None:
+        """Over several ranks a SIGTERM becomes abort intent instead of
+        killing this rank mid-collective (which would leave its peers
+        waiting in an all-reduce for good); the epoch-boundary exchange
+        turns it into rc 143 on every rank. Installed from the main
+        thread only (signals need it); one rank keeps the default
+        die-now."""
+        import signal
+        import threading
+
+        if threading.current_thread() is not threading.main_thread():
+            return
+
+        def on_sigterm(signum, frame):
+            self.fleet.note_abort(143, "SIGTERM received (preemption)")
+
+        signal.signal(signal.SIGTERM, on_sigterm)
+
+    def _sentinel_flush(self) -> None:
+        """`sentinel.flush`, pod-aware: without a fleet it raises to the
+        CLI (rc 8); on a pod the divergence becomes abort intent and this
+        rank keeps issuing the epoch's remaining step collectives (its
+        updates are skipped while non-finite); the intent surfaces as
+        rc 8 on every rank at the epoch-boundary exchange."""
+        try:
+            self.sentinel.flush()
+        except SentinelDiverged as e:
+            if self.fleet is None:
+                raise
+            self.fleet.note_abort(SentinelDiverged.exit_code, str(e))
+
+    def _chaos_step_hooks(self) -> None:
+        """The host-side step faults at this step's global index."""
+        self._host_step += 1
+        step = self._host_step - 1
+        self.chaos.maybe_sigterm(step=step)
+        self.chaos.maybe_peer_dead(step=step)
+        self.chaos.maybe_peer_slow(step=step)
+        self.chaos.maybe_host_lost(step=step)
+
+    # ---------------------------------------------------------------- train --
     def train_epoch(self, epoch: int,
                     eta: Optional[EtaLogger] = None) -> Dict[str, float]:
         self.train_loader.set_epoch(epoch)
@@ -290,27 +375,39 @@ class Trainer:
                 n_batches += 1
                 sums = _sum_into(sums, metrics)
                 self.sentinel.observe(metrics["step_ok"])
+                if self.chaos:
+                    self._chaos_step_hooks()
                 if step % self.cfg.run.log_every == 0:
                     if eta is not None:
                         eta.maybe_log(epoch, step, **{
                             k: float(v) for k, v in metrics.items()})
-                    self.sentinel.flush()  # raises SentinelDiverged (rc 8)
+                    # raises SentinelDiverged (rc 8); on a pod, abort intent
+                    self._sentinel_flush()
+                    self._heartbeat.touch()
+                    if self.fleet is not None:
+                        # a live rank never looks dead to a lease scan
+                        self.fleet.refresh_lease()
         finally:
             it.close()  # stop and join the stager on an exception
-        self.sentinel.flush()
+        self._sentinel_flush()
         if sums is None:
             return {"loss": 0.0, "top1": 0.0, "top3": 0.0,
                     "step_ok": 1.0, "grad_norm": 0.0}
-        return {k: float(v) / n_batches for k, v in sums.items()}
+        out = {k: float(v) / n_batches for k, v in sums.items()}
+        self._heartbeat.touch()
+        return out
 
     def evaluate(self) -> Dict[str, float]:
         it = iter(self.val_prefetch)
         try:
             if self.cfg.model.head == "nested":
-                return nested_eval(self.state, self.eval_step, it)
+                out = nested_eval(self.state, self.eval_step, it)
+                self._heartbeat.touch()
+                return out
             totals = eval_totals(self.state, self.eval_step, it)
         finally:
             it.close()
+        self._heartbeat.touch()  # its one host read proves progress
         n = max(totals["n"], 1.0)
         return {"val_loss": totals["loss_sum"] / n,
                 "val_top1": totals["top1"] / n,
@@ -327,6 +424,11 @@ class Trainer:
             for epoch in range(self.start_epoch, cfg.run.epochs):
                 t0 = time.time()
                 train_m = self.train_epoch(epoch, eta)
+                if self.fleet is not None:
+                    # the epoch-boundary exchange, before eval and save: a
+                    # stopped or diverged epoch is neither evaluated nor
+                    # checkpointed, and every rank raises the same rc
+                    self.fleet.check()
                 val_m = (self.evaluate()
                          if (epoch + 1) % cfg.run.eval_every == 0 else {})
                 last = {**train_m, **val_m, "epoch_time": time.time() - t0}
@@ -341,6 +443,7 @@ class Trainer:
                     self.tb.flush()
                 self.ckpt.save(self.state, epoch, metric=val_m.get("val_top1"))
         finally:
+            self._heartbeat.stop()
             if self.tb is not None:
                 self.tb.close()
             self.train_loader.close()

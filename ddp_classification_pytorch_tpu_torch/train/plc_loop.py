@@ -67,7 +67,13 @@ class PLCTrainer(Trainer):
 
     def __init__(self, cfg: Config, device: torch.device, train_ds: Any = None,
                  val_ds: Any = None, eta: Optional[np.ndarray] = None):
+        self._eta = eta
         super().__init__(cfg, device, train_ds, val_ds)
+
+    def _build(self, cfg: Config, device: torch.device, train_ds: Any,
+               val_ds: Any) -> None:
+        super()._build(cfg, device, train_ds, val_ds)
+        eta = self._eta
         self.predict_step = make_predict_step(
             cfg, batch_stat_mode=cfg.plc.batch_stat_predictions)
         self.delta = cfg.plc.current_delta
@@ -200,10 +206,15 @@ class PLCTrainer(Trainer):
             for epoch in range(self.start_epoch, cfg.run.epochs):
                 t0 = time.time()
                 train_m = self.train_epoch(epoch, eta)
+                if self.fleet is not None:
+                    # the epoch-boundary exchange (Trainer.run), before the
+                    # correction pass, which holds collectives of its own
+                    self.fleet.check()
                 changed = 0
                 if epoch + 1 > cfg.plc.warmup_epochs:
                     changed = self.correct_labels()
                     self.corrections_per_epoch.append(changed)
+                    self._heartbeat.touch()  # the pass ended in a host read
                 val_m = (self.evaluate()
                          if (epoch + 1) % cfg.run.eval_every == 0 else {})
                 last = {**train_m, **val_m, "corrected": float(changed),
@@ -226,6 +237,7 @@ class PLCTrainer(Trainer):
                     np.save(labels_path, _dataset_labels(self.train_ds))
                 ddp.barrier()  # no rank reads a stale copy
         finally:
+            self._heartbeat.stop()
             if self.tb is not None:
                 self.tb.close()
             self.train_loader.close()

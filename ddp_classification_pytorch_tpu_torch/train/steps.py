@@ -10,7 +10,7 @@ and device tensors; there is nothing to trace or compile.
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Callable, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -150,7 +150,8 @@ def _forward(cfg: Config, net: nn.Module, x: torch.Tensor,
     return net(x)
 
 
-def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
+def make_train_step(cfg: Config, chaos: Optional[Any] = None
+                    ) -> Callable[..., Dict[str, torch.Tensor]]:
     """`(state, images (B, H, W, 3), labels (B,)) -> metrics`, updating
     `state` in place — the JAX `_build_step` for every ported head.
 
@@ -179,7 +180,13 @@ def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
     (the JAX step selects on the device instead). Metrics are 0-d tensors
     of the global batch: loss, top1, top3 (of the logits the CE read: the
     margin logits for arcface, the masked ones for nested), step_ok,
-    grad_norm."""
+    grad_norm.
+
+    `chaos` (a `utils/chaos.py::FaultPlan`) nan_loss windows poison this
+    rank's loss to NaN AFTER the backward pass on the steps inside them
+    (JAX `steps.py:591-640`): the gradients stay untouched, the global
+    loss and so the gate see the NaN, and the step is skipped on every
+    rank. Outside its windows the step is the step without chaos."""
     if cfg.optim.grad_transform not in ("none", "cdr"):
         raise ValueError(f"unknown optim.grad_transform "
                          f"{cfg.optim.grad_transform!r}; one of none, cdr")
@@ -187,6 +194,7 @@ def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
     flips = _train_flip_enabled(cfg)
     seed, o = cfg.run.seed, cfg.optim
     cdr = o.grad_transform == "cdr"
+    nan_windows = list(chaos.windows("nan_loss", "step")) if chaos else []
 
     def step(state: "TrainState", images: torch.Tensor, labels: torch.Tensor,
              flip: Optional[np.ndarray] = None,
@@ -214,6 +222,9 @@ def make_train_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
         logits = _forward(cfg, net, x, labels, k)
         loss = _cross_entropy(logits, labels)
         loss.backward()
+        if any(state.step >= lo and (hi is None or state.step <= hi)
+               for lo, hi in nan_windows):
+            loss = torch.full_like(loss, float("nan"))
         metrics = _global_metrics(loss, logits.detach(), labels)
         params = [p for p in model.parameters() if p.grad is not None]
         grad_norm = torch.linalg.vector_norm(

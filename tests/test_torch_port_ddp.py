@@ -444,6 +444,38 @@ def test_checkpoints_cross_world_sizes(tmp_path):
     assert last["step_ok"] == 1.0 and trainer.state.step == 20
 
 
+def test_sigterm_on_one_rank_exits_both_143_at_the_epoch_boundary(tmp_path):
+    """`CHAOS_HOST=1` aims `sigterm@step=1` at rank 1: its handler defers
+    the signal to the epoch boundary, where the abort exchange (the
+    fleet's gloo control group) raises rc 143 on BOTH ranks; neither
+    hangs, and the stopped epoch is neither evaluated nor saved."""
+    out = str(tmp_path / "run")
+    env = _rank_env(WORLD_SIZE=str(WORLD), CHAOS_HOST="1")
+    argv = _argv(out, 2, "--synthetic_size", "8", "--fault_spec",
+                 "sigterm@step=1")
+    procs = [subprocess.Popen(
+        [sys.executable, WORKER, "--cli", *argv], cwd=REPO,
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(WORLD)]
+    try:
+        logs = [p.communicate(timeout=TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [143] * WORLD, "\n".join(logs)
+    assert "SIGTERM self at step 1" in logs[1]
+    assert "SIGTERM self" not in logs[0]
+    for log in logs:
+        assert "pod abort rc 143" in log
+    assert "[epoch 0]" not in logs[0]
+    assert not os.path.exists(os.path.join(out, "ckpt_e0.pt"))
+    assert sorted(os.listdir(os.path.join(out, "chaos"))) == [
+        "sigterm.step.1-1.h1"]
+
+
 def test_cdr_and_nested_ranks_stay_equal(spawned, ranks):
     for head in ("cdr", "nested"):
         r0, r1 = (r[head] for r in ranks)

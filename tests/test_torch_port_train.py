@@ -304,7 +304,7 @@ def test_cli_exits_8_after_max_bad_steps_consecutive_skips(monkeypatch, tmp_path
     rc 8; no epoch after the divergence is checkpointed."""
     from ddp_classification_pytorch_tpu_torch.train import loop
 
-    def nan_step(cfg):
+    def nan_step(cfg, chaos=None):
         def step(state, images, labels):
             state.step += 1
             nan = torch.tensor(float("nan"))

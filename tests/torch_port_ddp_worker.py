@@ -3,6 +3,7 @@ CPU, joined from torchrun's environment variables (RANK, WORLD_SIZE,
 LOCAL_RANK, MASTER_ADDR, MASTER_PORT) as the port's CLI joins it.
 
     python tests/torch_port_ddp_worker.py IN.pt OUT_DIR
+    python tests/torch_port_ddp_worker.py --cli ARGS...
 
 IN.pt holds the inputs (tensors and plain values); each rank writes its
 results to OUT_DIR/rank<R>.pt:
@@ -22,6 +23,9 @@ results to OUT_DIR/rank<R>.pt:
 - `plc`: a `PLCTrainer` over the reduced ResNet-50 (its fc state) on the
   val set as the train set: the ordered pass's logits gathered from the
   ranks, then one LRT correction: the labels, δ and the count.
+
+With `--cli`, the rank runs the port's train CLI (`cli/train.py`'s
+`main`) on ARGS instead and exits with its rc.
 
 Imports torch, numpy and the port only (no JAX), so a rank starts fast.
 """
@@ -233,6 +237,11 @@ def plc_config(data, batch):
 def main() -> None:
     from ddp_classification_pytorch_tpu_torch.parallel import ddp
 
+    if sys.argv[1] == "--cli":
+        from ddp_classification_pytorch_tpu_torch.cli import train
+
+        train.main(sys.argv[2:])
+        return
     inp, out_dir = sys.argv[1:3]
     data = torch.load(inp, weights_only=True)
     with ddp.process_group(torch.device("cpu")):
