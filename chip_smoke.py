@@ -9,7 +9,10 @@ resumed checkpoint, training ResNet-50 (the reference's default model)
 and serving its checkpoint, the same short run under torchrun over NCCL,
 the reference's ArcFace, CDR, Nested and PLC workloads on ResNet-50, and
 serving over HTTP with hot reload, the fleet's drain token and admission
-control, and ViT-B/16 through the flash forward — on one NVIDIA GPU.
+control, ViT-B/16 through the flash forward, training under injected
+faults through the supervisor, and the train→serve chaos scenario (a
+trainer and serve replicas as processes sharing the card and one run
+directory) — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -322,7 +325,26 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    rc 0 (exit), `ckpt_e1.pt.corrupt` exists and the last run resumed
    from `ckpt_e0.pt` at epoch 1, `history.json` holds epochs 0-2 once,
    the generation file reads 3, the membership `gen=3 world=0` beside a
-   lease, the supervisor exits 0; the phase prints its time.
+   lease, the supervisor exits 0; the phase prints its time;
+30. (run before the summary line) the train→serve chaos scenario:
+   `cli/scenario.py --device cuda` as a subprocess over SCENARIO_SPEC
+   (one elastic trainer host under `cli/supervise.py`, TResNet-M at
+   224 px and 2173 classes, batch 32, 4 epochs of 8 steps, f32, with
+   `ckpt_io@epoch=0,nan_loss@step=2..3,host_lost@step=12,
+   publish_corrupt@epoch=2`; two serve replicas `cli/serve.py --watch
+   --port --fleet_dir` on the same card, the autoscaler armed up to 3,
+   admission at 250 ms, `watcher_io@poll=3` on replica 0; 4 rps offered;
+   a drain of replica 1 at the first publish, the drain-token holder
+   SIGKILLed once a wave is in flight after 40 s, a spike to 12 rps at
+   35 s): rc 0 and a green line naming S1-S5; events.jsonl holds
+   publish_torn, quarantine, drain_token_acquire, spike_load, scale_out,
+   a `kill_replica_during_wave@` firing with its target, the drained
+   replica's relaunch and the lost host's relaunch; the `lint` event's
+   rc is 0; every child's banner names cuda. It prints the phase's wall,
+   per good publish the seconds until each replica serves it, the lowest
+   availability window, request p50/p99, each restart's rc and the
+   seconds from the spike to `scale_out`, each beside the card. The
+   children are processes of their own: no launch counter sees them.
 
 Numerics on the card: `torch.backends.cudnn.allow_tf32 = False` and
 `torch.backends.cuda.matmul.allow_tf32 = False` (f32 convolutions and
@@ -477,6 +499,34 @@ RECOVERY_SPEC = ("nan_loss@step=2..3,loader_io@batch=5,peer_slow@step=12,"
                  "ckpt_io@epoch=1,sigterm@step=19")
 RECOVERY_T_MIN_S = 20.0  # the hang timeout's floor, seconds
 RECOVERY_RCS = [1, 7, 143, 0]  # loader_io, peer_slow, sigterm, done
+# phase 30: JAX drills 8 and 9 merged onto one trainer host (NCCL refuses
+# two ranks on one card, so host 1's faults moved to host 0) at the serving
+# configuration. A pod of one restarts in ≈ 25 s and then publishes its 4
+# epochs within seconds, so the timeline is set to that: the drain fires at
+# the first (torn) publish, the spike while the lost host restarts, and the
+# wave kill stays armed from 40 s until the first wave is in flight
+SCENARIO_SPEC = {
+    "trainer": {"hosts": 1, "elastic": True, "min_processes": 1, "epochs": 4,
+                "model": "tresnet_m", "variant": "imagenet",
+                "num_classes": 2173, "image_size": 224, "batchsize": 32,
+                "synthetic_size": 256, "relaunch_lost": True,
+                "fault_specs": {"0": "ckpt_io@epoch=0,nan_loss@step=2..3,"
+                                     "host_lost@step=12,"
+                                     "publish_corrupt@epoch=2"}},
+    "serve": {"replicas": 2, "poll_s": 1.0, "queue_depth": 16,
+              "max_batch": 8, "buckets": "1,8", "max_replicas": 3,
+              "fleet_ttl_s": 6.0, "admission_deadline_ms": 250.0,
+              "scale_out_deadline_s": 60.0,
+              "fault_specs": {"0": "watcher_io@poll=3"}},
+    "load": {"rps": 4.0, "timeout_s": 20.0},
+    "availability": {"floor": 0.5, "window_s": 10.0, "min_samples": 3},
+    "adopt_deadline_s": 120.0, "deadline_s": 600.0,
+    "timeline": [{"at": "publish:0", "action": "drain_replica", "replica": 1},
+                 {"at": "t:40", "action": "kill_replica_during_wave"},
+                 {"at": "t:35", "action": "spike_load", "rps": 12.0}],
+}
+SCENARIO_EVENTS = ("publish_torn", "quarantine", "drain_token_acquire",
+                   "spike_load", "scale_out", "host_relaunch", "lint")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3161,6 +3211,102 @@ def recovery_supervised(hang_s: float, card: str) -> dict:
     return rec
 
 
+# phase 30: the train→serve chaos scenario, every actor a process on the card
+
+def scenario_phase(card: str) -> dict:
+    """Phase 30: `cli/scenario.py` over SCENARIO_SPEC as a subprocess on the
+    card; checks the verdict, the events the spec's faults must leave and
+    every child's device, and returns the run's numbers
+    (`scenario/report.py`) with the restart log."""
+    from ddp_classification_pytorch_tpu_torch.obs.events import read_events
+    from ddp_classification_pytorch_tpu_torch.scenario.report import (
+        timeline_report,
+    )
+    from ddp_classification_pytorch_tpu_torch.scenario.spec import parse_spec
+    from ddp_classification_pytorch_tpu_torch.scenario.supervisor import (
+        banner_devices,
+    )
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scenario_")
+    out = os.path.join(tmp, "run")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("CHAOS_", "FLEET_", "SCENARIO_"))
+           and k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                         "MASTER_PORT")}
+    cmd = [sys.executable, "-m",
+           "ddp_classification_pytorch_tpu_torch.cli.scenario",
+           "--scenario_spec", json.dumps(SCENARIO_SPEC), "--out", out,
+           "--device", "cuda"]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(
+                timeout=SCENARIO_SPEC["deadline_s"] + 240)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            stdout, stderr = proc.communicate()
+            raise RuntimeError(f"chip_smoke: the scenario ran past its "
+                               f"deadline:\n{stdout[-3000:]}\n"
+                               f"{stderr[-3000:]}")
+        wall = time.perf_counter() - t0
+        tail = f"\n{stdout[-4000:]}\n{stderr[-6000:]}"
+        green = [ln for ln in stdout.splitlines()
+                 if ln.startswith("[scenario] GREEN:")]
+        check(proc.returncode == 0 and green
+              and all(f"S{i}" in green[0] for i in range(1, 6)),
+              f"scenario rc {proc.returncode}, green {green}{tail}")
+        events = read_events(os.path.join(out, "events.jsonl"))
+        kinds = {e["kind"] for e in events}
+        check(all(k in kinds for k in SCENARIO_EVENTS),
+              f"events lack {[k for k in SCENARIO_EVENTS if k not in kinds]}"
+              f"{tail}")
+        fired = [e for e in events if e["kind"] == "timeline"]
+        wave = [e for e in fired if e["action"].startswith(
+            "kill_replica_during_wave@") and e.get("target")]
+        drain = [e for e in fired if e["action"].startswith("drain_replica@")]
+        check(wave and drain, f"timeline firings {fired}{tail}")
+        target = "replica{}".format(SCENARIO_SPEC["timeline"][0]["replica"])
+        relaunched = [e for e in events if e["kind"] == "replica_start"
+                      and e["replica"] == target
+                      and e["ts"] > drain[0]["ts"]]
+        check(relaunched, f"{target} was not relaunched after its drain{tail}")
+        check([e["rc"] for e in events if e["kind"] == "lint"] == [0],
+              f"lint events {[e for e in events if e['kind'] == 'lint']}")
+        devices = {}
+        for name in sorted(os.listdir(out)):
+            if name.endswith(".log") and name.startswith(("host", "replica")):
+                with open(os.path.join(out, name)) as f:
+                    devices[name] = banner_devices(f.read())
+        who = {w for seen in devices.values() for w, _ in seen}
+        check(who == {"trainer", "serve"} and all(
+            d == "cuda" for seen in devices.values() for _, d in seen),
+            f"children's devices {devices}")
+        report = timeline_report(events, parse_spec(SCENARIO_SPEC))
+        with open(os.path.join(out, "restarts.log")) as f:
+            restarts = f.read().splitlines()
+        host_rcs = [int(t.split("=", 1)[1]) for line in restarts
+                    for t in line.split() if t.startswith("rc=")]
+    finally:
+        # the run's logs and events (not its checkpoints) for a post-mortem
+        keep = os.path.join(REPO, "chiprun_out", "scenario")
+        shutil.rmtree(keep, ignore_errors=True)
+        os.makedirs(keep, exist_ok=True)
+        for name in (os.listdir(out) if os.path.isdir(out) else []):
+            if name.endswith((".log", ".jsonl")):
+                shutil.copy(os.path.join(out, name), keep)
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"spec": SCENARIO_SPEC, "wall_s": wall, "green": green[0],
+           "events": len(events), "event_kinds": sorted(kinds),
+           "wave_kill": wave[0], "drain": drain[0], "devices": devices,
+           "restarts_log": restarts, "trainer_rcs": host_rcs,
+           "report": report, "card": card}
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3849,6 +3995,32 @@ def main() -> int:
     recovery_rec["phase_s"] = time.perf_counter() - t0
     log(f"[recovery] phase 29 took {recovery_rec['phase_s']:.1f} s ({card})")
     report["recovery"] = recovery_rec
+
+    # ------------------------------------ 30. the train→serve scenario --
+    gc.collect()  # the scenario's processes share the card with this one
+    torch.cuda.empty_cache()
+    scen = scenario_phase(card)
+    rep = scen["report"]
+    log(f"[scenario] phase 30 took {scen['wall_s']:.1f} s ({card}): "
+        f"{scen['green']}")
+    for pub in rep["adoption_s"]:
+        log(f"[scenario] publish epoch {pub['epoch']} at "
+            f"{pub['at_s']:.1f} s served after (s) "
+            f"{json.dumps(pub['replicas'])} ({card})")
+    log(f"[scenario] lowest availability window "
+        f"{json.dumps(rep['min_availability'])} ({card})")
+    log(f"[scenario] requests p50 {rep['request_ms']['p50']} ms, p99 "
+        f"{rep['request_ms']['p99']} ms over {rep['request_ms']['n']} "
+        f"answers, {json.dumps(rep['request_ms']['statuses'])} ({card})")
+    log(f"[scenario] restarts: trainer rcs {scen['trainer_rcs']}, lost "
+        f"hosts {json.dumps(rep['host_lost'])}, replica stops "
+        f"{json.dumps([(r['replica'], r['rc']) for r in rep['replica_stops']])}"
+        f" ({card})")
+    log(f"[scenario] spike to scale_out (s) "
+        f"{json.dumps(rep['spike_to_scale_out_s'])} ({card})")
+    log(f"[scenario] wave kill {json.dumps(scen['wave_kill'])}; children "
+        f"on {json.dumps(scen['devices'])}")
+    report["scenario"] = scen
 
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)

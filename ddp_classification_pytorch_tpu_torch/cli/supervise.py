@@ -43,7 +43,7 @@ import socket
 import subprocess
 import sys
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 from ..parallel import fleet
 
@@ -170,9 +170,19 @@ def supervise(args: Sequence[str], *, command: Optional[List[str]] = None,
         sleep(float(backoff))
 
 
+class Outcome(NamedTuple):
+    """What the supervisor exits with: `code` is its trainer's last rc,
+    passed through unchanged as the script's `exit $rc` does (catalogued
+    where the trainer chose it, 128 + N for a signal death) — a declared
+    code attribute, the form the rc-catalogue lint
+    (`analysis/lint.py`) accepts for a code that is not a literal."""
+
+    code: int
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     return supervise(sys.argv[1:] if argv is None else list(argv))
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(Outcome(main()).code)

@@ -60,9 +60,10 @@ S5 invariant replays these):
 The port's copy of the JAX package's `obs/events.py`, record for record:
 a port process and a JAX process appending to one `events.jsonl` write
 the same vocabulary, and the JAX package's `read_events` /
-`validate_events` read what the port writes. The scenario supervisor is
-not ported yet (ROADMAP.md); the port's trainer (`publish`, `quarantine`)
-and server (the rest of the serve rows) emit when the variables are set.
+`validate_events` read what the port writes. The port's trainer
+(`publish`, `quarantine`, `reform`) and server (the serve rows) emit when
+the variables are set; the scenario supervisor (`scenario/supervisor.py`)
+writes the rest.
 """
 
 from __future__ import annotations

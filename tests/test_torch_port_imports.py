@@ -54,7 +54,9 @@ for name in ("models.resnet", "models.batchnorm", "parallel.ddp",
              "ops.arcface", "ops.cdr", "ops.nested", "models.heads",
              "ops.labelnoise", "data.plc", "train.plc_loop", "obs.events",
              "serve.fleet", "serve.reload", "serve.http", "utils.chaos",
-             "parallel.fleet", "cli.supervise"):
+             "parallel.fleet", "cli.supervise", "scenario.spec",
+             "scenario.invariants", "scenario.supervisor", "scenario.fuzz",
+             "analysis.lint", "cli.scenario", "cli.fuzz"):
     assert f"{port}.{name}" in names, name
 # the item route's decoder is the port's own C++ source, built from the
 # repo (it includes the dataplane's source; PIL stays refused)
