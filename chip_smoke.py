@@ -10,9 +10,11 @@ and serving its checkpoint, the same short run under torchrun over NCCL,
 the reference's ArcFace, CDR, Nested and PLC workloads on ResNet-50, and
 serving over HTTP with hot reload, the fleet's drain token and admission
 control, ViT-B/16 through the flash forward, training under injected
-faults through the supervisor, and the train→serve chaos scenario (a
+faults through the supervisor, the train→serve chaos scenario (a
 trainer and serve replicas as processes sharing the card and one run
-directory) — on one NVIDIA GPU.
+directory), and VGG19-BN, the arcface and nested heads on TResNet-M and
+the ViT, the trainer's profiler window, `--debug_nans` and
+`cli/verify_import.py` — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -304,7 +306,11 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    the HTTP serve path (`serve_http_path_launches`: K1 36 a forward, the
    others 0) and on the ViT serve leg (`vit_serve_path_launches`: K2 12
    a forward, the others 0) and on the recovery path of phase 29
-   (`recovery_path_launches`), then `{"ok": true, "device": {...}}` last;
+   (`recovery_path_launches`) and on phase 31's legs
+   (`vgg_nested_path_launches`, `tresnet_arcface_path_launches`,
+   `tresnet_nested_path_launches`, `vit_arcface_path_launches`,
+   `debug_nans_path_launches`, `profile_window_path_launches`), then
+   `{"ok": true, "device": {...}}` last;
 29. (run before the summary line) the recovery chain on the card —
    (a) `Trainer` on TResNet-M at full width (224 px, 2173 classes, bf16,
    batch 32, 256 synthetic images: 8 steps an epoch, 2 epochs) with
@@ -344,7 +350,36 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    per good publish the seconds until each replica serves it, the lowest
    availability window, request p50/p99, each restart's rc and the
    seconds from the spike to `scale_out`, each beside the card. The
-   children are processes of their own: no launch counter sees them.
+   children are processes of their own: no launch counter sees them;
+31. this slice's paths, every launch count set to 0 just before each leg
+   — (a) `cli/train.py nested --model vgg19_bn` in process at full width
+   (cfg E, 224 px, 2173 classes, bf16, batch 64, dropout 0.5: 8 steps,
+   the all-K eval first and after the epoch) through `train_main_path`:
+   none of the seven kernels launched (JAX's VGG BNs are XLA), the 32
+   frozen BN tensors bitwise unchanged, `ckpt_best.pt` served by
+   `cli/serve.py nested --model vgg19_bn --ckpt` with the trainer's top-5;
+   its train step's wall (host clock) and device ms (CUDA events) and
+   images/s; (b) TResNet-M under arcface and under nested with freeze-BN
+   at the serving configuration (224 px, 2173 classes, bf16, batch 32):
+   K1, K1s, K1r and K1d at their 36 sites a step (K1 36 an eval batch),
+   the 48 frozen tensors bitwise unchanged and all 36 ABNs' running means
+   moved, each checkpoint served (K1 36 a forward) with the trainer's
+   top-5; (c) ViT-B/16 under arcface at 512 px with `--flash_attention`,
+   2 steps and one eval batch: K2 12 a forward, K3 and K4 12 a backward,
+   nothing else; (d) run first, right after the build (repeated profiler
+   sessions in one process stop recording device activity): `--profile_steps
+   4` on the ResNet-50 baseline step at batch 128 (6 steps, steps 2-5
+   captured), CUDA events around each step: the capture lands at
+   `<out>/profile/<host>.trace.json.gz` and the window closes,
+   `obs/trace.py` parses it into steps 2-5 whose six buckets sum to their
+   walls, and its device-lane total is within PROF_TOL of the events';
+   the breakdown is printed; (e) `cli/train.py --debug_nans` on TResNet-M
+   (224 px, batch 8) with `nan_loss@step=1`: step 0 clean under the mode
+   (the K1 family's 36 sites, their outputs checked), step 1 raises
+   FloatingPointError naming `full_like` (a process would exit rc 1); (f)
+   `cli/verify_import.py` on the card (TF32 off) over resnet50, vgg19_bn
+   and tresnet_m checkpoints the oracles write with random weights: PASS,
+   rc 0 each; a file with a renamed key: rc 2.
 
 Numerics on the card: `torch.backends.cudnn.allow_tf32 = False` and
 `torch.backends.cuda.matmul.allow_tf32 = False` (f32 convolutions and
@@ -3307,6 +3342,417 @@ def scenario_phase(card: str) -> dict:
     return rec
 
 
+# ------------------------------------------------------------- phase 31 --
+# this slice's paths. (a) VGG19-BN (cfg E) under the nested recipe at full
+# width: 224 px, 2173 classes, bf16, batch 64 — 512 images are TRAIN_STEPS
+# steps, its 128 val images EVAL_BATCHES batches; the reference's dropout
+# 0.5 (JAX `factory.py:61-62`)
+VGG_ARGV = ["nested", "--dataset", "synthetic", "--synthetic_size", "512",
+            "--model", "vgg19_bn", "--image_size", "224", "--num_classes",
+            "2173", "--batchsize", "64", "--dtype", "bfloat16", "--epochs",
+            "1", "--device", "cuda"]
+VGG_SERVE_ARGV = ["nested" if a == "baseline" else
+                  "vgg19_bn" if a == "tresnet_m" else a for a in SERVE_ARGV]
+VGG_FROZEN = 32  # the 16 BNs' γ/β the freeze-BN filter matches
+# (b) TResNet-M under arcface and under nested with freeze-BN at the
+# serving configuration: 256 images at batch 32, each preset's optimizer
+TRESNET_HEAD_ARGV = {w: [w, *TRESNET_TRAIN_ARGV[1:TRESNET_TRAIN_ARGV.index(
+    "--lr")], "--device", "cuda"] for w in ("arcface", "nested")}
+TRESNET_FROZEN = 48  # the 24 identity BNs' γ/β (bn2, bn3, bn_down)
+# (c) ViT-B/16 under arcface at 512 px with the flash kernels: 64 images at
+# batch 32 are 2 steps, its 32 val images one eval batch
+VIT_ARC_ARGV = ["arcface", "--dataset", "synthetic", "--synthetic_size", "64",
+                "--model", "vit_b16", "--image_size", "512", "--num_classes",
+                "1000", "--batchsize", "32", "--flash_attention", "--dtype",
+                "bfloat16", "--epochs", "1", "--device", "cuda"]
+VIT_ARC_STEPS, VIT_ARC_EVALS = 2, 1
+# (d) the profiler window on the ResNet-50 baseline step at batch 128:
+# 768 images are 6 steps, so steps 2-5 are captured
+PROF_ARGV = [a if b not in ("--synthetic_size", "--batchsize") else
+             {"--synthetic_size": "768", "--batchsize": "128"}[b]
+             for b, a in zip([None] + RESNET_TRAIN_ARGV, RESNET_TRAIN_ARGV)
+             ] + ["--profile_steps", "4"]
+PROF_STEPS, PROF_FIRST = 6, 2
+PROF_TOL = 0.10  # the trace's device-lane total vs CUDA events, relatively
+# (e) --debug_nans on TResNet-M (224 px, batch 8): step 0 clean under the
+# mode, step 1 poisoned by nan_loss, which must raise naming full_like
+NAN_ARGV = ["baseline", "--dataset", "synthetic", "--synthetic_size", "16",
+            "--model", "tresnet_m", "--image_size", "224", "--num_classes",
+            "2173", "--batchsize", "8", "--dtype", "bfloat16", "--epochs",
+            "1", "--device", "cuda", "--debug_nans", "--fault_spec",
+            "nan_loss@step=1"]
+# (f) cli/verify_import.py on the oracles' checkpoints (random weights)
+VERIFY_ARCHS = ("resnet50", "vgg19_bn", "tresnet_m")
+
+
+def frozen_snapshot(torch, model):
+    """{name: copy} of the params freeze-BN leaves out of the update."""
+    from ddp_classification_pytorch_tpu_torch.train.schedule import (
+        frozen_bn_names,
+    )
+
+    params = dict(model.named_parameters())
+    return {n: params[n].detach().clone() for n in frozen_bn_names(model)}
+
+
+def event_step_ms(torch, fn, reps: int = STEP_REPS) -> float:
+    """Device ms of one call of `fn` between two CUDA events (the device's
+    gaps inside the call included), median of `reps`."""
+    fn()
+    torch.cuda.synchronize()
+    events = [tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+              for _ in range(reps)]
+    for s, e in events:
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def vgg_nested_path(torch, device, train_cli, serve_cli, checkpoint,
+                    fused_abn, k1, counters, card) -> dict:
+    """Phase 31 (a): VGG19-BN under the nested recipe through
+    `train_main_path` (none of the seven kernels: JAX's VGG BNs are XLA);
+    its 32 frozen tensors bitwise unchanged; the checkpoint served with
+    the trainer's top-5; then its train step's wall and device ms."""
+    from ddp_classification_pytorch_tpu_torch.models.vgg import Dropout
+
+    kept = {}
+
+    def before(tr):
+        kept.update(frozen_snapshot(torch, tr.state.model))
+        check(len(kept) == VGG_FROZEN, f"vgg: {len(kept)} frozen tensors")
+
+    def then(tr, ckpt):
+        params = dict(tr.state.model.named_parameters())
+        moved = [n for n, v in kept.items() if not torch.equal(params[n], v)]
+        check(not moved, f"vgg: frozen tensors moved: {moved[:4]}")
+        return serve_trained_checkpoint(
+            torch, fused_abn, device, serve_cli, k1, tr, ckpt,
+            np.stack([tr.val_ds[i][0] for i in range(8)]), VGG_SERVE_ARGV,
+            k1_per_forward=0) | {"frozen_unchanged": len(kept)}
+
+    trainer, cfg, rec = train_main_path(
+        torch, device, train_cli, checkpoint, VGG_ARGV, counters,
+        dict.fromkeys(counters, 0), "vgg-nested-train", then, before=before,
+        ckpt_name="ckpt_best.pt")
+    model = trainer.state.model
+    drops = [m.p for m in model.modules() if isinstance(m, Dropout)]
+    check((cfg.model.arch, cfg.model.head, cfg.model.freeze_bn, drops,
+           model.feat_dim) == ("vgg19_bn", "nested", True, [0.5], 4096),
+          f"vgg: not the nested recipe on VGG19-BN ({drops})")
+    n = cfg.data.batch_size
+    rng = np.random.default_rng(2)
+    images = torch.from_numpy(rng.integers(0, 256, (n, 224, 224, 3),
+                                           dtype=np.uint8)).to(device)
+    labels = torch.from_numpy(rng.integers(0, 2173, n).astype(np.int32)
+                              ).to(device)
+
+    def rstep():
+        return trainer.train_step(trainer.state, images, labels)
+
+    log(f"[timing] clocks.sm, clocks.max.sm, power.draw: {clocks()}")
+    wall = host_ms(torch, rstep)
+    dev = event_step_ms(torch, rstep)
+    rec["step"] = {"batch": n, "px": 224, "dtype": "bfloat16",
+                   "wall_ms": wall, "device_ms_events": dev,
+                   "images_per_s": n / wall * 1e3}
+    log(f"[vgg] {card}: VGG19-BN nested train step, batch {n}, bf16, 224 "
+        f"px: wall {wall:.2f} ms, device {dev:.2f} ms (CUDA events), "
+        f"{n / wall * 1e3:.1f} images/s")
+    log(f"[timing] clocks.sm, clocks.max.sm, power.draw: {clocks()}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tresnet_head_path(torch, device, train_cli, serve_cli, checkpoint,
+                      fused_abn, k1, counters, workload: str) -> dict:
+    """Phase 31 (b): TResNet-M under `workload` (arcface, or nested with
+    freeze-BN) through `train_main_path`: the K1 family at its 36 sites a
+    step (K1 36 an eval batch too), the frozen tensors bitwise unchanged,
+    every ABN's running statistics moved; the checkpoint served (K1 36 a
+    forward) with the trainer's top-5."""
+    from ddp_classification_pytorch_tpu_torch.models.tresnet import FusedABN
+
+    kept, stats = {}, {}
+    evals = EVAL_BATCHES * (2 if workload == "nested" else 1)  # eval first
+    want = dict.fromkeys(counters, 0) | {
+        "k1": ABN_SITES * (TRAIN_STEPS + evals),
+        "k1s": ABN_SITES * TRAIN_STEPS, "k1r": ABN_SITES * TRAIN_STEPS,
+        "k1d": ABN_SITES * TRAIN_STEPS}
+
+    def abns(model):
+        return {n: m for n, m in model.named_modules()
+                if isinstance(m, FusedABN)}
+
+    def before(tr):
+        if tr.cfg.model.freeze_bn:
+            kept.update(frozen_snapshot(torch, tr.state.model))
+        stats.update({n: m.running_mean.clone()
+                      for n, m in abns(tr.state.model).items()})
+
+    def then(tr, ckpt):
+        params = dict(tr.state.model.named_parameters())
+        moved = [n for n, v in kept.items() if not torch.equal(params[n], v)]
+        check(not moved, f"{workload}: frozen tensors moved: {moved[:4]}")
+        now = abns(tr.state.model)
+        still = [n for n, v in stats.items()
+                 if torch.equal(now[n].running_mean, v)]
+        check(len(stats) == ABN_SITES and not still,
+              f"{workload}: ABN running means that did not move: {still}")
+        return serve_trained_checkpoint(
+            torch, fused_abn, device, serve_cli, k1, tr, ckpt,
+            np.stack([tr.val_ds[i][0] for i in range(8)]),
+            [workload if a == "baseline" else a for a in SERVE_ARGV]) | {
+            "frozen_unchanged": len(kept), "abn_stats_moved": len(stats)}
+
+    trainer, cfg, rec = train_main_path(
+        torch, device, train_cli, checkpoint, TRESNET_HEAD_ARGV[workload],
+        counters, want, f"tresnet-{workload}-train", then, before=before,
+        ckpt_name="ckpt_best.pt" if workload == "nested" else None)
+    check(cfg.model.freeze_bn == (workload == "nested")
+          and len(kept) == (TRESNET_FROZEN if cfg.model.freeze_bn else 0),
+          f"{workload}: freeze_bn {cfg.model.freeze_bn}, {len(kept)} frozen")
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def vit_arcface_path(torch, device, train_cli, counters, card) -> dict:
+    """Phase 31 (c): ViT-B/16 under arcface at 512 px with the flash
+    kernels, 2 steps and one eval batch through cli/train.py's sequence:
+    K2 12 a forward, K3 and K4 12 a backward, nothing else."""
+    from ddp_classification_pytorch_tpu_torch.train.loop import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vitarc_")
+    try:
+        cfg = train_cli.config_from_args(train_cli.build_parser().parse_args(
+            VIT_ARC_ARGV + ["--out", tmp]))
+        trainer = Trainer(cfg, device)
+        check(trainer.steps_per_epoch == VIT_ARC_STEPS
+              and len(trainer.val_loader) == VIT_ARC_EVALS,
+              f"vit arcface: {trainer.steps_per_epoch} steps")
+        for f in counters.values():  # count only this path's
+            f.launches = 0
+        t0 = time.perf_counter()
+        last = trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = dict.fromkeys(counters, 0) | {
+        "fwd": VIT_BLOCKS * (VIT_ARC_STEPS + VIT_ARC_EVALS),
+        "dq": VIT_BLOCKS * VIT_ARC_STEPS, "dkv": VIT_BLOCKS * VIT_ARC_STEPS}
+    check(launches == want, f"vit arcface launches {launches}, want {want}")
+    check(np.isfinite(last["loss"]) and last["step_ok"] == 1.0
+          and trainer.state.model.margin.weight.shape == (1000, 256),
+          f"vit arcface: {last}")
+    rec = {"argv": VIT_ARC_ARGV, "epoch": last, "launches": launches,
+           "wall_s": wall}
+    log(f"[vit-arcface] {card}: {json.dumps(rec)}")
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def profile_window_phase(torch, device, counters, card) -> dict:
+    """Phase 31 (d): `--profile_steps 4` on the ResNet-50 baseline step at
+    batch 128 through the Trainer, CUDA events around each step: the
+    capture lands and the window closes; `obs/trace.py` parses it into
+    steps 2-5 whose six buckets sum to their walls; its device-lane total
+    agrees with the events' within PROF_TOL. Run before any other
+    profiler session of this process."""
+    import socket
+
+    from ddp_classification_pytorch_tpu_torch.cli import train as train_cli
+    from ddp_classification_pytorch_tpu_torch.obs import trace
+    from ddp_classification_pytorch_tpu_torch.train.loop import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_prof_")
+    try:
+        cfg = train_cli.config_from_args(train_cli.build_parser().parse_args(
+            PROF_ARGV + ["--out", tmp]))
+        trainer = Trainer(cfg, device)
+        check(trainer.steps_per_epoch == PROF_STEPS
+              and trainer._prof_start_step == PROF_FIRST,
+              f"profile: {trainer.steps_per_epoch} steps, window from "
+              f"{trainer._prof_start_step}")
+        events, inner = {}, trainer.train_step
+
+        def timed(state, images, labels):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            n = state.step
+            s.record()
+            out = inner(state, images, labels)
+            e.record()
+            events[n] = (s, e)
+            return out
+
+        trainer.train_step = timed
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        last = trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        check(launches == dict.fromkeys(counters, 0),
+              f"profile: launches {launches}")
+        check(not trainer._prof_active and trainer._prof_steps == 0,
+              "profile: the window did not close inside epoch 0")
+        path = os.path.join(tmp, "profile",
+                            f"{socket.gethostname()}.trace.json.gz")
+        check(os.path.exists(path), f"profile: no capture at {path}")
+        t1 = time.perf_counter()
+        rows = trace.breakdown_from_torch_trace(path)
+        parse_s = time.perf_counter() - t1
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = list(range(PROF_FIRST, PROF_FIRST + 4))
+    check([r["step"] for r in rows] == steps,
+          f"profile: parsed steps {[r['step'] for r in rows]}, want {steps}")
+    for r in rows:
+        total = sum(r[b] for b in trace.BUCKETS)
+        check(abs(total - r["step_ms"]) <= 1e-9 * max(r["step_ms"], 1.0),
+              f"profile: step {r['step']} buckets sum to {total}, wall "
+              f"{r['step_ms']}")
+    ev_ms = {n: s.elapsed_time(e) for n, (s, e) in events.items()}
+    lane = sum(r["step_ms"] for r in rows)
+    evs = sum(ev_ms[n] for n in steps)
+    ratio = lane / evs
+    check(abs(ratio - 1.0) <= PROF_TOL,
+          f"profile: device-lane {lane:.2f} ms vs CUDA events {evs:.2f} ms")
+    agg = trace.aggregate(rows)
+    rec = {"argv": PROF_ARGV, "launches": launches, "rows": rows,
+           "breakdown_ms": agg,
+           "event_ms": {str(n): ev_ms[n] for n in steps},
+           "lane_over_events": ratio, "trace_bytes": size,
+           "parse_s": parse_s, "run_wall_s": wall, "epoch": last}
+    log(f"[profile] {card}: ResNet-50 baseline train step, batch 128, bf16, "
+        f"224 px, steps {steps[0]}-{steps[-1]} captured "
+        f"({size / 1e6:.1f} MB gz, parsed in {parse_s:.2f} s): breakdown "
+        f"(ms, mean a step) {json.dumps(agg)}")
+    log(f"[profile] {card}: device-lane {lane / 4:.3f} ms a step vs CUDA "
+        f"events {evs / 4:.3f} ms (ratio {ratio:.4f})")
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def debug_nans_phase(torch, train_cli, counters, card) -> dict:
+    """Phase 31 (e): `cli/train.py --debug_nans` on TResNet-M with a
+    nan_loss fault at step 1: step 0 runs clean under the mode (the K1
+    family's 36 sites, their outputs checked), step 1 raises
+    FloatingPointError naming `full_like` instead of being skipped."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nans_")
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    msg = None
+    try:
+        train_cli.main(NAN_ARGV + ["--out", tmp])
+    except FloatingPointError as e:
+        msg = str(e)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    want = dict.fromkeys(counters, 0) | dict.fromkeys(
+        ("k1", "k1s", "k1r", "k1d"), 2 * ABN_SITES)
+    check(msg is not None and "full_like" in msg,
+          f"debug_nans: the nan_loss step did not raise naming the op ({msg})")
+    check(launches == want, f"debug_nans: launches {launches}, want {want}")
+    rec = {"argv": NAN_ARGV, "error": msg, "launches": launches,
+           "wall_s": wall}
+    log(f"[debug-nans] {card}: {json.dumps(rec)}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def verify_import_phase(torch, card) -> dict:
+    """Phase 31 (f): each oracle (random weights, `torch.save`d) through
+    `cli/verify_import.py` on the card: PASS, rc 0; a file with a renamed
+    key: rc 2."""
+    import contextlib
+    import io
+
+    from ddp_classification_pytorch_tpu_torch.cli import verify_import
+    from ddp_classification_pytorch_tpu_torch.models import torch_oracle as to
+
+    make = {"resnet50": lambda: to.make_torch_resnet("resnet50", 1000),
+            "vgg19_bn": lambda: to.make_torch_vgg19_bn(1000),
+            "tresnet_m": lambda: to.make_torch_tresnet_m(1000)}
+
+    def run(argv):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                verify_import.main(argv)
+                rc = 0
+            except SystemExit as e:
+                rc = e.code
+        return rc, out.getvalue().strip(), err.getvalue().strip()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_verify_")
+    rec = {}
+    try:
+        for i, arch in enumerate(VERIFY_ARCHS):
+            if arch == "vgg19_bn":  # randomize_ fills every tensor it
+                # reads; built on meta, its 143 M parameters skip their init
+                with torch.device("meta"):
+                    oracle = make[arch]().to_empty(device="cpu")
+            else:  # TResNet-M's blur filter is no parameter: built for real
+                oracle = make[arch]()
+            to.randomize_(oracle, seed=i)
+            path = os.path.join(tmp, f"{arch}.pth")
+            torch.save(oracle.state_dict(), path)
+            del oracle
+            t0 = time.perf_counter()
+            rc, out, err = run([path, "--arch", arch])
+            rec[arch] = {"rc": rc, "line": out,
+                         "wall_s": time.perf_counter() - t0}
+            log(f"[verify-import] {card}: {arch}: rc {rc}: {out}")
+            check(rc == 0 and out.startswith("PASS"),
+                  f"verify_import {arch}: rc {rc} {out} {err}")
+            if arch == "resnet50":
+                sd = torch.load(path)
+                sd["layer1.0.conv9.weight"] = sd.pop("layer1.0.conv1.weight")
+                bad = os.path.join(tmp, "renamed.pth")
+                torch.save(sd, bad)
+                rc, out, err = run([bad, "--arch", arch])
+                rec["renamed_key"] = {"rc": rc, "stderr": err[-400:]}
+                log(f"[verify-import] renamed key: rc {rc}")
+                check(rc == 2 and "layer1.0.conv9.weight" in err,
+                      f"verify_import renamed key: rc {rc} {err[-300:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def slice15_phase(torch, device, train_cli, serve_cli, checkpoint, fused_abn,
+                  k1, counters, card) -> dict:
+    """Phase 31's legs (a)-(c), (e), (f); (d) ran first (see main)."""
+    t0 = time.perf_counter()
+    rec = {"vgg_nested": vgg_nested_path(
+        torch, device, train_cli, serve_cli, checkpoint, fused_abn, k1,
+        counters, card)}
+    for w in ("arcface", "nested"):
+        rec[f"tresnet_{w}"] = tresnet_head_path(
+            torch, device, train_cli, serve_cli, checkpoint, fused_abn, k1,
+            counters, w)
+    rec["vit_arcface"] = vit_arcface_path(torch, device, train_cli, counters,
+                                          card)
+    rec["debug_nans"] = debug_nans_phase(torch, train_cli, counters, card)
+    rec["verify_import"] = verify_import_phase(torch, card)
+    rec["legs_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3395,6 +3841,18 @@ def main() -> int:
     log(f"[build] bf16 K2/K3/K4 registers, shared memory, blocks per SM: "
         f"{json.dumps(resources)}")
     report["kernel_resources"] = resources
+
+    # ---------------------------- 31 (d). the profiler window, run first --
+    # before any other profiler session of this process: repeated sessions
+    # in one process stop recording device activity (DeviceTimer)
+    t0 = time.perf_counter()
+    prof_rec = profile_window_phase(
+        torch, device, dict(zip(("k1", "k1s", "k1r", "k1d"), (
+            getattr(fused_abn, n) for n in ABN_WRAPPERS))) | {
+            kind: getattr(fa, attr) for kind, attr, *_ in FLASH_KERNELS},
+        card)
+    prof_rec["phase_s"] = time.perf_counter() - t0
+    log(f"[profile] phase 31 (d) took {prof_rec['phase_s']:.1f} s")
 
     # ABN shapes come from the model itself: hooks on one forward of a
     # second instance of the served model (phases 5 and 6 reuse it),
@@ -4022,6 +4480,16 @@ def main() -> int:
         f"on {json.dumps(scen['devices'])}")
     report["scenario"] = scen
 
+    # ------------------------------------------- 31. this slice's paths --
+    gc.collect()
+    torch.cuda.empty_cache()
+    slice_rec = slice15_phase(torch, device, train_cli, serve_cli, checkpoint,
+                              fused_abn, k1, counters, card)
+    slice_rec["profile_window"] = prof_rec
+    log(f"[slice15] phase 31 took {slice_rec['legs_s'] + prof_rec['phase_s']:.1f}"
+        f" s ((d) {prof_rec['phase_s']:.1f} s; {card})")
+    report["slice15"] = slice_rec
+
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as f:
@@ -4036,7 +4504,10 @@ def main() -> int:
                 for w, r in (heads_rec | {"plc": plc_rec}).items()} | {
             "serve_http_path_launches": http_rec["launches"][kind],
             "vit_serve_path_launches": vit_serve_rec["launches"][kind],
-            "recovery_path_launches": recovery_rec["launches"][kind]}
+            "recovery_path_launches": recovery_rec["launches"][kind]} | {
+            f"{leg}_path_launches": slice_rec[leg]["launches"][kind]
+            for leg in ("vgg_nested", "tresnet_arcface", "tresnet_nested",
+                        "vit_arcface", "debug_nans", "profile_window")}
 
     log(json.dumps({"kernels": [{
         "name": "fused_bn_leaky_relu",

@@ -7,6 +7,8 @@ engine (serve/engine.py) on the card, over fresh or checkpointed weights.
         --model resnet50 --ckpt runs/r50/ckpt_e89.pt --selfcheck 8
     python -m ddp_classification_pytorch_tpu_torch.cli.serve arcface \
         --model resnet50 --ckpt runs/arc/ckpt_e29.pt   # or nested
+    python -m ddp_classification_pytorch_tpu_torch.cli.serve nested \
+        --model vgg19_bn --ckpt runs/vgg/ckpt_best.pt
 
 The workload's preset names the head: `arcface` serves softmax over
 s·cosθ, `nested` the unmasked logits of its bias-free classifier, the
@@ -15,9 +17,9 @@ others (cdr's too) a plain fc model.
 The JAX serve CLI's subset, with its rc discipline:
 
 - deterministic config errors (bad buckets, topk > classes, an arch or head
-  not ported yet — the arcface and nested heads are served on the ResNets
-  only —, a corrupt `--ckpt`) exit **rc 2** — supervisors must not
-  replay them;
+  not ported yet, a corrupt `--ckpt`) exit **rc 2** — supervisors must
+  not replay them; every ported arch (the ResNets, VGG19-BN, TResNet-M,
+  the ViTs) is served under every head;
 - no CUDA device (and `--device cpu` not asked for) exits **rc 3**, the JAX
   CLI's "backend unreachable" code; it never carries on on the CPU;
 - **SIGTERM/SIGINT drain gracefully**: intake stops, every already-queued
@@ -83,7 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
     m = p.add_argument_group("model")
     m.add_argument("--model", "--arch", dest="model", default="",
                    help="resnet18 | resnet34 | resnet50 (default) | "
-                        "resnet101 | resnet152 | tresnet_m | timm")
+                        "resnet101 | resnet152 | vgg19_bn | tresnet_m | timm "
+                        "| vit_t16 | vit_s16 | vit_b16")
     m.add_argument("--variant", default="", help="ResNet stem: imagenet | "
                    "cifar (default imagenet)")
     m.add_argument("--dtype", default="", help="bfloat16 | float32 compute dtype")

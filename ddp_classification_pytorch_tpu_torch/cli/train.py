@@ -1,9 +1,9 @@
 """`train` entry point of the port — the JAX train CLI's flags for the
 paths ported so far (the five reference workloads — baseline, arcface,
-cdr, nested and plc — on the ResNets over any number of cards; the
-baseline on TResNet-M and the ViT family on one; on synthetic data, image
-folders, CIFAR pickles and PLC's annotation datasets, with resume), on
-the card.
+cdr, nested and plc — on the ResNets and VGG19-BN over any number of
+cards, on TResNet-M and the ViT family on one; on synthetic data, image
+folders, CIFAR pickles and PLC's annotation datasets, with resume; the
+profiler window and `--debug_nans`), on the card.
 
     torchrun --nproc_per_node 4 -m ddp_classification_pytorch_tpu_torch.cli.train \
         baseline --dataset imagefolder --train_dir T --val_dir V \
@@ -22,6 +22,11 @@ the card.
         --flash_attention --batchsize 32 --epochs 1 --out runs/vit
     python -m ddp_classification_pytorch_tpu_torch.cli.train arcface \
         --dataset synthetic --model resnet50 --out runs/arc   # or cdr, nested
+    python -m ddp_classification_pytorch_tpu_torch.cli.train nested \
+        --dataset synthetic --model vgg19_bn --out runs/vgg   # or tresnet_m
+    python -m ddp_classification_pytorch_tpu_torch.cli.train baseline \
+        --dataset synthetic --model resnet50 --batchsize 128 --epochs 1 \
+        --profile_steps 4 --out runs/prof  # → runs/prof/profile/<host>.trace.json.gz
     python -m ddp_classification_pytorch_tpu_torch.cli.train cdr \
         --folder D --out runs/cdr        # the cdr transform, item route
     python -m ddp_classification_pytorch_tpu_torch.cli.train plc \
@@ -59,8 +64,8 @@ Exit codes, as the JAX CLI's:
 
 - **rc 1**: an unhandled exception (a loader IO error, an OOM): transient,
   the supervisor restarts it after a backoff;
-- **rc 2**: config errors — an unported dataset, preset, arch or option (`--sharded_ce`, a head on an arch other than the
-  ResNets, `--head_lr` on a model without a margin head), a flag this CLI does not take (argparse), bad values, a
+- **rc 2**: config errors — an unported dataset, preset, arch or option (`--sharded_ce`, `--head_lr` on a model
+  without a margin head, `--pretrained` on a ViT), a flag this CLI does not take (argparse), bad values, a
   missing data directory, a `--resume` file that fails its sha256, a
   native dataplane (or its decoder) that does not build on this machine, `--dp` other
   than the world size, TResNet-M over more than one rank, a malformed
@@ -136,15 +141,16 @@ def build_parser() -> argparse.ArgumentParser:
     m = p.add_argument_group("model")
     m.add_argument("--model", "--arch", dest="model", default="",
                    help="resnet18 | resnet34 | resnet50 (default) | "
-                        "resnet101 | resnet152 | tresnet_m | timm "
-                        "(TResNet-M) | vit_t16 | vit_s16 | vit_b16")
+                        "resnet101 | resnet152 | vgg19_bn | tresnet_m | "
+                        "timm (TResNet-M) | vit_t16 | vit_s16 | vit_b16")
     m.add_argument("--variant", default="", help="ResNet stem: imagenet | "
                    "cifar (default imagenet; cifar for --dataset cifar*)")
     m.add_argument("--pretrained", action="store_true",
-                   help="ResNets: start from --pretrained_path's weights")
+                   help="start from --pretrained_path's weights (the "
+                        "ResNets, vgg19_bn, tresnet_m)")
     m.add_argument("--pretrained_path", default="",
-                   help="a local torchvision .pth (or {'state_dict'} / "
-                        "NESTED {'feat','cls'} file); implies --pretrained")
+                   help="a local torchvision / timm .pth (or {'state_dict'} "
+                        "/ NESTED {'feat','cls'} file); implies --pretrained")
     m.add_argument("--flash_attention", action="store_true",
                    help="ViT: the flash kernels for attention")
     m.add_argument("--flash_min_tokens", type=int, default=-1,
@@ -254,6 +260,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "skipped steps exit 8 ('diverged' — deterministic, "
                         "the supervisor does not restart it). Default 25; "
                         "0 = skip forever, never exit")
+    r.add_argument("--profile_steps", type=int, default=0,
+                   help="capture a torch.profiler trace of N train steps of "
+                        "epoch 0 into <out>/profile (obs/trace.py reads it)")
+    r.add_argument("--profile_dir", default="",
+                   help="where --profile_steps writes (default <out>/profile)")
+    r.add_argument("--debug_nans", action="store_true",
+                   help="raise FloatingPointError at the first op with a "
+                        "NaN output (jax_debug_nans; a host sync per op)")
     r.add_argument("--fault_spec", default="",
                    help="deterministic fault injection (utils/chaos.py), "
                         "e.g. 'nan_loss@step=7..9,ckpt_io@epoch=1,"
@@ -410,6 +424,12 @@ def config_from_args(args: argparse.Namespace) -> Config:
         cfg.run.max_bad_steps = args.max_bad_steps
     if args.fault_spec:
         cfg.run.fault_spec = args.fault_spec
+    if args.profile_steps:
+        cfg.run.profile_steps = args.profile_steps
+    if args.profile_dir:
+        cfg.run.profile_dir = args.profile_dir
+    if args.debug_nans:
+        cfg.run.debug_nans = True
     if cfg.data.batch_size < 1 or cfg.run.log_every < 1:
         raise ValueError("--batchsize and --log_every must be >= 1")
     return cfg
@@ -490,6 +510,12 @@ def _train(cfg: Config, device) -> None:
         print(f"[trainer] native dataplane unavailable: {e}",
               file=sys.stderr)
         raise SystemExit(2) from None
+    if cfg.run.debug_nans:
+        from ..utils.debug_nans import NanCheck
+
+        with NanCheck():
+            trainer.run()
+        return
     trainer.run()
 
 

@@ -6,9 +6,8 @@ Field names, defaults and the five workload presets are the JAX package's
 (`config.py:467-510` there), field for field wherever the port has the
 field, so a command line means the same on both sides. Fields for the
 parts not ported yet (model and pipeline parallelism, the partial-FC
-ArcFace CE, `h2d_overlap`, async checkpoints, the profiler window, the
-serve fleet, hot reload, the HTTP front end, the AOT sidecar) are left out
-until their slice lands.
+ArcFace CE, `h2d_overlap`, async checkpoints, the AOT sidecar) are left
+out until their slice lands.
 """
 
 from __future__ import annotations
@@ -53,13 +52,13 @@ class DataConfig:
 
 @dataclass
 class ModelConfig:
-    """Backbone + head selection (resnet18/34/50/101/152, tresnet_m / timm
-    and vit_t16/s16/b16 with head fc, the ResNets with heads arcface and
-    nested; models/factory.py refuses the rest)."""
+    """Backbone + head selection (resnet18/34/50/101/152, vgg19_bn,
+    tresnet_m / timm and vit_t16/s16/b16, each under the heads fc, arcface
+    and nested; models/factory.py refuses the rest)."""
 
     arch: str = "resnet50"
     variant: str = "imagenet"  # ResNet stem: imagenet (7×7/2 + pool) | cifar (3×3/1)
-    pretrained: bool = False  # load a torchvision state dict at init
+    pretrained: bool = False  # load a torchvision/timm state dict at init
     # the .pth/.pt to load (a torchvision state dict, a {'state_dict': ...}
     # wrapper or the reference's NESTED {'feat', 'cls'} file); nothing is
     # downloaded
@@ -178,6 +177,12 @@ class RunConfig:
     # "nan_loss@step=7,ckpt_io@epoch=1,loader_io@batch=3,sigterm@step=20";
     # CHAOS_FAULT_SPEC overrides; empty = every hook inert
     fault_spec: str = ""
+    # >0: a torch.profiler capture of steps [min(10, spe − N), +N) of epoch 0
+    profile_steps: int = 0
+    profile_dir: str = ""  # default: <out_dir>/profile
+    # the --debug_nans check (utils/debug_nans.py): raise at the first op
+    # with a NaN output, as jax_debug_nans does
+    debug_nans: bool = False
 
 
 @dataclass

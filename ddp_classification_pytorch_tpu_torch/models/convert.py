@@ -1,11 +1,11 @@
 """Weights carried across from the JAX package: its flax TResNet variables
 → the port's TResNet `state_dict` (timm's key layout, models/tresnet.py),
-its flax ResNet variables → the port's ResNet `state_dict` (torchvision's
-key layout, models/resnet.py), its flax ViT params → the port's ViT
-`state_dict` (models/vit.py), and its ArcFace and Nested models (a ResNet
-backbone and the heads of models/heads.py) → the port's
-`ArcFaceModel` / `NestedModel` `state_dict`s. `flax_path` names the
-flax leaf of a port parameter (the freeze-BN matcher reads it,
+its flax ResNet and VGG19-BN variables → the port's (torchvision's key
+layout, models/resnet.py, models/vgg.py), its flax ViT params → the
+port's ViT `state_dict` (models/vit.py), and its ArcFace and Nested
+models (any of these backbones under the heads of models/heads.py) →
+the port's `ArcFaceModel` / `NestedModel` `state_dict`s. `flax_path`
+names the flax leaf of a port parameter (the freeze-BN matcher reads it,
 `train/schedule.py`).
 
 The inverse direction of the JAX package's
@@ -30,12 +30,13 @@ weights to the compute dtype once, after loading.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .tresnet import blur_filter
+from .vgg import CFG_E, GRID
 
 _BN_LEAVES = (("scale", "params", "weight"), ("bias", "params", "bias"),
               ("mean", "batch_stats", "running_mean"),
@@ -176,14 +177,89 @@ def resnet_from_jax(params: Mapping[str, Any],
     return sd
 
 
+def vgg_seq(cfg: Sequence[Any] = CFG_E) -> Dict[int, Tuple[str, bool]]:
+    """`features.<i>` index → (the flax name, whether a conv): a conv entry
+    takes three slots (conv, BN, ReLU), a max pool one (torchvision's
+    `make_layers`)."""
+    out, seq, i = {}, 0, 0
+    for v in cfg:
+        if v == "M":
+            seq += 1
+            continue
+        out[seq], out[seq + 1] = (f"conv{i}", True), (f"bn{i}", False)
+        seq, i = seq + 3, i + 1
+    return out
+
+
+_VGG_FC = {"fc1": 0, "fc2": 3, "fc3": 6}  # classifier.<i> of each Dense
+
+
+def vgg_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                 cfg: Sequence[Any] = CFG_E) -> Dict[str, torch.Tensor]:
+    """flax VGG `params` + `batch_stats` (or a ClassifierModel's, with the
+    single `backbone` level) → the port VGG's `state_dict`: `conv{i}` /
+    `bn{i}` → `features.<seq>`, `fc1`/`fc2`/`fc3` → `classifier.{0,3,6}`.
+    fc1's inputs are permuted from the JAX model's (h, w, c) flatten to
+    torchvision's (c, h, w)."""
+    if set(params) == {"backbone"}:
+        params, batch_stats = params["backbone"], batch_stats["backbone"]
+    sd: Dict[str, torch.Tensor] = {}
+    for seq, (name, is_conv) in vgg_seq(cfg).items():
+        if is_conv:
+            sd[f"features.{seq}.weight"] = _conv(params[name]["kernel"])
+            sd[f"features.{seq}.bias"] = _t(params[name]["bias"])
+            continue
+        for leaf, coll, out in _BN_LEAVES:
+            sd[f"features.{seq}.{out}"] = _t(
+                (params if coll == "params" else batch_stats)[name][leaf])
+    for name, i in _VGG_FC.items():
+        if name not in params:
+            continue
+        k = np.asarray(params[name]["kernel"])
+        if name == "fc1":  # (h·w·c, O) → (c·h·w, O)
+            c = k.shape[0] // (GRID * GRID)
+            k = k.reshape(GRID, GRID, c, -1).transpose(2, 0, 1, 3).reshape(
+                k.shape[0], -1)
+        sd[f"classifier.{i}.weight"] = _t(k.T)
+        sd[f"classifier.{i}.bias"] = _t(params[name]["bias"])
+    return sd
+
+
+def backbone_from_jax(params: Mapping[str, Any],
+                      batch_stats: Mapping[str, Any],
+                      vgg_cfg: Sequence[Any] = CFG_E
+                      ) -> Dict[str, torch.Tensor]:
+    """A flax backbone's variables → the port backbone's `state_dict`, by
+    the arch its top-level names give: a ResNet (`conv_stem`), TResNet-M
+    (`stem_conv`), a ViT (`patch_embed`) or a VGG (`conv0`)."""
+    if "conv_stem" in params:
+        return resnet_from_jax(params, batch_stats)
+    if "stem_conv" in params:
+        return tresnet_from_jax(params, batch_stats)
+    if "patch_embed" in params:
+        return vit_from_jax(params)
+    if "conv0" in params:
+        return vgg_from_jax(params, batch_stats, vgg_cfg)
+    raise ValueError(f"not a flax backbone of a ported arch (top-level "
+                     f"names: {sorted(params)[:6]})")
+
+
+def _backbone(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+              vgg_cfg: Sequence[Any]) -> Dict[str, torch.Tensor]:
+    return {f"backbone.{k}": v for k, v in backbone_from_jax(
+        params["backbone"], batch_stats.get("backbone", {}),
+        vgg_cfg).items()}
+
+
 def arcface_from_jax(params: Mapping[str, Any],
-                     batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+                     batch_stats: Mapping[str, Any],
+                     vgg_cfg: Sequence[Any] = CFG_E
+                     ) -> Dict[str, torch.Tensor]:
     """flax `ArcFaceModel` variables → the port `ArcFaceModel`'s
-    `state_dict`: the backbone through `resnet_from_jax`, the embedding's
-    Dense kernels (I, O) transposed, and the margin head's `weight`, which
-    flax already holds as (C, D), as it is."""
-    sd = {f"backbone.{k}": v for k, v in resnet_from_jax(
-        params["backbone"], batch_stats["backbone"]).items()}
+    `state_dict`: the backbone through `backbone_from_jax`, the
+    embedding's Dense kernels (I, O) transposed, and the margin head's
+    `weight`, which flax already holds as (C, D), as it is."""
+    sd = _backbone(params, batch_stats, vgg_cfg)
     for fc in ("fc1", "fc2"):
         _dense(sd, f"embedding.{fc}", params["embedding"][fc])
     sd["margin.weight"] = _t(params["margin"]["weight"])
@@ -191,42 +267,31 @@ def arcface_from_jax(params: Mapping[str, Any],
 
 
 def nested_from_jax(params: Mapping[str, Any],
-                    batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+                    batch_stats: Mapping[str, Any],
+                    vgg_cfg: Sequence[Any] = CFG_E
+                    ) -> Dict[str, torch.Tensor]:
     """flax `NestedModel` variables → the port `NestedModel`'s
-    `state_dict`: the backbone through `resnet_from_jax`, the bias-free
+    `state_dict`: the backbone through `backbone_from_jax`, the bias-free
     classifier's kernel (D, C) transposed."""
-    sd = {f"backbone.{k}": v for k, v in resnet_from_jax(
-        params["backbone"], batch_stats["backbone"]).items()}
+    sd = _backbone(params, batch_stats, vgg_cfg)
     sd["classifier.fc.weight"] = _t(np.asarray(
         params["classifier"]["fc"]["kernel"]).T)
     return sd
 
 
 _LEAF = {"weight": "kernel", "bias": "bias"}
-_BN_LEAF = {"weight": "scale", "bias": "bias"}
+_BN_LEAF = {"weight": "scale", "bias": "bias"}  # LayerNorm's leaves too
 
 
-def flax_path(name: str) -> str:
-    """The flax param path ("/"-joined) of a port parameter of a ResNet
-    model — `ClassifierModel`, `ArcFaceModel` or `NestedModel` — the
-    inverse of the maps above: `backbone.layer1.0.bn2.weight` →
-    `backbone/layer1_block0/BatchNorm_1/scale`,
-    `backbone.layer1.0.downsample.1.bias` →
-    `backbone/layer1_block0/downsample_bn/bias`, `margin.weight` →
-    `margin/weight`."""
-    parts = name.split(".")
-    if parts[0] == "margin":
-        return "margin/weight"
-    if parts[0] != "backbone":  # embedding.fc1.weight, classifier.fc.weight
-        return "/".join(parts[:-1] + [_LEAF[parts[-1]]])
-    rest, leaf = parts[1:-1], parts[-1]
+def _resnet_path(rest: List[str], leaf: str) -> str:
+    """torchvision ResNet names → the JAX ResNet's (`resnet_from_jax`)."""
     if rest == ["conv1"]:
-        return "backbone/conv_stem/kernel"
+        return "conv_stem/kernel"
     if rest == ["bn1"]:
-        return f"backbone/bn_stem/{_BN_LEAF[leaf]}"
+        return f"bn_stem/{_BN_LEAF[leaf]}"
     if rest == ["fc"]:
-        return f"backbone/fc/{_LEAF[leaf]}"
-    block = f"backbone/{rest[0]}_block{rest[1]}"
+        return f"fc/{_LEAF[leaf]}"
+    block = f"{rest[0]}_block{rest[1]}"
     if rest[2] == "downsample":
         return (f"{block}/downsample_conv/kernel" if rest[3] == "0"
                 else f"{block}/downsample_bn/{_BN_LEAF[leaf]}")
@@ -234,3 +299,75 @@ def flax_path(name: str) -> str:
     if kind == "conv":
         return f"{block}/Conv_{k}/kernel"
     return f"{block}/BatchNorm_{k}/{_BN_LEAF[leaf]}"
+
+
+def _tresnet_path(rest: List[str], leaf: str) -> str:
+    """timm TResNet names → the JAX TResNet's (`tresnet_from_jax`)."""
+    if rest[0] == "head":  # head.fc
+        return f"fc/{_LEAF[leaf]}"
+    rest = rest[1:]  # body.
+    if rest[0] == "conv1":
+        return ("stem_conv/kernel" if rest[1] == "0"
+                else f"stem_abn/{_BN_LEAF[leaf]}")
+    layer = int(rest[0][len("layer"):])
+    block = f"stage{layer}_block{rest[1]}"
+    sub, tail = rest[2], rest[3:]
+    if sub == "se":
+        return f"{block}/se/{tail[0]}/{_LEAF[leaf]}"
+    if sub == "downsample":  # downsample.1.{0,1}
+        return (f"{block}/downsample/kernel" if tail[1] == "0"
+                else f"{block}/bn_down/{_BN_LEAF[leaf]}")
+    j = int(sub[len("conv"):])
+    if len(tail) == 2:  # blur-wrapped: convJ.0.{0,1}
+        tail = tail[1:]
+    if tail[0] == "0":
+        return f"{block}/conv{j}/kernel"
+    last = 2 if layer <= 2 else 3  # the identity BN ends the block
+    return f"{block}/{f'bn{last}' if j == last else f'abn{j}'}/{_BN_LEAF[leaf]}"
+
+
+def _vit_path(rest: List[str], leaf: str) -> str:
+    """The port ViT's names → the JAX ViT's (`vit_from_jax`)."""
+    if rest[0] == "blocks":
+        mods = [f"block{rest[1]}", *rest[2:]]
+    else:  # patch_embed, ln_final, fc
+        mods = list(rest)
+    ln = mods[-1].startswith("ln")
+    return "/".join(mods + [(_BN_LEAF if ln else _LEAF)[leaf]])
+
+
+def _vgg_path(rest: List[str], leaf: str, cfg: Sequence[Any]) -> str:
+    """torchvision VGG names → the JAX VGG's (`vgg_from_jax`)."""
+    if rest[0] == "classifier":
+        fc = {str(i): n for n, i in _VGG_FC.items()}[rest[1]]
+        return f"{fc}/{_LEAF[leaf]}"
+    name, is_conv = vgg_seq(cfg)[int(rest[1])]
+    return f"{name}/{(_LEAF if is_conv else _BN_LEAF)[leaf]}"
+
+
+def flax_path(name: str, vgg_cfg: Sequence[Any] = CFG_E) -> str:
+    """The flax param path ("/"-joined) of a port parameter of a
+    `ClassifierModel`, `ArcFaceModel` or `NestedModel` over any ported
+    backbone — the inverse of the maps above:
+    `backbone.layer1.0.bn2.weight` → `backbone/layer1_block0/BatchNorm_1/scale`,
+    `backbone.body.layer3.0.conv3.1.bias` → `backbone/stage3_block0/bn3/bias`,
+    `backbone.features.1.weight` → `backbone/bn0/scale` (under `vgg_cfg`),
+    `backbone.blocks.0.ln1.weight` → `backbone/block0/ln1/scale`,
+    `margin.weight` → `margin/weight`."""
+    parts = name.split(".")
+    if parts[0] == "margin":
+        return "margin/weight"
+    if parts[0] != "backbone":  # embedding.fc1.weight, classifier.fc.weight
+        return "/".join(parts[:-1] + [_LEAF[parts[-1]]])
+    rest, leaf = parts[1:-1], parts[-1]
+    if not rest:  # the ViT's pos_embed
+        path = leaf
+    elif rest[0] in ("body", "head"):
+        path = _tresnet_path(rest, leaf)
+    elif rest[0] in ("features", "classifier"):
+        path = _vgg_path(rest, leaf, vgg_cfg)
+    elif rest[0] in ("patch_embed", "blocks", "ln_final"):
+        path = _vit_path(rest, leaf)
+    else:  # a ResNet; a ViT's `fc` names the same leaves
+        path = _resnet_path(rest, leaf)
+    return f"backbone/{path}"

@@ -1,8 +1,10 @@
 """Backbone/model construction from ModelConfig — the counterpart of the JAX
-package's `models/factory.py` (`factory.py:86-194`), for the archs and
-heads ported so far: head `fc` on every ported arch, heads `arcface` and
-`nested` (and `freeze_bn`) on the ResNets; the rest is a ValueError (rc 2)
-naming ROADMAP.md."""
+package's `models/factory.py` (`factory.py:27-194`): every ported arch
+(the ResNets, VGG19-BN, TResNet-M and the ViT family) under the heads
+fc, arcface and nested. `freeze_bn` freezes the ResNets' BNs (JAX passes
+it to them only, `factory.py:56-59`); on the other archs the BNs keep
+batch statistics and only the optimizer's filter applies
+(`train/schedule.py::param_groups`). Anything else is a ValueError (rc 2)."""
 
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from .resnet import DEPTHS as RESNET_DEPTHS
 from .heads import ArcEmbedding, ArcMarginHead, NetClassifier
 from .resnet import build_resnet
 from .tresnet import tresnet_m
+from .vgg import WIDTH as VGG_WIDTH
+from .vgg import vgg19_bn
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -30,7 +34,26 @@ def compute_dtype(name: str) -> torch.dtype:
                          f"{sorted(_DTYPES)}") from None
 
 
-PORTED_ARCHS = (*RESNET_DEPTHS, "tresnet_m", "timm", *_vit.VIT_CONFIGS)
+PORTED_ARCHS = (*RESNET_DEPTHS, "vgg19_bn", "tresnet_m", "timm",
+                *_vit.VIT_CONFIGS)
+# the ResNets' feature widths (JAX `models/resnet.py::FEAT_DIMS`)
+_RESNET_FEAT = {"resnet18": 512, "resnet34": 512, "resnet50": 2048,
+                "resnet101": 2048, "resnet152": 2048}
+
+
+def feat_dim_for(arch: str) -> int:
+    """The backbone's feature width, which the arcface embedding and the
+    nested mask read (JAX `factory.py:27-38` without `cfg.feat_dim`: the
+    port sizes every head from the backbone it builds)."""
+    if arch in _RESNET_FEAT:
+        return _RESNET_FEAT[arch]
+    if arch == "vgg19_bn":
+        return VGG_WIDTH
+    if arch in ("tresnet_m", "timm"):
+        return 2048
+    if arch in _vit.FEAT_DIMS:
+        return _vit.FEAT_DIMS[arch]
+    raise ValueError(f"unknown arch {arch!r}")
 
 
 def build_backbone(cfg: ModelConfig, num_classes: int = 0,
@@ -38,16 +61,16 @@ def build_backbone(cfg: ModelConfig, num_classes: int = 0,
                    group: Optional[dist.ProcessGroup] = None) -> nn.Module:
     """Backbone emitting features (num_classes=0) or logits. `image_size`
     sizes the ViT position table (the flax model infers it at init).
-    `group`: the process group whose ranks share the ResNet BNs' batch
-    statistics in training (the other archs take none)."""
-    if cfg.freeze_bn and cfg.arch not in RESNET_DEPTHS:
-        raise ValueError(f"freeze_bn is ported for the ResNets, not "
-                         f"{cfg.arch!r} (ROADMAP.md)")
+    `group`: the process group whose ranks share the ResNet and VGG BNs'
+    batch statistics in training (TResNet-M and the ViTs take none)."""
     if cfg.arch in RESNET_DEPTHS:
         return build_resnet(cfg.arch, num_classes=num_classes,
                             variant=cfg.variant,
                             dtype=compute_dtype(cfg.dtype), group=group,
                             freeze_bn=cfg.freeze_bn)
+    if cfg.arch == "vgg19_bn":
+        return vgg19_bn(num_classes, compute_dtype(cfg.dtype), group,
+                        dropout=cfg.dropout or 0.5)
     if cfg.arch in ("tresnet_m", "timm"):
         # reference `--model timm` → tresnet_m_miil_in21k (BASELINE/main.py:141-144)
         return tresnet_m(num_classes=num_classes, dtype=compute_dtype(cfg.dtype))
@@ -132,16 +155,13 @@ def build_model(cfg: ModelConfig, num_classes: int, image_size: int = 224,
     if cfg.head == "fc":
         return ClassifierModel(build_backbone(cfg, num_classes, image_size,
                                               group))
-    if cfg.arch not in RESNET_DEPTHS:
-        raise ValueError(f"head {cfg.head!r} is ported for the ResNets, not "
-                         f"{cfg.arch!r} (ROADMAP.md)")
     backbone = build_backbone(cfg, 0, image_size, group)
+    feat = feat_dim_for(cfg.arch)
     if cfg.head == "arcface":
         return ArcFaceModel(
             backbone,
-            ArcEmbedding(backbone.num_features, (512, cfg.arc_embed_dim),
+            ArcEmbedding(feat, (512, cfg.arc_embed_dim),
                          cfg.arc_log_softmax_quirk),
             ArcMarginHead(num_classes, cfg.arc_embed_dim, cfg.arc_s,
                           cfg.arc_m, cfg.arc_easy_margin))
-    return NestedModel(backbone, NetClassifier(backbone.num_features,
-                                               num_classes))
+    return NestedModel(backbone, NetClassifier(feat, num_classes))

@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.debug_nans import check_outputs
 from . import _build
 
 SOURCES = [os.path.join(_build.CSRC, name)
@@ -202,6 +203,7 @@ def flash_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                 scale, int(causal), _DTYPE_CODES[q3.dtype],
                 torch.cuda.current_stream(q3.device).cuda_stream)
     flash_forward.launches += 1
+    check_outputs("K2", out, lse)
     return out, lse
 
 
@@ -222,6 +224,7 @@ def flash_dq(q3, k3, v3, do3, lse, dsum, scale: float,
                 _DTYPE_CODES[q3.dtype],
                 torch.cuda.current_stream(q3.device).cuda_stream)
     flash_dq.launches += 1
+    check_outputs("K3", dq)
     return dq
 
 
@@ -243,6 +246,7 @@ def flash_dkv(q3, k3, v3, do3, lse, dsum, scale: float,
                 _DTYPE_CODES[q3.dtype],
                 torch.cuda.current_stream(q3.device).cuda_stream)
     flash_dkv.launches += 1
+    check_outputs("K4", dk, dv)
     return dk, dv
 
 

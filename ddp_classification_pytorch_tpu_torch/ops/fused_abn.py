@@ -43,6 +43,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
+from ..utils.debug_nans import check_outputs
 from . import _build
 
 SOURCES = [os.path.join(_build.CSRC, name)
@@ -317,6 +318,7 @@ def fused_bn_leaky_relu(x: torch.Tensor, scale: torch.Tensor,
             (*ptrs, x.numel() // c, c, eps, negative_slope),
             launch_geometry(x, ptrs))
     fused_bn_leaky_relu.launches += 1
+    check_outputs("K1", y)
     return y
 
 
@@ -456,6 +458,7 @@ def bn_stats(x: torch.Tensor, eps: float = 1e-5,
     _invoke("abn_stats", x, (x.data_ptr(), ws, counters, base, base + 4 * c,
                              base + 8 * c, m, c, eps, tiles), geometry)
     bn_stats.launches += 1
+    check_outputs("K1s", out)
     return out.unbind(0)
 
 
@@ -485,6 +488,7 @@ def abn_grad_sums(g: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
     _invoke("abn_grad_sums", x, (*ptrs, ws, counters, base, base + 4 * c, m,
                                  c, negative_slope, tiles), geometry)
     abn_grad_sums.launches += 1
+    check_outputs("K1r", out)
     return out.unbind(0)
 
 
@@ -521,6 +525,7 @@ def abn_grad_input(g: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
     geo = grad_input_geometry(m, c, sm_count(x.get_device()), _aligned(ptrs))
     _invoke("abn_grad_input", x, (*ptrs, m, c, negative_slope), geo)
     abn_grad_input.launches += 1
+    check_outputs("K1d", dx)
     return dx
 
 

@@ -5,11 +5,11 @@ once in DistributedDataParallel under a process group, parallel/ddp.py)
 → steps → `train_epoch` / `evaluate` (sums reduced across the ranks) →
 records, tensorboard scalars and verified checkpoints of the whole train
 state, written by rank 0, which `--resume` and `--auto_resume` pick up on
-every rank. Trains the ResNets (over any number of ranks, with global
-batch statistics; heads fc, arcface and nested, CDR's gradient
-transform), TResNet-M (one rank) and the ViT family, on synthetic data,
-image folders and CIFAR pickles; `cli/serve.py --ckpt` serves the conv
-nets' checkpoints. The nested head's eval is the all-K sweep
+every rank. Trains the ResNets and VGG19-BN (over any number of ranks,
+with global batch statistics), TResNet-M (one rank) and the ViT family,
+each under the heads fc, arcface and nested (CDR's gradient transform
+too), on synthetic data, image folders and CIFAR pickles; `cli/serve.py
+--ckpt` serves their checkpoints. The nested head's eval is the all-K sweep
 (`nested_eval`: `val_top1` at the best K, `val_top3` there, `best_k`).
 
 Image folders of the `cdr` and `cifar` kinds, and PLC's annotation
@@ -29,13 +29,26 @@ refreshed at the log cadence, one abort exchange after each epoch's
 steps (before eval and save: every rank leaves with the same rc), and
 `--auto_resume` as the resume consensus.
 
-Not ported yet (ROADMAP.md): async checkpoints, `h2d_overlap`, the
-profiler window and the compile sentinel.
+`--profile_steps N` captures a torch.profiler trace (CPU and CUDA
+activities) of steps `[min(10, spe − N), +N)` of epoch 0 on rank 0 (JAX
+`loop.py:364-392`): each step inside a `bench_step#<n>` range, the step's
+own `fwd` / `bwd` / `optimizer` ranges opened while the profiler is
+active; the window closes after the last profiled step's synchronize, at
+the end of epoch 0 at the latest, and in `run`'s `finally` on every
+exit that runs it (rc 8 and a pod's `PodAbort`, 143 included; the hang
+watchdog's rc 7 is an `os._exit`, which runs none); the capture is
+written to `<out>/profile/<host>.trace.json.gz` (or `--profile_dir`),
+which `obs/trace.py::breakdown_from_torch_trace` reads.
+
+Not ported yet (ROADMAP.md): async checkpoints, `h2d_overlap` and the
+compile sentinel.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import socket
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -49,6 +62,7 @@ from ..data.loader import Loader
 from ..data.synthetic import SyntheticDataset
 from ..data.transforms import INPUT_DTYPES, build_transform, preset_for_dataset
 from ..obs.registry import Registry
+from ..obs.trace import STEP_MARKER
 from ..parallel import ddp
 from ..parallel import fleet as fleetlib
 from ..utils import chaos as chaoslib
@@ -314,6 +328,7 @@ class Trainer:
             self.records.append_txt("# native C++ dataplane active")
         # the global step counter, the chaos step hooks' coordinate
         self._host_step = self.state.step
+        self._setup_profiler()
         host0_print(
             f"[trainer] workload={cfg.workload} arch={cfg.model.arch} "
             f"params={param_count(self.state):,} device={device} "
@@ -363,6 +378,60 @@ class Trainer:
         self.chaos.maybe_peer_slow(step=step)
         self.chaos.maybe_host_lost(step=step)
 
+    # -------------------------------------------------------------- profile --
+    def _setup_profiler(self) -> None:
+        """Resolve the profiler window once (JAX `_setup_profiler`); rank
+        0 captures."""
+        cfg = self.cfg
+        self._prof_steps = cfg.run.profile_steps if ddp.is_primary() else 0
+        self._prof_dir = (cfg.run.profile_dir
+                          or os.path.join(cfg.run.out_dir, "profile"))
+        self._prof = None
+        # skip a few warmup steps when the epoch affords it
+        self._prof_start_step = min(
+            10, max(self.steps_per_epoch - self._prof_steps, 0))
+
+    @property
+    def _prof_active(self) -> bool:
+        return self._prof is not None
+
+    def _maybe_profile_start(self, epoch: int, step: int) -> None:
+        if (self._prof_steps and epoch == 0 and self._prof is None
+                and step == self._prof_start_step):
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=acts)
+            self._prof.__enter__()
+
+    def _step_range(self):
+        """The step's `bench_step#<n>` range while capturing."""
+        if self._prof is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(
+            f"{STEP_MARKER}#{self.state.step}")
+
+    def _maybe_profile_stop(self, step: int) -> None:
+        if self._prof is None:
+            return
+        done = step - self._prof_start_step + 1 >= self._prof_steps
+        if done or step == self.steps_per_epoch - 1:  # never past epoch 0
+            self._close_profiler()
+
+    def _close_profiler(self) -> None:
+        """Synchronize, stop the capture and write it."""
+        prof, self._prof, self._prof_steps = self._prof, None, 0
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.__exit__(None, None, None)
+        os.makedirs(self._prof_dir, exist_ok=True)
+        path = os.path.join(self._prof_dir,
+                            f"{socket.gethostname()}.trace.json.gz")
+        prof.export_chrome_trace(path)
+        host0_print(f"[trainer] profiler trace captured → {path}")
+
     # ---------------------------------------------------------------- train --
     def train_epoch(self, epoch: int,
                     eta: Optional[EtaLogger] = None) -> Dict[str, float]:
@@ -371,7 +440,10 @@ class Trainer:
         it = iter(self.train_prefetch)
         try:
             for step, (images, labels) in enumerate(it):
-                metrics = self.train_step(self.state, images, labels)
+                self._maybe_profile_start(epoch, step)
+                with self._step_range():
+                    metrics = self.train_step(self.state, images, labels)
+                self._maybe_profile_stop(step)
                 n_batches += 1
                 sums = _sum_into(sums, metrics)
                 self.sentinel.observe(metrics["step_ok"])
@@ -443,9 +515,20 @@ class Trainer:
                     self.tb.flush()
                 self.ckpt.save(self.state, epoch, metric=val_m.get("val_top1"))
         finally:
-            self._heartbeat.stop()
-            if self.tb is not None:
-                self.tb.close()
-            self.train_loader.close()
-            self.val_loader.close()
+            self._teardown()
         return last
+
+    def _teardown(self) -> None:
+        """`run`'s way out, whatever it is: the watchdog stopped, a capture
+        cut short closed and written, tensorboard flushed, the loaders'
+        threads stopped."""
+        self._heartbeat.stop()
+        if self._prof is not None:
+            try:
+                self._close_profiler()
+            except Exception:  # must not mask the original exception
+                pass
+        if self.tb is not None:
+            self.tb.close()
+        self.train_loader.close()
+        self.val_loader.close()

@@ -237,9 +237,5 @@ class PLCTrainer(Trainer):
                     np.save(labels_path, _dataset_labels(self.train_ds))
                 ddp.barrier()  # no rank reads a stale copy
         finally:
-            self._heartbeat.stop()
-            if self.tb is not None:
-                self.tb.close()
-            self.train_loader.close()
-            self.val_loader.close()
+            self._teardown()
         return last

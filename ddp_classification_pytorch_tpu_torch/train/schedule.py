@@ -37,7 +37,9 @@ count in the optimizer state, so a skipped step does not advance it).
   enter the grad norm (JAX `steps.py:647`). The matcher misses the four
   downsample BNs (`…/downsample_bn/scale` holds none of its substrings),
   so it freezes 98 of ResNet-50's 106 BN tensors; the port freezes the
-  same 98 (ROADMAP.md §3: the reference freezes all of them).
+  same 98 (ROADMAP.md §3: the reference freezes all of them). On the
+  other archs (`frozen_bn_names`) only this filter applies: their BNs
+  keep batch statistics in training, as JAX's (ROADMAP.md §3).
 
 CDR's gradient transform is `ops/cdr.py::cdr_mask_`, applied by the train
 step before `optimizer.step()`.
@@ -54,6 +56,7 @@ import torch.nn as nn
 
 from ..config import OptimConfig
 from ..models.convert import flax_path
+from ..models.vgg import CFG_E, VGG
 
 Schedule = Callable[[int], float]
 _f32 = np.float32
@@ -129,8 +132,14 @@ def is_bn_param(path: str) -> bool:
 
 
 def frozen_bn_names(model: nn.Module) -> List[str]:
-    """The names of the params freeze-BN leaves out of the update."""
-    return [n for n, _ in model.named_parameters() if is_bn_param(flax_path(n))]
+    """The names of the params freeze-BN leaves out of the update: on
+    ResNet-50 98 of its 106 BN tensors (above), on TResNet-M the γ/β of
+    its 24 identity BNs (`bn2`, `bn3`, `bn_down`; no activated ABN's), on
+    VGG19-BN all 16 BNs' γ/β, on a ViT none."""
+    vgg_cfg = next((m.cfg for m in model.modules() if isinstance(m, VGG)),
+                   CFG_E)
+    return [n for n, _ in model.named_parameters()
+            if is_bn_param(flax_path(n, vgg_cfg))]
 
 
 def head_config(cfg: OptimConfig) -> OptimConfig:

@@ -18,8 +18,11 @@ import torch.nn as nn
 from ..config import Config
 from ..models.factory import build_model
 from ..models.heads import ArcMarginHead
+from ..models.import_torch import import_state_dict, load_torch_checkpoint
 from ..models.resnet import DEPTHS as RESNET_DEPTHS
 from ..models.resnet import ResNet
+from ..models.tresnet import TResNet
+from ..models.vgg import CFG_E, VGG
 from ..models.vit import VIT_CONFIGS
 from .schedule import (
     Schedule,
@@ -81,66 +84,26 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-# the reference NESTED NetFeat's Sequential indices → torchvision names
-# (NESTED/model/model.py:37-40; JAX `models/import_torch.py:73-74`)
-_NESTED_SEQ = {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2",
-               "6": "layer3", "7": "layer4"}
-_VESTIGIAL = ("mean_vector", "count_vector", "label")
-
-
-def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A .pth/.pt state dict as torchvision names: a raw state dict, a
-    `{'state_dict': ...}` wrapper, or the reference's NESTED `{'feat',
-    'cls'}` file (its `feat`, whose `feat_net.<i>` keys are renamed) — the
-    JAX `load_torch_checkpoint` and `_normalize_nested_key`
-    (`models/import_torch.py:77-89,345-356`)."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(obj, dict) and "state_dict" in obj:
-        obj = obj["state_dict"]
-    if isinstance(obj, dict) and "feat" in obj and "cls" in obj:
-        obj = obj["feat"]
-    out = {}
-    for key, value in obj.items():
-        parts = key.split(".")
-        if parts[0] == "feat_net":
-            if parts[1] not in _NESTED_SEQ:
-                continue  # relu / maxpool / avgpool carry no tensors
-            key = ".".join([_NESTED_SEQ[parts[1]]] + parts[2:])
-        out[key] = value
-    return out
-
-
 def load_pretrained_(backbone: nn.Module, path: str) -> nn.Module:
-    """Overlay a torchvision ResNet state dict onto `backbone` in place —
-    the JAX `_load_pretrained` rules (`train/state.py:108-146`,
-    `models/import_torch.py:92-131`): `num_batches_tracked` and the
-    reference's vestigial buffers are skipped; `fc` loads only when its
-    shape fits the model's head (the reference replaces a 1000-class head:
+    """Overlay a torchvision or timm state dict onto `backbone` in place,
+    the converter chosen by the backbone's arch as the JAX
+    `_load_pretrained` chooses it (`train/state.py:108-146`): a ResNet or
+    VGG19-BN takes torchvision's names, TResNet-M timm's
+    (`models/import_torch.py`). The classifier loads only when its shape
+    fits the model's head (the reference replaces a 1000-class head:
     otherwise it keeps its init); tensors the file lacks keep their init.
     A key the model does not have, a shape that does not fit, or a file
     with nothing to load is a ValueError."""
-    sd = load_torch_checkpoint(path)
-    own = backbone.state_dict()
-    fc = sd.get("fc.weight")
-    keep_fc = (fc is not None and "fc.weight" in own
-               and tuple(fc.shape) == tuple(own["fc.weight"].shape))
-    load = {}
-    for key, value in sd.items():
-        if (key.endswith("num_batches_tracked")
-                or key.split(".")[0] in _VESTIGIAL
-                or (key.startswith("fc.") and not keep_fc)):
-            continue
-        if key not in own:
-            raise ValueError(f"pretrained key {key!r} of {path} is not in "
-                             "the model")
-        if tuple(value.shape) != tuple(own[key].shape):
-            raise ValueError(f"pretrained {key!r} of {path} has shape "
-                             f"{tuple(value.shape)}, the model "
-                             f"{tuple(own[key].shape)}")
-        load[key] = value
-    if not load:
-        raise ValueError(f"{path} holds no ResNet weights (first keys: "
-                         f"{list(sd)[:5]})")
+    fam = ("vgg" if isinstance(backbone, VGG) else
+           "tresnet" if isinstance(backbone, TResNet) else
+           "resnet" if isinstance(backbone, ResNet) else None)
+    if fam is None:
+        raise ValueError(f"no torchvision/timm import for a "
+                         f"{type(backbone).__name__} backbone (ported: the "
+                         "ResNets, vgg19_bn, tresnet_m)")
+    load = import_state_dict(fam, load_torch_checkpoint(path),
+                             backbone.state_dict(),
+                             getattr(backbone, "cfg", CFG_E))
     backbone.load_state_dict(load, strict=False)
     return backbone
 
@@ -209,7 +172,8 @@ class TrainState:
 
 
 TRESNET_ARCHS = ("tresnet_m", "timm")
-CONV_ARCHS = (*RESNET_DEPTHS, *TRESNET_ARCHS)  # channels_last on the device
+# channels_last on the device
+CONV_ARCHS = (*RESNET_DEPTHS, "vgg19_bn", *TRESNET_ARCHS)
 TRAIN_ARCHS = (*CONV_ARCHS, *VIT_CONFIGS)
 
 
@@ -217,14 +181,13 @@ def create_train_state(cfg: Config, device: torch.device,
                        steps_per_epoch: int,
                        group: Optional[dist.ProcessGroup] = None
                        ) -> TrainState:
-    """Model with fresh f32 master weights from `run.seed` (or, for a
-    ResNet with `model.pretrained`, its backbone overlaid with
-    `pretrained_path`) on `device`, its optimizer (`param_groups`: the head
-    group, freeze-BN) and LR schedules. Training is ported for the
-    ResNets (every head), TResNet-M and the ViT family (head fc); anything
-    else is a ValueError.
-    `group` is the process group whose ranks share the ResNet BNs' batch
-    statistics. The conv nets go to the device in channels_last, as K1 and
+    """Model with fresh f32 master weights from `run.seed` (or, with
+    `model.pretrained`, its backbone overlaid with `pretrained_path`'s
+    torchvision or timm weights) on `device`, its optimizer
+    (`param_groups`: the head group, freeze-BN) and LR schedules. Every
+    ported arch trains under every head; anything else is a ValueError.
+    `group` is the process group whose ranks share the ResNet and VGG BNs'
+    batch statistics. The conv nets go to the device in channels_last, as K1 and
     its training passes take their activations (weights in NCHW could lead
     cuDNN to hand back NCHW outputs)."""
     if cfg.model.arch not in TRAIN_ARCHS:
@@ -235,14 +198,12 @@ def create_train_state(cfg: Config, device: torch.device,
                         group)
     init_weights_(model, torch.Generator().manual_seed(cfg.run.seed))
     if cfg.model.pretrained:
-        if cfg.model.arch not in RESNET_DEPTHS:
-            raise ValueError(f"--pretrained is ported for the ResNets, not "
-                             f"{cfg.model.arch!r} (ROADMAP.md)")
         if not cfg.model.pretrained_path:
             raise ValueError("model.pretrained needs model.pretrained_path: "
                              "nothing is downloaded; pass a local .pth "
-                             "(torchvision state_dict or the reference's "
-                             "NESTED format) with --pretrained_path")
+                             "(a torchvision or timm state_dict, or the "
+                             "reference's NESTED format) with "
+                             "--pretrained_path")
         load_pretrained_(model.backbone, cfg.model.pretrained_path)
     if cfg.model.arch in CONV_ARCHS:
         model.to(device=device, memory_format=torch.channels_last)

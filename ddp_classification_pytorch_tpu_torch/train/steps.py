@@ -1,8 +1,11 @@
 """Step functions of the port — the JAX package's `train/steps.py` for
 serving (the uint8 input epilogue, the top-k predict) and for training
 (`make_train_step`, `make_eval_step`, `make_nested_eval_step`), for the
-heads fc, arcface and nested and the CDR gradient transform, and PLC's
-ordered f(x) pass (`make_predict_step`).
+heads fc, arcface and nested and the CDR gradient transform, PLC's
+ordered f(x) pass (`make_predict_step`), and the phase probes of a
+host-timed step breakdown (`make_phase_probes`). While a profiler is
+active the train step opens `fwd`, `bwd` and `optimizer` ranges
+(`obs/trace.py` reads them).
 
 PyTorch runs eagerly, so a "step" here is a plain function over the state
 and device tensors; there is nothing to trace or compile.
@@ -10,6 +13,7 @@ and device tensors; there is nothing to trace or compile.
 
 from __future__ import annotations
 
+import contextlib
 from typing import TYPE_CHECKING, Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -150,6 +154,61 @@ def _forward(cfg: Config, net: nn.Module, x: torch.Tensor,
     return net(x)
 
 
+def _grad_norm(params) -> torch.Tensor:
+    """The global norm of the params' gradients, in f32."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(p.grad.float()) for p in params]))
+
+
+def _step_inputs(cfg: Config) -> Callable[..., Tuple]:
+    """`(state, images, flip, k) -> (x, k, buffers, kept)`: the train
+    step's start, shared by `make_train_step` and `make_phase_probes`: the
+    uint8 epilogue with the train-time flip (the `flip` given, else
+    `flip_mask(run.seed, state.step, B)`), the nested head's k (the `k`
+    given, else `nested_k`), train mode, every gradient cleared, and the
+    buffers as they were (`kept`) for a skipped step."""
+    consts: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+    flips = _train_flip_enabled(cfg)
+    seed = cfg.run.seed
+
+    def prepare(state: "TrainState", images: torch.Tensor,
+                flip: Optional[np.ndarray], k: Optional[int]) -> Tuple:
+        model = state.model
+        mask = None
+        if flips:
+            if flip is None:
+                flip = flip_mask(seed, state.step, images.shape[0])
+            mask = torch.from_numpy(flip).to(images.device, non_blocking=True)
+        x = device_input_epilogue(images.permute(0, 3, 1, 2),
+                                  *_cached_consts(consts, images.device), mask)
+        if cfg.model.head == "nested" and k is None:
+            k = nested_k(seed, state.step, model.feat_dim,
+                         cfg.model.nested_std)
+        model.train()
+        # every parameter's, not only the optimizer's: freeze-BN's params
+        # are in no group but still get (and must not accumulate) gradients
+        model.zero_grad(set_to_none=True)
+        # the buffers as they were, for a skipped step (x·1 is a bitwise
+        # copy; one multi-tensor launch per dtype, not one per buffer)
+        buffers = list(model.buffers())
+        kept = torch._foreach_mul(buffers, 1.0) if buffers else []
+        return x, k, buffers, kept
+
+    return prepare
+
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _phase(name: str):
+    """A `record_function` range named `name` (fwd, bwd, optimizer) while
+    a profiler is active (`obs/trace.py` attributes the device's work to
+    it); otherwise a shared no-op: no cost and no host sync."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_RANGE
+
+
 def make_train_step(cfg: Config, chaos: Optional[Any] = None
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """`(state, images (B, H, W, 3), labels (B,)) -> metrics`, updating
@@ -190,65 +249,91 @@ def make_train_step(cfg: Config, chaos: Optional[Any] = None
     if cfg.optim.grad_transform not in ("none", "cdr"):
         raise ValueError(f"unknown optim.grad_transform "
                          f"{cfg.optim.grad_transform!r}; one of none, cdr")
-    consts: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
-    flips = _train_flip_enabled(cfg)
-    seed, o = cfg.run.seed, cfg.optim
+    o = cfg.optim
     cdr = o.grad_transform == "cdr"
     nan_windows = list(chaos.windows("nan_loss", "step")) if chaos else []
+    prepare = _step_inputs(cfg)
 
     def step(state: "TrainState", images: torch.Tensor, labels: torch.Tensor,
              flip: Optional[np.ndarray] = None,
              k: Optional[int] = None) -> Dict[str, torch.Tensor]:
         model, opt = state.model, state.optimizer
-        net = model if state.ddp is None else state.ddp
-        mask = None
-        if flips:
-            if flip is None:
-                flip = flip_mask(seed, state.step, images.shape[0])
-            mask = torch.from_numpy(flip).to(images.device, non_blocking=True)
-        x = device_input_epilogue(images.permute(0, 3, 1, 2),
-                                  *_cached_consts(consts, images.device), mask)
-        if cfg.model.head == "nested" and k is None:
-            k = nested_k(seed, state.step, model.feat_dim,
-                         cfg.model.nested_std)
-        model.train()
-        # every parameter's, not only the optimizer's: freeze-BN's params
-        # are in no group but still get (and must not accumulate) gradients
-        model.zero_grad(set_to_none=True)
-        # the buffers as they were, for a skipped step (x·1 is a bitwise
-        # copy; one multi-tensor launch per dtype, not one per buffer)
-        buffers = list(model.buffers())
-        kept = torch._foreach_mul(buffers, 1.0) if buffers else []
-        logits = _forward(cfg, net, x, labels, k)
-        loss = _cross_entropy(logits, labels)
-        loss.backward()
-        if any(state.step >= lo and (hi is None or state.step <= hi)
-               for lo, hi in nan_windows):
-            loss = torch.full_like(loss, float("nan"))
-        metrics = _global_metrics(loss, logits.detach(), labels)
-        params = [p for p in model.parameters() if p.grad is not None]
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(p.grad.float())
-                         for p in params]))
-        ok = torch.isfinite(metrics["loss"]) & torch.isfinite(grad_norm)
-        if bool(ok):  # the one host read of the step
-            if cdr:
-                cdr_mask_([(p, p.grad) for p in params], 1.0 - o.noise_rate,
-                          cdr_clip(o.noise_rate, o.num_gradual,
-                                   o.cdr_dead_schedule, state.opt_count,
-                                   state.steps_per_epoch))
-            state.set_lrs()
-            opt.step()
-            state.opt_count += 1
-        elif buffers:
-            with torch.no_grad():
-                torch._foreach_copy_(buffers, kept)
+        with _phase("fwd"):
+            x, k, buffers, kept = prepare(state, images, flip, k)
+            logits = _forward(cfg, model if state.ddp is None else state.ddp,
+                              x, labels, k)
+            loss = _cross_entropy(logits, labels)
+        with _phase("bwd"):
+            loss.backward()
+        with _phase("optimizer"):
+            if any(state.step >= lo and (hi is None or state.step <= hi)
+                   for lo, hi in nan_windows):
+                loss = torch.full_like(loss, float("nan"))
+            metrics = _global_metrics(loss, logits.detach(), labels)
+            params = [p for p in model.parameters() if p.grad is not None]
+            grad_norm = _grad_norm(params)
+            ok = torch.isfinite(metrics["loss"]) & torch.isfinite(grad_norm)
+            if bool(ok):  # the one host read of the step
+                if cdr:
+                    cdr_mask_([(p, p.grad) for p in params],
+                              1.0 - o.noise_rate,
+                              cdr_clip(o.noise_rate, o.num_gradual,
+                                       o.cdr_dead_schedule, state.opt_count,
+                                       state.steps_per_epoch))
+                state.set_lrs()
+                opt.step()
+                state.opt_count += 1
+            elif buffers:
+                with torch.no_grad():
+                    torch._foreach_copy_(buffers, kept)
         state.step += 1
         metrics["step_ok"] = ok.float()
         metrics["grad_norm"] = grad_norm
         return metrics
 
     return step
+
+
+def make_phase_probes(cfg: Config) -> Dict[str, Callable]:
+    """Sub-steps of the train step for a host-timed step breakdown (JAX
+    `make_phase_probes`, `steps.py:298-340`):
+    `{"fwd": (state, images, labels) -> loss,
+      "fwd_bwd": (state, images, labels) -> (loss, grad_norm)}`.
+
+    Both run the production step's own start (`_step_inputs`: epilogue,
+    flip, nested k), head forward and CE; `fwd` under `no_grad` (the
+    forward alone, as JAX's forward-only program), `fwd_bwd` with its
+    backward and the grad norm. Neither updates the state: the buffers the
+    forward moved are put back and the gradients cleared, so the same
+    state times every call. With the full step's time they feed
+    `obs/trace.py::SpanRecorder`: fwd = t(fwd), bwd = t(fwd_bwd) − t(fwd),
+    optimizer = t(step) − t(fwd_bwd). The caller synchronizes the device
+    before reading a clock."""
+    prepare = _step_inputs(cfg)
+
+    def run(state: "TrainState", images: torch.Tensor, labels: torch.Tensor,
+            backward: bool):
+        x, k, buffers, kept = prepare(state, images, None, None)
+        net = state.model if state.ddp is None else state.ddp
+        try:
+            if not backward:
+                with torch.no_grad():
+                    return _cross_entropy(_forward(cfg, net, x, labels, k),
+                                          labels)
+            loss = _cross_entropy(_forward(cfg, net, x, labels, k), labels)
+            loss.backward()
+            return loss.detach(), _grad_norm(
+                [p for p in state.model.parameters() if p.grad is not None])
+        finally:
+            state.model.zero_grad(set_to_none=True)
+            if buffers:
+                with torch.no_grad():
+                    torch._foreach_copy_(buffers, kept)
+
+    return {"fwd": lambda state, images, labels: run(state, images, labels,
+                                                     False),
+            "fwd_bwd": lambda state, images, labels: run(state, images,
+                                                         labels, True)}
 
 
 def make_eval_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:

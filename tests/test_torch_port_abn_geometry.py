@@ -30,6 +30,8 @@ from hypothesis import strategies as st
 from ddp_classification_pytorch_tpu_torch.ops import fused_abn
 from ddp_classification_pytorch_tpu_torch.ops.fused_abn import geometry
 
+from torch_port_threads import one_torch_thread  # noqa: F401
+
 # every distinct ABN input of TResNet-M at 224 px, per image: (C, H, W)
 TRESNET_M_ABN = [(64, 56, 56), (128, 56, 56), (128, 28, 28), (256, 28, 28),
                  (256, 14, 14), (512, 14, 14), (512, 7, 7)]

@@ -53,6 +53,7 @@ from ddp_classification_pytorch_tpu_torch.train.loop import Trainer
 
 import torch_port_heads as H
 from torch_port_helpers import OPTIM
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 # ------------------------------------------------------------------- ops --
 

@@ -9,6 +9,8 @@ import shutil
 from ddp_classification_pytorch_tpu_torch.ops import _build
 from ddp_classification_pytorch_tpu_torch.ops import flash_attention as fa
 
+from torch_port_threads import one_torch_thread  # noqa: F401
+
 
 def _write(path, text):
     with open(path, "w") as f:

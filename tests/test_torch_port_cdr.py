@@ -37,6 +37,7 @@ from ddp_classification_pytorch_tpu_torch.train import checkpoint, steps
 
 import torch_port_heads as H
 from torch_port_helpers import OPTIM
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 # elements whose JAX |g·v| lies within BAND·thresh of JAX's threshold may
 # be masked differently (f32 gradients against f64 ones, 1e-4 relative)

@@ -30,6 +30,8 @@ from ddp_classification_pytorch_tpu_torch.train import schedule, steps
 from ddp_classification_pytorch_tpu_torch.train.state import TrainState
 from ddp_classification_pytorch_tpu_torch.utils import chaos
 
+from torch_port_threads import one_torch_thread  # noqa: F401
+
 SPECS = [
     "", " ", "nan_loss@step=7", "nan_loss@step=7..9", "nan_loss@step=7..",
     "ckpt_io@epoch=1,loader_io@batch=3,sigterm@step=20",

@@ -52,6 +52,7 @@ from ddp_classification_pytorch_tpu_torch.train import loop, schedule, steps
 from ddp_classification_pytorch_tpu_torch.train.state import TrainState
 
 from torch_port_helpers import OPTIM, REDUCED, init_variables, randomize_bn
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 JPEGS = [f"tests/data/torch_port_jpeg/img{i}.jpg" for i in range(8)]

@@ -76,6 +76,7 @@ from ddp_classification_pytorch_tpu_torch.train.state import TrainState
 import torch_port_heads as H
 from torch_port_ddp_worker import ArrayDataset
 from torch_port_helpers import OPTIM, random_variables
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_port_ddp_worker.py")

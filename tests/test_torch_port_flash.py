@@ -24,6 +24,8 @@ from ddp_classification_pytorch_tpu.ops.attention import attention as jax_attent
 from ddp_classification_pytorch_tpu_torch.ops import attention as port_attention
 from ddp_classification_pytorch_tpu_torch.ops import flash_attention as port_fa
 
+from torch_port_threads import one_torch_thread  # noqa: F401
+
 jax_fa = importlib.import_module("ddp_classification_pytorch_tpu.ops.flash_attention")
 
 

@@ -26,6 +26,8 @@ from ddp_classification_pytorch_tpu.serve import fleet as jax_fleet
 from ddp_classification_pytorch_tpu_torch.obs import events as port_events
 from ddp_classification_pytorch_tpu_torch.serve import fleet as port_fleet
 
+from torch_port_threads import one_torch_thread  # noqa: F401
+
 PACKAGES = {"jax": jax_fleet, "port": port_fleet}
 
 VALID = ["", "  ", "a:3,b:1", "a", " a : 2 , b ", "x:0.5,y", "a:1,,b:2"]

@@ -18,6 +18,8 @@ from ddp_classification_pytorch_tpu.ops.pallas_kernels import (
 )
 from ddp_classification_pytorch_tpu_torch.ops import fused_abn
 
+from torch_port_threads import one_torch_thread  # noqa: F401
+
 _DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
            "bfloat16": (jnp.bfloat16, torch.bfloat16, 0.05)}
 

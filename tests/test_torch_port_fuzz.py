@@ -23,6 +23,8 @@ from ddp_classification_pytorch_tpu_torch.scenario import fuzz
 from ddp_classification_pytorch_tpu_torch.scenario import invariants as inv
 from ddp_classification_pytorch_tpu_torch.scenario import spec as port_spec
 
+from torch_port_threads import one_torch_thread  # noqa: F401
+
 BUGS = [(), ("adopt_unverified",), ("spike_unanswered",),
         ("adopt_unverified", "spike_unanswered")]
 

@@ -87,6 +87,7 @@ from ddp_classification_pytorch_tpu_torch.train.steps import (
 )
 
 from torch_port_helpers import random_variables
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")

@@ -18,6 +18,8 @@ import os
 import subprocess
 import sys
 
+from torch_port_threads import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "ddp_classification_pytorch_tpu_torch"
 
@@ -56,7 +58,9 @@ for name in ("models.resnet", "models.batchnorm", "parallel.ddp",
              "serve.fleet", "serve.reload", "serve.http", "utils.chaos",
              "parallel.fleet", "cli.supervise", "scenario.spec",
              "scenario.invariants", "scenario.supervisor", "scenario.fuzz",
-             "analysis.lint", "cli.scenario", "cli.fuzz"):
+             "analysis.lint", "cli.scenario", "cli.fuzz", "models.vgg",
+             "models.torch_oracle", "models.import_torch",
+             "cli.verify_import", "obs.trace", "utils.debug_nans"):
     assert f"{port}.{name}" in names, name
 # the item route's decoder is the port's own C++ source, built from the
 # repo (it includes the dataplane's source; PIL stays refused)

@@ -19,6 +19,8 @@ import torch
 from ddp_classification_pytorch_tpu.ops import labelnoise as jax_ln
 from ddp_classification_pytorch_tpu_torch.ops import labelnoise as ln
 
+from torch_port_threads import one_torch_thread  # noqa: F401
+
 
 def _eta(rng, n, c):
     e = rng.random((n, c))

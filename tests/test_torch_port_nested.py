@@ -66,6 +66,7 @@ from ddp_classification_pytorch_tpu_torch.train.schedule import frozen_bn_names
 import torch_port_heads as H
 from torch_port_ddp_worker import ArrayDataset
 from torch_port_helpers import OPTIM
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 IMAGE, BATCH = 32, 4
 

@@ -60,6 +60,7 @@ from ddp_classification_pytorch_tpu_torch.train.state import TrainState
 
 import torch_port_heads as H
 from test_torch_port_data import _assert_pixels_close, _write_cifar
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JPEG_DIR = os.path.join(REPO, "tests", "data", "torch_port_jpeg")

@@ -10,6 +10,8 @@ import pytest
 from ddp_classification_pytorch_tpu.config import PRESETS as JAX_PRESETS
 from ddp_classification_pytorch_tpu_torch.config import PRESETS
 
+from torch_port_threads import one_torch_thread  # noqa: F401
+
 RENAMED = {("parallel", "data_parallel"): "data_axis"}
 
 

@@ -36,6 +36,7 @@ from ddp_classification_pytorch_tpu_torch.utils import chaos
 from ddp_classification_pytorch_tpu_torch.utils.backend_probe import (
     StepHeartbeat,
 )
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -39,6 +39,7 @@ from ddp_classification_pytorch_tpu_torch.train.state import init_weights_
 from ddp_classification_pytorch_tpu_torch.train.steps import (
     make_topk_predict_step,
 )
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 BUCKETS = (2, 4)

@@ -34,6 +34,8 @@ from ddp_classification_pytorch_tpu_torch.train import checkpoint, schedule
 from ddp_classification_pytorch_tpu_torch.train.state import TrainState
 from ddp_classification_pytorch_tpu_torch.utils.tensorboard import read_scalars
 
+from torch_port_threads import one_torch_thread  # noqa: F401
+
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                         "torch_port_jpeg")
 

@@ -30,6 +30,8 @@ from ddp_classification_pytorch_tpu_torch.scenario import invariants as inv
 from ddp_classification_pytorch_tpu_torch.scenario import spec as port_spec
 from ddp_classification_pytorch_tpu_torch.scenario import supervisor as sup
 
+from torch_port_threads import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = os.path.join(REPO, "tests", "data", "scenarios")
 PORT = "ddp_classification_pytorch_tpu_torch"

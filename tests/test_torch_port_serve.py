@@ -44,6 +44,7 @@ from ddp_classification_pytorch_tpu_torch.train.steps import (
 )
 
 from torch_port_helpers import REDUCED, init_variables, randomize_bn
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -241,7 +242,7 @@ def test_cli_serves_a_verified_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--model", "vgg19_bn"],                 # arch not ported yet
+    ["--model", "densenet121"],              # arch not ported
     ["--buckets", "4,2"],                    # not ascending
     ["--topk", "11"],                        # more than num_classes
     [],                                      # no weights, no selfcheck

@@ -4,6 +4,7 @@ kernels at each region's edges (`region_spans`), and what a region whose
 record the profiler lost part of looks like (`whole`)."""
 
 import chip_smoke
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 MARK = f"void {chip_smoke.MARK}(long)"
 EDGE = [MARK] * chip_smoke.MARKS_PER_EDGE

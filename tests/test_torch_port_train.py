@@ -44,6 +44,7 @@ from ddp_classification_pytorch_tpu_torch.train.state import TrainState
 from ddp_classification_pytorch_tpu_torch.utils.metrics import topk_hits
 
 from torch_port_helpers import OPTIM
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REDUCED = dict(patch=16, dim=64, depth=2, heads=2, num_classes=10)
 IMAGE, BATCH = 64, 4
@@ -278,7 +279,7 @@ def test_cli_without_a_card_exits_3(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--model", "vgg19_bn"],           # arch not ported for training
+    ["--model", "densenet121"],        # arch not ported
     ["--dataset", "imagefolder"],      # no --train_dir
     ["--resume", "x.pt"],              # no such checkpoint
     ["--optimizer", "lamb"],           # unknown optimizer
@@ -289,10 +290,12 @@ def test_cli_unported_or_bad_config_exits_2(tmp_path, extra):
 
 
 def test_cli_unported_workload_exits_2(tmp_path):
-    """The arcface head is ported on the ResNets only (TINY's model is a
-    ViT): rc 2. PLC trains the ViT too (its head is the plain fc): rc 0,
-    with the correction record."""
-    assert _rc(["arcface"] + TINY[1:] + ["--device", "cpu"]) == 2
+    """ArcFace's partial-FC CE (`--sharded_ce`) is not ported: rc 2 (the
+    dense arcface head trains on every arch, TINY's ViT too). PLC trains
+    the ViT (its head is the plain fc): rc 0, with the correction
+    record."""
+    assert _rc(["arcface"] + TINY[1:] + ["--device", "cpu",
+                                         "--sharded_ce"]) == 2
     assert _rc(["plc"] + TINY[1:] + ["--device", "cpu", "--plc_warmup_epochs",
                                      "0", "--out", str(tmp_path / "plc")]) == 0
     assert (tmp_path / "plc" / "plc_labels.npy").exists()

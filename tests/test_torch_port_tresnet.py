@@ -29,6 +29,7 @@ from ddp_classification_pytorch_tpu_torch.models.convert import tresnet_from_jax
 from ddp_classification_pytorch_tpu_torch.train.state import init_weights_
 
 from torch_port_helpers import REDUCED, init_variables, randomize_bn
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 @pytest.fixture(scope="module")
 def jax_variables():

@@ -54,6 +54,7 @@ from ddp_classification_pytorch_tpu_torch.train import schedule, steps
 from ddp_classification_pytorch_tpu_torch.train.state import TrainState
 
 from torch_port_helpers import OPTIM, REDUCED, init_variables, randomize_bn
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 EPS, SLOPE = 1e-5, tresnet.SLOPE
 _DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5, 2e-4),

@@ -24,6 +24,8 @@ from ddp_classification_pytorch_tpu_torch.models.convert import vit_from_jax
 from ddp_classification_pytorch_tpu_torch.models.factory import ClassifierModel, build_model
 from ddp_classification_pytorch_tpu_torch.ops import flash_attention as port_fa
 
+from torch_port_threads import one_torch_thread  # noqa: F401
+
 REDUCED = dict(patch=16, dim=64, depth=2, heads=2, num_classes=10)
 IMAGE = 64
 

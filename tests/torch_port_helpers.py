@@ -65,4 +65,4 @@ def random_variables(model, image_size: int, rng):
         return np.zeros(leaf.shape, np.float32)
 
     filled = jax.tree_util.tree_map_with_path(fill, shapes)
-    return randomize_bn(filled["params"], filled["batch_stats"], rng)
+    return randomize_bn(filled["params"], filled.get("batch_stats", {}), rng)
