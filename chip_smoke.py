@@ -309,8 +309,9 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    (`recovery_path_launches`) and on phase 31's legs
    (`vgg_nested_path_launches`, `tresnet_arcface_path_launches`,
    `tresnet_nested_path_launches`, `vit_arcface_path_launches`,
-   `debug_nans_path_launches`, `profile_window_path_launches`), then
-   `{"ok": true, "device": {...}}` last;
+   `debug_nans_path_launches`, `profile_window_path_launches`) and on
+   phase 32 (b)'s (`grad_accum_path_launches`: the K1 family 36 × 4 a
+   step), then `{"ok": true, "device": {...}}` last;
 29. (run before the summary line) the recovery chain on the card —
    (a) `Trainer` on TResNet-M at full width (224 px, 2173 classes, bf16,
    batch 32, 256 synthetic images: 8 steps an epoch, 2 epochs) with
@@ -379,7 +380,30 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    FloatingPointError naming `full_like` (a process would exit rc 1); (f)
    `cli/verify_import.py` on the card (TF32 off) over resnet50, vgg19_bn
    and tresnet_m checkpoints the oracles write with random weights: PASS,
-   rc 0 each; a file with a renamed key: rc 2.
+   rc 0 each; a file with a renamed key: rc 2;
+32. (run before the summary line) the scaling levers, through
+   `cli/train.py`'s parser and `Trainer`, every launch count set to 0
+   just before each leg — (a) the ResNet-50 baseline step at batch 128
+   (224 px, 2173 classes, bf16, uint8 wire) at `--grad_accum 4`
+   (microbatches of 32) beside `--grad_accum 1`: wall (host clock), device
+   ms (CUDA events), images/s and `torch.cuda.max_memory_allocated` over a
+   step, none of the seven kernels; (b) TResNet-M at the serving
+   configuration, batch 32, `--grad_accum 4` through `train_main_path`:
+   K1, K1s, K1r and K1d 36 × 4 a step (K1 36 an eval batch), then one
+   more step whose K1s output at the first site (microbatch 8) is held
+   against its plain version on the same input within SUM_ULPS f32 ulps
+   of its sums; (c) phase 22's run at `--grad_accum 2` as a plain process
+   and under torchrun world 1 with `--zero_opt on --grad_reduce_dtype
+   bfloat16` (both the identity at world 1): bitwise, over 4 f32 steps;
+   and `--grad_accum 1` against the plain step written out, bitwise over
+   two steps of ResNet-50 (f32, batch 8); (d) ResNet-50's train state
+   saved synchronously and asynchronously: the step loop's blocking ms at
+   `save` for each, the file verified after `wait()`, `publish` emitted
+   only once the sidecar had landed, and `--resume` continuing from it
+   for an epoch; (e) `--h2d-overlap` off and on over CIFAR-10 pickles
+   (ResNet-18's CIFAR stem, batch 16): the step loop's prefetch wait ms a
+   step, and the 16 batches' checksums equal. Each line beside the card's
+   name and power limit.
 
 Numerics on the card: `torch.backends.cudnn.allow_tf32 = False` and
 `torch.backends.cuda.matmul.allow_tf32 = False` (f32 convolutions and
@@ -2026,26 +2050,30 @@ def run_group(cmd, timeout_s: float):
     return proc.returncode, out, err
 
 
-def ddp_vs_plain(torch, checkpoint) -> dict:
+def ddp_vs_plain(torch, checkpoint, argv=DDP_ARGV, torchrun_extra=(),
+                 tag="ddp") -> dict:
     """Phase 22: DDP_ARGV as a plain process and under `python -m
     torch.distributed.run --nproc_per_node 1` (NCCL, world 1), same seed
     and data: each epoch's (= step's) loss and the last checkpoint's
     parameters and running statistics bitwise equal (the largest
     difference is reported). The torchrun run must report `ddp=nccl`:
-    nothing falls back to the plain process."""
+    nothing falls back to the plain process. Phase 32 (c) runs it on
+    `argv` with `torchrun_extra` given to the torchrun run only."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
     mod = ["-m", "ddp_classification_pytorch_tpu_torch.cli.train"]
     cmds = {"plain": [sys.executable] + mod,
             "torchrun": [sys.executable, "-m", "torch.distributed.run",
                          "--nproc_per_node", "1", "--master_addr",
                          "127.0.0.1", "--master_port", str(free_port())] + mod}
+    extra = {"plain": [], "torchrun": list(torchrun_extra)}
     runs = {}
     try:
         for kind, cmd in cmds.items():
             out = os.path.join(tmp, kind)
             t0 = time.perf_counter()
-            rc, stdout, stderr = run_group(cmd + DDP_ARGV + ["--out", out], 600)
-            check(rc == 0, f"phase 22 {kind} run: rc {rc}\n{stdout[-3000:]}\n"
+            rc, stdout, stderr = run_group(
+                cmd + argv + extra[kind] + ["--out", out], 600)
+            check(rc == 0, f"[{tag}] {kind} run: rc {rc}\n{stdout[-3000:]}\n"
                            f"{stderr[-3000:]}")
             with open(os.path.join(out, "history.json")) as f:
                 losses = json.load(f)["loss"]
@@ -2055,7 +2083,7 @@ def ddp_vs_plain(torch, checkpoint) -> dict:
                           "losses": losses,
                           "state": checkpoint.restore(os.path.join(
                               out, f"ckpt_e{DDP_STEPS - 1}.pt"))}
-            log(f"[ddp] {kind}: {runs[kind]['banner']}; losses {losses}")
+            log(f"[{tag}] {kind}: {runs[kind]['banner']}; losses {losses}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     plain, tr = runs["plain"], runs["torchrun"]
@@ -2082,7 +2110,7 @@ def ddp_vs_plain(torch, checkpoint) -> dict:
            "losses_plain": plain["losses"], "losses_torchrun": tr["losses"],
            "wall_s": {k: r["wall_s"] for k, r in runs.items()},
            "banners": {k: r["banner"] for k, r in runs.items()}}
-    log(f"[ddp] torchrun (world 1, NCCL) vs plain: {json.dumps(rec)}")
+    log(f"[{tag}] torchrun (world 1, NCCL) vs plain: {json.dumps(rec)}")
     # bitwise, as measured on an NVIDIA H100: a limit of 1e-4 would let a
     # world-1 group that perturbs the step pass
     check(loss_rel == 0.0, f"per-step losses differ by {loss_rel} relatively")
@@ -3753,6 +3781,387 @@ def slice15_phase(torch, device, train_cli, serve_cli, checkpoint, fused_abn,
     return rec
 
 
+# ------------------------------------------------------------- phase 32 --
+# the scaling levers. (a) the ResNet-50 baseline step at batch 128 (224 px,
+# 2173 classes, bf16, uint8 wire) at --grad_accum 4 (microbatches of 32)
+# beside --grad_accum 1
+ACCUM_R50_ARGV = [a if b not in ("--synthetic_size", "--batchsize") else
+                  {"--synthetic_size": "256", "--batchsize": "128"}[b]
+                  for b, a in zip([None] + RESNET_TRAIN_ARGV, RESNET_TRAIN_ARGV)]
+ACCUM_K = 4
+# (b) TResNet-M at the serving configuration, batch 32, --grad_accum 4:
+# the K1 family at its 36 sites once a microbatch
+ACCUM_TRESNET_ARGV = TRESNET_TRAIN_ARGV + ["--grad_accum", str(ACCUM_K)]
+# (c) phase 22's run under torchrun world 1 with every lever against the
+# plain process at --grad_accum 2 (ZeRO-1 and the wire are the identity
+# at world 1), and --grad_accum 1 against the plain step written out
+ACCUM_DDP_ARGV = DDP_ARGV + ["--grad_accum", "2"]
+LEVERS_TORCHRUN = ["--zero_opt", "on", "--grad_reduce_dtype", "bfloat16"]
+PLAIN_STEP_ARGV = [a if b != "--batchsize" else "8"
+                   for b, a in zip([None] + DDP_ARGV, DDP_ARGV)]
+# (e) --h2d-overlap on CIFAR-10 pickles (no dataplane on the card's
+# machine): 256 images at batch 16, 16 batches, ResNet-18's CIFAR stem
+OVERLAP_ARGV = ["baseline", "--dataset", "cifar10", "--model", "resnet18",
+                "--batchsize", "16", "--dtype", "bfloat16", "--epochs", "1",
+                "--device", "cuda"]
+OVERLAP_BATCHES = 16
+
+
+def _trainer(train_cli, argv, device, out=None):
+    from ddp_classification_pytorch_tpu_torch.train.loop import Trainer
+
+    tmp = out or tempfile.mkdtemp(prefix="chip_smoke_levers_")
+    cfg = train_cli.config_from_args(
+        train_cli.build_parser().parse_args(argv + ["--out", tmp]))
+    return Trainer(cfg, device), tmp
+
+
+def accum_step_timing(torch, device, train_cli, counters, card) -> dict:
+    """Phase 32 (a): the ResNet-50 baseline step at batch 128 through the
+    trainer's own step at --grad_accum 4 and 1 on one random uint8 batch:
+    wall (host clock, median of 5), device ms (CUDA events around the
+    step, median of STEP_REPS), images/s, and the peak of
+    `torch.cuda.max_memory_allocated` over one step; no kernel of the
+    seven launches (a ResNet)."""
+    n = RESNET_STEP_BATCH
+    rng = np.random.default_rng(32)
+    images = torch.from_numpy(rng.integers(0, 256, (n, 224, 224, 3),
+                                           dtype=np.uint8)).to(device)
+    labels = torch.from_numpy(rng.integers(0, 2173, n).astype(np.int32)
+                              ).to(device)
+    rec = {}
+    for k in (ACCUM_K, 1):
+        trainer, tmp = _trainer(train_cli, ACCUM_R50_ARGV + [
+            "--grad_accum", str(k)], device)
+        shutil.rmtree(tmp, ignore_errors=True)
+        check(trainer.cfg.parallel.grad_accum == k
+              and trainer.cfg.data.batch_size == n, "phase 32 (a) config")
+
+        def step():
+            return trainer.train_step(trainer.state, images, labels)
+
+        for f in counters.values():
+            f.launches = 0
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        m = step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device)
+        wall = host_ms(torch, step)
+        dev = event_step_ms(torch, step)
+        check(float(m["step_ok"]) == 1.0, f"K={k}: step skipped")
+        check(all(f.launches == 0 for f in counters.values()),
+              f"K={k}: a kernel launched on the ResNet-50 step")
+        rec[f"k{k}"] = {"batch": n, "microbatch": n // k, "wall_ms": wall,
+                        "device_ms": dev, "images_per_s": n / wall * 1e3,
+                        "peak_allocated_gb": peak / 1e9,
+                        "allocated_before_gb": base / 1e9,
+                        "loss": float(m["loss"])}
+        del trainer, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[accum] {card}: ResNet-50 train step, batch {n}, bf16, 224 px, "
+        f"--grad_accum {ACCUM_K} vs 1: {json.dumps(rec)}")
+    return rec
+
+
+def accum_tresnet_path(torch, device, train_cli, checkpoint, fused_abn,
+                       counters, card) -> dict:
+    """Phase 32 (b): TResNet-M at batch 32 with --grad_accum 4 through
+    `train_main_path` (8 steps, 2 eval batches): K1, K1s, K1r and K1d at
+    their 36 sites once a microbatch, 36 × 4 a step (K1 36 an eval batch
+    too), K2-K4 0; then one more step with K1s's output at the first site
+    (microbatch 8) held against its plain version on the same input."""
+    per_step = ABN_SITES * ACCUM_K
+    want = dict.fromkeys(counters, 0) | {
+        "k1": per_step * TRAIN_STEPS + ABN_SITES * EVAL_BATCHES,
+        "k1s": per_step * TRAIN_STEPS, "k1r": per_step * TRAIN_STEPS,
+        "k1d": per_step * TRAIN_STEPS}
+
+    def then(tr, ckpt):
+        real, seen = fused_abn.bn_stats, []
+
+        def recorded(x, *a, **kw):
+            out = real(x, *a, **kw)
+            if not seen:
+                seen.append((x.detach().clone(), [o.clone() for o in out]))
+            return out
+
+        rng = np.random.default_rng(33)
+        images = torch.from_numpy(rng.integers(0, 256, (32, 224, 224, 3),
+                                               dtype=np.uint8)).to(device)
+        labels = torch.from_numpy(rng.integers(0, 2173, 32).astype(
+            np.int32)).to(device)
+        before = {k: f.launches for k, f in counters.items()}
+        # the wrapper counts under its module name, so the recorder carries
+        # the count while it stands in
+        recorded.launches = real.launches
+        fused_abn.bn_stats = recorded
+        try:
+            m = tr.train_step(tr.state, images, labels)
+            torch.cuda.synchronize()
+        finally:
+            fused_abn.bn_stats = real
+            real.launches = recorded.launches
+        step_counts = {k: f.launches - before[k] for k, f in counters.items()}
+        check(float(m["step_ok"]) == 1.0, "phase 32 (b): step skipped")
+        check(step_counts == dict.fromkeys(counters, 0) | dict.fromkeys(
+            ("k1", "k1s", "k1r", "k1d"), per_step),
+            f"one step's launches {step_counts}, expected {per_step} each")
+        x, got = seen[0]
+        check(x.shape[0] == 32 // ACCUM_K, f"K1s's input {tuple(x.shape)}")
+        mean, var, inv = fused_abn.bn_stats_ref(x)
+        xf = fused_abn._rows(x).float()
+        ulps = SUM_ULPS * 2.0 ** -24
+        lim_mean = ulps * xf.abs().mean(0)
+        lim_var = ulps * (xf * xf).mean(0) + 2 * mean.abs() * lim_mean
+        errs = {name: (a - b).abs().max().item()
+                for name, a, b in zip(("mean", "var", "inv_std"), got,
+                                      (mean, var, inv))}
+        check(bool(((got[0] - mean).abs() <= lim_mean).all()
+                   and ((got[1] - var).abs() <= lim_var).all()),
+              f"K1s at microbatch 8 off its plain version: {errs}")
+        lim_inv = 0.5 * inv ** 3 * lim_var + 4 * 2.0 ** -24 * inv
+        check(bool(((got[2] - inv).abs() <= lim_inv).all()),
+              f"K1s inv_std at microbatch 8 off its plain version: {errs}")
+        return {"step_launches": step_counts, "k1s_input": list(x.shape),
+                "k1s_max_abs_err": errs, "k1s_limit": f"{SUM_ULPS} f32 ulps "
+                "of the sums of |x| and x^2 (var: and 2|mean| that of the "
+                "mean; inv_std: its derivative times that)"}
+
+    _, _, rec = train_main_path(torch, device, train_cli, checkpoint,
+                                ACCUM_TRESNET_ARGV, counters, want,
+                                "accum-tresnet", then)
+    log(f"[accum-tresnet] {card}: K1/K1s/K1r/K1d {per_step} a step "
+        f"(36 sites x {ACCUM_K} microbatches), K1s at microbatch "
+        f"{32 // ACCUM_K} vs plain {json.dumps(rec['k1s_max_abs_err'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def plain_step_bitwise(torch, device, train_cli) -> dict:
+    """Phase 32 (c): --grad_accum 1 (every lever at its default) is the
+    plain step: three Trainers of ResNet-50 (f32, 224 px, batch 8) from
+    the seed, two stepping through their train step (the control) and one
+    through the plain sequence written out (epilogue, forward, CE,
+    backward, lr, SGD); after two steps the three states are bitwise
+    equal. cuDNN runs deterministic algorithms for this leg (its default
+    may sum a weight gradient in another order call to call)."""
+    import torch.nn.functional as F
+
+    from ddp_classification_pytorch_tpu_torch.data.transforms import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [_trainer(train_cli, PLAIN_STEP_ARGV + extra, device)
+                for extra in (["--grad_accum", "1"], [], [])]
+        for _, tmp in runs:
+            shutil.rmtree(tmp, ignore_errors=True)
+        (a, _), (c, _), (b, _) = runs
+        check(type(a.state.optimizer) is torch.optim.SGD
+              and a.state.ddp is None, "phase 32 (c): a lever is on at its "
+              "default")
+        mean, std = (torch.from_numpy(v).view(1, 3, 1, 1).to(device)
+                     for v in (IMAGENET_MEAN, IMAGENET_STD))
+        rng = np.random.default_rng(34)
+        for _ in range(2):
+            images = torch.from_numpy(rng.integers(
+                0, 256, (8, 224, 224, 3), dtype=np.uint8)).to(device)
+            labels = torch.from_numpy(rng.integers(0, 2173, 8).astype(
+                np.int32)).to(device)
+            for tr in (a, c):
+                tr.train_step(tr.state, images, labels)
+            st = b.state
+            x = (images.permute(0, 3, 1, 2).float() / 255.0 - mean) / std
+            st.model.train()
+            st.model.zero_grad(set_to_none=True)
+            F.cross_entropy(st.model(x).float(), labels.long()).backward()
+            st.set_lrs()
+            st.optimizer.step()
+            st.opt_count += 1
+            st.step += 1
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    sa, sb, sc = (t.state.state_dict() for t in (a, b, c))
+    worst = max((sa["model"][k].float() - sb["model"][k].float()).abs().max()
+                .item() for k in sa["model"])
+    rec = {"bitwise_equal": same_state(torch, sa, sb),
+           "control_bitwise_equal": same_state(torch, sa, sc),
+           "max_abs_diff": worst, "steps": 2, "argv": PLAIN_STEP_ARGV}
+    log(f"[accum] --grad_accum 1 vs the plain step written out: "
+        f"{json.dumps(rec)}")
+    check(rec["control_bitwise_equal"], "two runs of the step differ")
+    check(rec["bitwise_equal"], "--grad_accum 1 is not bitwise the plain step")
+    del a, b, c, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def async_ckpt_leg(torch, device, train_cli, checkpoint, counters,
+                   card) -> dict:
+    """Phase 32 (d): ResNet-50's train state (224 px, 2173 classes, bf16,
+    after one step at batch 64) saved synchronously and asynchronously:
+    the step loop's blocking ms at `save` for each, and the background
+    write's ms until `wait()` returns; the async file verifies, `publish`
+    was emitted with its sidecar already on disk, meta names it, and
+    `cli/train.py --resume` continues from it for one epoch (8 steps, 2
+    eval batches)."""
+    from ddp_classification_pytorch_tpu_torch.train.checkpoint import (
+        CheckpointManager)
+
+    trainer, tmp = _trainer(train_cli, RESNET_TRAIN_ARGV, device)
+    rng = np.random.default_rng(35)
+    images = torch.from_numpy(rng.integers(0, 256, (64, 224, 224, 3),
+                                           dtype=np.uint8)).to(device)
+    labels = torch.from_numpy(rng.integers(0, 2173, 64).astype(np.int32)
+                              ).to(device)
+    trainer.train_step(trainer.state, images, labels)
+    torch.cuda.synchronize()
+    published, real_emit = [], checkpoint.emit
+
+    def emit(kind, **kw):
+        if kind == "publish":
+            published.append(checkpoint.verify(kw["path"]) is None)
+        real_emit(kind, **kw)
+
+    rec = {}
+    checkpoint.emit = emit
+    try:
+        for mode in ("sync", "async"):
+            mgr = CheckpointManager(os.path.join(tmp, mode),
+                                    async_save=mode == "async")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(trainer.state, 0)
+            blocked = (time.perf_counter() - t0) * 1e3
+            mgr.wait()
+            rec[mode] = {"blocking_ms": blocked,
+                         "until_landed_ms": (time.perf_counter() - t0) * 1e3,
+                         "bytes": os.path.getsize(mgr.epoch_path(0))}
+            check(checkpoint.verify(mgr.epoch_path(0)) is None,
+                  f"{mode} checkpoint does not verify")
+            check(mgr.read_meta().get("last_epoch") == 0, "meta not written")
+    finally:
+        checkpoint.emit = real_emit
+    check(published == [True, True], f"publish before its sidecar: {published}")
+    ckpt = os.path.join(tmp, "async", "ckpt_e0.pt")
+    check(same_state(torch, checkpoint.restore(ckpt),
+                     trainer.state.state_dict()),
+          "async checkpoint does not hold the train state")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    resumed, rtmp = _trainer(train_cli, RESNET_TRAIN_ARGV + [
+        "--epochs", "2", "--resume", ckpt], device)
+    check(resumed.start_epoch == 1 and resumed.state.step == 1,
+          f"--resume: epoch {resumed.start_epoch}, step {resumed.state.step}")
+    for f in counters.values():
+        f.launches = 0
+    last = resumed.run()
+    check(last["step_ok"] == 1.0 and np.isfinite(last["loss"]),
+          f"resumed epoch: {last}")
+    check(resumed.state.step == 1 + TRAIN_STEPS
+          and checkpoint.verify(os.path.join(rtmp, "ckpt_e1.pt")) is None,
+          "the resumed run's checkpoint")
+    rec["resumed"] = {"epoch": last, "step": resumed.state.step}
+    rec["publish_after_sidecar"] = published
+    del resumed
+    shutil.rmtree(tmp, ignore_errors=True)
+    shutil.rmtree(rtmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[async-ckpt] {card}: ResNet-50 train state, save blocking ms "
+        f"sync {rec['sync']['blocking_ms']:.1f} vs async "
+        f"{rec['async']['blocking_ms']:.1f}: {json.dumps(rec)}")
+    return rec
+
+
+def overlap_leg(torch, device, train_cli, card) -> dict:
+    """Phase 32 (e): --h2d-overlap off and on over CIFAR-10 pickles (256
+    images of random pixels from a seed, batch 16): the trainer's own
+    prefetcher and step for the epoch's 16 batches, the step loop's
+    prefetch wait ms a step, and a checksum of each batch on the card,
+    equal with the overlap off and on (and the overlap's fetcher thread
+    seen)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_cifar_")
+    rec = {}
+    try:
+        write_cifar10(root, 32)
+        for on in (False, True):
+            trainer, tmp = _trainer(train_cli, OVERLAP_ARGV + [
+                "--train_dir", root] + (["--h2d-overlap"] if on else []),
+                device)
+            pf = trainer.train_prefetch
+            check(pf.overlap == on and trainer.steps_per_epoch
+                  == OVERLAP_BATCHES, "phase 32 (e) config")
+            trainer.train_loader.set_epoch(0)
+            sums, w0, b0 = [], pf.waited_s, pf.batches
+            t0 = time.perf_counter()
+            it = iter(pf)
+            try:
+                for images, labels in it:
+                    w = torch.arange(1, images.shape[0] + 1, device=device)
+                    sums.append(torch.stack([
+                        (images.flatten(1).to(torch.int64).sum(1) * w).sum(),
+                        (labels.to(torch.int64) * w).sum()]))
+                    trainer.train_step(trainer.state, images, labels)
+                fetch = pf.fetch_thread
+            finally:
+                it.close()
+            torch.cuda.synchronize()
+            n = pf.batches - b0
+            rec["on" if on else "off"] = {
+                "batches": n, "wait_ms_per_step": (pf.waited_s - w0) / n * 1e3,
+                "loop_ms_per_step": (time.perf_counter() - t0) / n * 1e3,
+                "fetch_thread": fetch is not None,
+                "checksums": torch.stack(sums).cpu().tolist()}
+            check(n == OVERLAP_BATCHES and (fetch is not None) == on,
+                  f"overlap {on}: {n} batches, fetcher {fetch}")
+            trainer._teardown()
+            del trainer
+            shutil.rmtree(tmp, ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(rec["on"]["checksums"] == rec["off"]["checksums"],
+          "the overlap changed the batches or their order")
+    log(f"[h2d-overlap] {card}: prefetch wait ms a step off "
+        f"{rec['off']['wait_ms_per_step']:.3f}, on "
+        f"{rec['on']['wait_ms_per_step']:.3f}; the first {OVERLAP_BATCHES} "
+        f"batches' checksums equal: {json.dumps(rec)}")
+    return rec
+
+
+def slice16_phase(torch, device, train_cli, checkpoint, fused_abn, counters,
+                  card) -> dict:
+    """Phase 32 (a)-(e); (b) is the main path of `grad_accum_path_launches`."""
+    t0 = time.perf_counter()
+    rec = {"resnet50_accum": accum_step_timing(torch, device, train_cli,
+                                               counters, card),
+           "tresnet_accum": accum_tresnet_path(
+               torch, device, train_cli, checkpoint, fused_abn, counters,
+               card)}
+    rec["world1_levers"] = ddp_vs_plain(torch, checkpoint, ACCUM_DDP_ARGV,
+                                        LEVERS_TORCHRUN, tag="levers")
+    check("grad_accum=2 zero=False wire=bfloat16" in
+          rec["world1_levers"]["banners"]["torchrun"],
+          "the torchrun run did not take the levers")
+    rec["grad_accum_1"] = plain_step_bitwise(torch, device, train_cli)
+    rec["async_ckpt"] = async_ckpt_leg(torch, device, train_cli, checkpoint,
+                                       counters, card)
+    rec["h2d_overlap"] = overlap_leg(torch, device, train_cli, card)
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -4490,6 +4899,14 @@ def main() -> int:
         f" s ((d) {prof_rec['phase_s']:.1f} s; {card})")
     report["slice15"] = slice_rec
 
+    # ------------------------------------------ 32. the scaling levers --
+    gc.collect()
+    torch.cuda.empty_cache()
+    levers = slice16_phase(torch, device, train_cli, checkpoint, fused_abn,
+                           counters, card)
+    log(f"[slice16] phase 32 took {levers['phase_s']:.1f} s ({card})")
+    report["slice16"] = levers
+
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as f:
@@ -4507,7 +4924,9 @@ def main() -> int:
             "recovery_path_launches": recovery_rec["launches"][kind]} | {
             f"{leg}_path_launches": slice_rec[leg]["launches"][kind]
             for leg in ("vgg_nested", "tresnet_arcface", "tresnet_nested",
-                        "vit_arcface", "debug_nans", "profile_window")}
+                        "vit_arcface", "debug_nans", "profile_window")} | {
+            "grad_accum_path_launches":
+                levers["tresnet_accum"]["launches"][kind]}
 
     log(json.dumps({"kernels": [{
         "name": "fused_bn_leaky_relu",

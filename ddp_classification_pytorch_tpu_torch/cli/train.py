@@ -3,7 +3,9 @@ paths ported so far (the five reference workloads — baseline, arcface,
 cdr, nested and plc — on the ResNets and VGG19-BN over any number of
 cards, on TResNet-M and the ViT family on one; on synthetic data, image
 folders, CIFAR pickles and PLC's annotation datasets, with resume; the
-profiler window and `--debug_nans`), on the card.
+profiler window and `--debug_nans`; the scaling levers `--grad_accum`,
+`--zero_opt`, `--grad_reduce_dtype`, `--h2d-overlap` and async
+checkpoints), on the card.
 
     torchrun --nproc_per_node 4 -m ddp_classification_pytorch_tpu_torch.cli.train \
         baseline --dataset imagefolder --train_dir T --val_dir V \
@@ -29,6 +31,10 @@ profiler window and `--debug_nans`), on the card.
         --profile_steps 4 --out runs/prof  # → runs/prof/profile/<host>.trace.json.gz
     python -m ddp_classification_pytorch_tpu_torch.cli.train cdr \
         --folder D --out runs/cdr        # the cdr transform, item route
+    torchrun --nproc_per_node 4 -m ddp_classification_pytorch_tpu_torch.cli.train \
+        baseline --dataset synthetic --batchsize 128 --grad_accum 4 \
+        --grad_reduce_dtype bfloat16 --h2d-overlap --out runs/r50_accum
+        # microbatches of 32, one bf16 all-reduce a step, ZeRO-1 (auto)
     python -m ddp_classification_pytorch_tpu_torch.cli.train plc \
         --dataset plc --train_dir C1M --out runs/plc  # Clothing1M layout
 
@@ -70,6 +76,10 @@ Exit codes, as the JAX CLI's:
   native dataplane (or its decoder) that does not build on this machine, `--dp` other
   than the world size, TResNet-M over more than one rank, a malformed
   `--fault_spec`, malformed ``FLEET_*`` variables (`FleetConfigError`);
+  `grad-accum-indivisible` (a `--batchsize` that `--grad_accum` K does
+  not split into K equal microbatches, or K > 1 with `--sharded_ce`), and
+  `--grad_reduce_dtype bfloat16` under the nested head over more than
+  one rank (its k is drawn once for the global batch);
 - **rc 3**: no CUDA device and `--device cpu` not asked for (it never
   carries on on the CPU);
 - **rc 6**: the `--multihost` rendezvous never completed within its
@@ -126,6 +136,11 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--device_prefetch", type=int, default=-1,
                    help="batches staged on the card ahead of the step loop "
                         "(default 2; 0 = copy inside the step loop)")
+    d.add_argument("--h2d-overlap", dest="h2d_overlap", action="store_true",
+                   help="double-buffered H2D: fetch host batch N+1 on a "
+                        "thread of its own while batch N is copied to the "
+                        "card (one-slot handoff; ignored at "
+                        "--device_prefetch 0)")
     d.add_argument("--image_size", type=int, default=0)
     d.add_argument("--crop_size", type=int, default=0,
                    help="train crop / resize-short side (default 256, the "
@@ -222,6 +237,17 @@ def build_parser() -> argparse.ArgumentParser:
     par.add_argument("--dp", type=int, default=0,
                      help="data-parallel width; must equal the world size "
                           "torchrun gives (0 = the world size)")
+    par.add_argument("--zero_opt", default="",
+                     choices=["", "auto", "on", "off"],
+                     help="ZeRO-1: each rank keeps and updates 1/N of the "
+                          "optimizer state (ZeroRedundancyOptimizer); "
+                          "'auto' (the default) is on when the world is "
+                          "above 1")
+    par.add_argument("--grad_reduce_dtype", default="",
+                     choices=["", "float32", "bfloat16"],
+                     help="wire dtype of the gradient all-reduce; bfloat16 "
+                          "halves its bytes (a DDP comm hook; a no-op at "
+                          "world 1), master weights and momentum stay f32")
     par.add_argument("--sharded_ce", action="store_true",
                      help="the partial-FC ArcFace CE over a model axis: not "
                           "ported (rc 2)")
@@ -265,6 +291,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "epoch 0 into <out>/profile (obs/trace.py reads it)")
     r.add_argument("--profile_dir", default="",
                    help="where --profile_steps writes (default <out>/profile)")
+    r.add_argument("--grad_accum", type=int, default=0,
+                   help="microbatch accumulation factor K: K equal "
+                        "microbatches of --batchsize, one gradient "
+                        "all-reduce and one update a step")
     r.add_argument("--debug_nans", action="store_true",
                    help="raise FloatingPointError at the first op with a "
                         "NaN output (jax_debug_nans; a host sync per op)")
@@ -291,6 +321,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
+    if args.sharded_ce and args.grad_accum > 1:
+        raise ValueError(
+            "grad-accum-indivisible: grad_accum > 1 does not compose with "
+            "arcface_sharded_ce (--sharded_ce: the partial-FC loss owns its "
+            "batch) — drop one of the two")
     if args.sharded_ce:
         raise ValueError("--sharded_ce (the partial-FC ArcFace CE over a "
                          "model axis) is not ported: the port has no model "
@@ -325,6 +360,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
         cfg.data.num_workers = args.num_workers
     if args.device_prefetch >= 0:
         cfg.data.device_prefetch = args.device_prefetch
+    if args.h2d_overlap:
+        cfg.data.h2d_overlap = True
     if args.image_size:
         cfg.data.image_size = args.image_size
     if args.crop_size:
@@ -360,6 +397,12 @@ def config_from_args(args: argparse.Namespace) -> Config:
     if args.freeze_bn is not None:
         cfg.model.freeze_bn = args.freeze_bn
     cfg.parallel.data_parallel = args.dp
+    if args.grad_accum:
+        cfg.parallel.grad_accum = args.grad_accum
+    if args.zero_opt:
+        cfg.parallel.zero_opt = args.zero_opt
+    if args.grad_reduce_dtype:
+        cfg.parallel.grad_reduce_dtype = args.grad_reduce_dtype
 
     if args.optimizer:
         cfg.optim.optimizer = args.optimizer
@@ -432,6 +475,9 @@ def config_from_args(args: argparse.Namespace) -> Config:
         cfg.run.debug_nans = True
     if cfg.data.batch_size < 1 or cfg.run.log_every < 1:
         raise ValueError("--batchsize and --log_every must be >= 1")
+    from ..train.steps import check_scaling
+
+    check_scaling(cfg)
     return cfg
 
 

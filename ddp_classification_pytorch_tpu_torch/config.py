@@ -4,10 +4,12 @@ nothing of the JAX package).
 
 Field names, defaults and the five workload presets are the JAX package's
 (`config.py:467-510` there), field for field wherever the port has the
-field, so a command line means the same on both sides. Fields for the
-parts not ported yet (model and pipeline parallelism, the partial-FC
-ArcFace CE, `h2d_overlap`, async checkpoints, the AOT sidecar) are left
-out until their slice lands.
+field, so a command line means the same on both sides: the scaling
+levers too (`parallel.grad_accum`, `zero_opt`, `grad_reduce_dtype`,
+`data.h2d_overlap`, `run.async_checkpoint`, on by default as in JAX).
+Fields for the parts not ported yet (model and pipeline parallelism, the
+partial-FC ArcFace CE, the AOT sidecar) are left out until their slice
+lands.
 """
 
 from __future__ import annotations
@@ -41,6 +43,10 @@ class DataConfig:
     # (data/device_prefetch.py: pinned buffers, a side stream); each holds
     # device memory. 0 = copy each batch inside the step loop
     device_prefetch: int = 2
+    # double-buffered H2D (data/device_prefetch.py): a fetcher thread pulls
+    # host batch N+1 while the stager fills the pinned buffers and copies
+    # batch N (a one-slot handoff between them); ignored at device_prefetch 0
+    h2d_overlap: bool = False
     synthetic_size: int = 0  # train-set size for dataset == "synthetic" (0 = 512)
     # request wire format: "uint8" raw HWC pixels, normalized (and, for
     # training on image data, flipped) on the device by
@@ -120,6 +126,16 @@ class ParallelConfig:
     launched by torchrun (the JAX package's `data` mesh axis, `--dp`)."""
 
     data_parallel: int = 0  # must equal the world size; 0 = the world size
+    # K equal microbatches a step, their gradients summed and averaged
+    # once, one gradient all-reduce and one optimizer update per K
+    # (train/steps.py); 1 = the plain step
+    grad_accum: int = 1
+    # ZeRO-1 (ZeroRedundancyOptimizer: each rank keeps and updates 1/N of
+    # the optimizer state); auto and on mean on when the world is above 1
+    zero_opt: str = "auto"  # auto | on | off
+    # the gradient all-reduce's wire dtype: bfloat16 is the port's DDP comm
+    # hook (parallel/ddp.py), a no-op at world 1; master weights stay f32
+    grad_reduce_dtype: str = "float32"  # float32 | bfloat16
 
 
 @dataclass
@@ -158,6 +174,9 @@ class RunConfig:
     out_dir: str = "./runs/default"
     save_every_epoch: bool = True  # BASELINE/main.py:308-310
     save_best_only: bool = False  # NESTED netBest.pth policy, train.py:154-161
+    # serialize and write checkpoints on a background thread, one write in
+    # flight (train/checkpoint.py); the host copy is taken synchronously
+    async_checkpoint: bool = True
     keep_checkpoints: int = 0  # prune epoch checkpoints beyond N (0 = keep all)
     resume: str = ""  # NESTED --resumePth, train.py:372-378
     # preemption recovery: resume from the newest verified checkpoint in

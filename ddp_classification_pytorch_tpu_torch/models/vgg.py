@@ -29,7 +29,7 @@ once (`cast_to_compute_dtype`).
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -52,17 +52,22 @@ class Dropout(nn.Module):
     keep ~ Bernoulli(1 − p) from torch's generator; the identity in eval
     mode. `next_mask` (a bool tensor of x's shape), when set, is the keep
     mask of the next training call, which clears it: parity tests hand in
-    the JAX step's masks, as the nested tests hand in its k."""
+    the JAX step's masks, as the nested tests hand in its k. A list of
+    masks feeds the next calls one each, in order (one per microbatch of
+    an accumulated step)."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
-        self.next_mask: Optional[torch.Tensor] = None
+        self.next_mask: Union[None, torch.Tensor, List[torch.Tensor]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         keep, self.next_mask = self.next_mask, None
+        if isinstance(keep, list):
+            keep, rest = keep[0], keep[1:]
+            self.next_mask = rest or None
         if keep is None:
             keep = torch.rand_like(x) >= self.p
         return torch.where(keep.to(x.device), x / (1.0 - self.p),

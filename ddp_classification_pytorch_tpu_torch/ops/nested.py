@@ -5,7 +5,9 @@ Gaussian prefix distribution, the training mask, and the all-K evaluation.
   over i = 1..n (NESTED/train.py:93-97), in numpy, bitwise the JAX one.
 - `nested_k`: the train step's k, one per step, drawn with numpy from a
   key of (seed + 1, step, _NESTED_FOLD) — the same on every rank, so
-  every replica masks alike. `np.random.choice(range(D), p=dist)` is the
+  every replica masks alike; under gradient accumulation one per
+  microbatch i, keyed on (seed + 1, step, i, _NESTED_FOLD) (JAX folds the
+  microbatch into the step's key, `steps.py:455`). `np.random.choice(range(D), p=dist)` is the
   reference's draw (train.py:248); torch cannot reproduce `jax.random`'s
   bits, so parity tests pass the JAX step's k in.
 - `prefix_mask` (`:43-47`): keep the first k + 1 feature dims.
@@ -42,10 +44,15 @@ def gaussian_dist(mu: float, std: float, n: int) -> np.ndarray:
     return (d / d.sum()).astype(np.float32)
 
 
-def nested_k(seed: int, step: int, feat_dim: int, std: float) -> int:
-    """The k (kept dims − 1) of the train step at `step`."""
+def nested_k(seed: int, step: int, feat_dim: int, std: float,
+             microbatch: Optional[int] = None) -> int:
+    """The k (kept dims − 1) of the train step at `step`, or of its
+    `microbatch` under accumulation (None: the step's one k, the key
+    every run without accumulation has drawn)."""
     p = gaussian_dist(0.0, std, feat_dim).astype(np.float64)
-    rng = np.random.default_rng((seed + 1, step, _NESTED_FOLD))
+    key = ((seed + 1, step, _NESTED_FOLD) if microbatch is None
+           else (seed + 1, step, microbatch, _NESTED_FOLD))
+    rng = np.random.default_rng(key)
     return int(rng.choice(feat_dim, p=p / p.sum()))
 
 

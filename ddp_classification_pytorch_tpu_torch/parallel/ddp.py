@@ -18,6 +18,14 @@ gloo on the card). A process that torchrun did not start (no
 - Every rank holds the same number of samples a step (the loader pads each
   rank's shard to whole batches), so the mean of the ranks' means is the
   global batch's mean.
+- Gradient accumulation runs the first K − 1 microbatches of a step under
+  DDP's `no_sync()` (`train/steps.py::_microbatches`): one all-reduce a
+  step, of the summed gradients (JAX's deferred reduction).
+- The bf16 gradient wire (`parallel.grad_reduce_dtype`, JAX
+  `steps.py:356-417`) is `bf16_wire_hook`, a comm hook of the port's own
+  (torch's stock `bf16_compress_hook` refuses gloo), registered only over
+  more than one rank: at world 1 the JAX wire is the identity, and a
+  hook there would round the gradients.
 - `sum_across` sums a tensor of counts (or of per-rank means, divided
   afterwards) across the ranks: the train step's loss and top-k counts,
   the eval's sums.
@@ -163,14 +171,40 @@ def process_group(device: torch.device,
         shutdown()
 
 
-def wrap(model: nn.Module, device: torch.device) -> nn.Module:
+def bf16_wire_hook(group, bucket):
+    """DDP comm hook of the bf16 wire (`group`, a process group or None
+    for the world; `bucket`, a `dist.GradBucket`; unannotated, as DDP
+    checks the annotations it finds): the f32 bucket cast to bf16, one
+    all-reduce (sum) of the bf16 copy, divided by the world size in bf16
+    and copied back into the f32 bucket — JAX's cast, bf16 `pmean`, cast
+    back. Half the bytes of the f32 all-reduce; one bf16 rounding of each
+    gradient (and of the sum, then exact at a power-of-two world)."""
+    buf = bucket.buffer()
+    world = dist.get_world_size(group)
+    wire = buf.to(torch.bfloat16)
+    fut = dist.all_reduce(wire, group=group, async_op=True).get_future()
+
+    def back(f: torch.futures.Future) -> torch.Tensor:
+        buf.copy_(f.value()[0].div_(world))
+        return buf
+
+    return fut.then(back)
+
+
+def wrap(model: nn.Module, device: torch.device,
+         grad_reduce_dtype: str = "float32") -> nn.Module:
     """`model` under DistributedDataParallel over the world group (the
-    gradient all-reduce), with `broadcast_buffers=False`."""
+    gradient all-reduce), with `broadcast_buffers=False`; with
+    `grad_reduce_dtype` bfloat16 over more than one rank, the all-reduce
+    goes through `bf16_wire_hook`."""
     from torch.nn.parallel import DistributedDataParallel
 
-    return DistributedDataParallel(
+    net = DistributedDataParallel(
         model, device_ids=[device] if device.type == "cuda" else None,
         broadcast_buffers=False)
+    if grad_reduce_dtype == "bfloat16" and world_size() > 1:
+        net.register_comm_hook(None, bf16_wire_hook)
+    return net
 
 
 def sum_across(t: torch.Tensor) -> torch.Tensor:

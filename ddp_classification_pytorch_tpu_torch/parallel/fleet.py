@@ -239,6 +239,7 @@ def consensus_restore_latest(ckpt: Any, template_state: Any) -> Tuple[Any, int]:
     `PodInconsistent` (rc 9). Single-process runs take the plain
     `restore_latest` path unchanged.
     """
+    ckpt.wait()  # this process's own write in flight lands first
     if _process_count() == 1:
         return ckpt.restore_latest(template_state)
 

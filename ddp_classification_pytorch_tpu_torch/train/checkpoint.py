@@ -18,7 +18,23 @@ through — the JAX package's `train/checkpoint.py` for one process
 - Under a process group the state is replicated: rank 0 writes the files
   and `meta.json` while the other ranks wait at a barrier, and every rank
   restores. A file written by a run of one world size resumes in a run
-  of another.
+  of another. Under ZeRO-1 every rank first gathers the optimizer state
+  on rank 0 (`TrainState.consolidate`, a collective), so the file holds
+  the plain optimizer's full state and resumes with ZeRO-1 or without,
+  at any world size, and under `cli/serve.py` (JAX
+  `checkpoint.py:526-559`).
+- Async writes (`async_save`, `run.async_checkpoint`, JAX
+  `checkpoint.py:169-183,255-334`): the host copy of the state is taken
+  synchronously — a real copy, since SGD updates the live tensors in
+  place — then the serialization, the writes, the sidecars, `publish`,
+  `meta.json` and the pruning run on one background thread in that
+  order, one write in flight. `wait()` joins it and re-raises its
+  failure once, as "async checkpoint write failed". The trainer waits
+  before the next save, before a restore reads the directory and on
+  every way out of `run`; the barrier after `save` no longer means the
+  file is on disk. A process killed mid-write (the hang watchdog's
+  `os._exit(7)`) leaves a `*.tmp`, or a file without its sidecar, never
+  a torn file that verifies.
 - The event plane (`obs/events.py`, armed by `SCENARIO_EVENTS`): a
   verified epoch file emits `publish` (epoch, path, digest, world_size)
   once its sidecar has landed, and every quarantine emits `quarantine`
@@ -49,6 +65,7 @@ import hashlib
 import json
 import os
 import re
+import threading
 from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
                     Tuple)
 
@@ -80,6 +97,19 @@ def _to_cpu(obj: Any) -> Any:
         return {k: _to_cpu(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
         return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def _host_copy(obj: Any) -> Any:
+    """`obj` with every tensor copied to the CPU: a snapshot that nothing
+    the step loop does afterwards can change (`_to_cpu` hands back a CPU
+    tensor itself)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, Mapping):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
     return obj
 
 
@@ -189,8 +219,8 @@ def quarantine_file(path: str, reason: str) -> None:
 
 class CheckpointManager:
     """Per-epoch and best checkpoints of one run, `meta.json`, pruning and
-    resume (the JAX `CheckpointManager` for one process, writing
-    synchronously).
+    resume (the JAX `CheckpointManager`), written synchronously or, with
+    `async_save`, on a background thread.
 
     `ckpt_e{N}.pt` every epoch (unless `best_only`), `ckpt_best.pt` when
     the metric improves (the same bytes), then `meta.json` (`last_epoch`,
@@ -201,9 +231,12 @@ class CheckpointManager:
 
     def __init__(self, out_dir: str, save_every_epoch: bool = True,
                  best_only: bool = False, keep: int = 0,
-                 chaos: Optional[Any] = None):
+                 chaos: Optional[Any] = None, async_save: bool = False):
         self.out_dir = out_dir
         self._chaos = chaos
+        self.async_save = async_save
+        self._pending: Optional[threading.Thread] = None
+        self._pending_error: List[Exception] = []
         self.save_every_epoch = save_every_epoch
         self.best_only = best_only
         self.keep = keep
@@ -252,8 +285,8 @@ class CheckpointManager:
     # ----------------------------------------------------------------- save --
     def save(self, state, epoch: int, metric: Optional[float] = None) -> bool:
         """Write this epoch's checkpoints and meta (rank 0; every rank
-        calls it and returns after the files are written); True on a new
-        best."""
+        calls it and returns after rank 0 has its host copy, or, written
+        synchronously, after the files); True on a new best."""
         is_best = metric is not None and metric > self.best_metric
         if metric is not None:
             self.best_metric = max(self.best_metric, metric)
@@ -265,26 +298,62 @@ class CheckpointManager:
         meta: Dict[str, Any] = {"last_epoch": epoch}
         if is_best:
             meta.update(best_epoch=epoch, best_metric=float(metric))
+        consolidate = getattr(state, "consolidate", None)
+        if paths and consolidate is not None:
+            consolidate()  # `paths` is every rank's: a collective, ZeRO-1
         if ddp.is_primary():
-            if paths:
-                sd = _to_cpu(state.state_dict())  # one host copy for every path
-                for path in paths:
-                    torn: List[bool] = []
-                    digest = save(sd, path, tear=None if self._chaos is None
-                                  else lambda p: torn.append(
-                                      self._chaos.maybe_corrupt_checkpoint(
-                                          p, epoch=epoch)))
-                    if path != self.best_path:
-                        # visible to watchers once its sidecar has landed
-                        emit("publish", epoch=epoch, path=path,
-                             digest=digest, world_size=ddp.world_size())
-                        if any(torn):
-                            emit("publish_torn", epoch=epoch, path=path)
-            self._write_meta(**meta)
-            if paths and self.keep > 0:
-                self._prune()
+            self.wait()  # one write in flight; the last one's failure
+            # one host copy for every path, taken before the loop goes on
+            sd = (((_host_copy if self.async_save else _to_cpu)(
+                state.state_dict())) if paths else None)
+            if self.async_save:
+                self._pending = threading.Thread(
+                    target=self._guarded_write, args=(sd, paths, epoch, meta),
+                    name="ckpt-writer", daemon=True)
+                self._pending.start()
+            else:
+                self._write(sd, paths, epoch, meta)
         ddp.barrier()
         return is_best
+
+    def _write(self, sd: Optional[Dict[str, Any]], paths: List[str],
+               epoch: int, meta: Dict[str, Any]) -> None:
+        """Each path's bytes then its sidecar (`publish` once it has
+        landed), then meta, then the pruning: meta never names a file that
+        is not on disk yet."""
+        for path in paths:
+            torn: List[bool] = []
+            digest = save(sd, path, tear=None if self._chaos is None
+                          else lambda p: torn.append(
+                              self._chaos.maybe_corrupt_checkpoint(
+                                  p, epoch=epoch)))
+            if path != self.best_path:
+                # visible to watchers once its sidecar has landed
+                emit("publish", epoch=epoch, path=path, digest=digest,
+                     world_size=ddp.world_size())
+                if any(torn):
+                    emit("publish_torn", epoch=epoch, path=path)
+        self._write_meta(**meta)
+        if paths and self.keep > 0:
+            self._prune()
+
+    def _guarded_write(self, *args: Any) -> None:
+        try:
+            self._write(*args)
+        except Exception as e:  # surfaced by the next wait()
+            self._pending_error.append(e)
+
+    def wait(self) -> None:
+        """Block until the write in flight (if any) has landed; re-raise
+        its failure, once: a lost checkpoint must not pass for a saved
+        one."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.join()
+        if self._pending_error:
+            err = self._pending_error[0]
+            self._pending_error.clear()
+            raise RuntimeError("async checkpoint write failed") from err
 
     def _epoch_checkpoints(self) -> List[int]:
         if not os.path.isdir(self.out_dir):
@@ -306,6 +375,7 @@ class CheckpointManager:
         its sidecar, or is no train state, is a ValueError (rc 2: resuming
         from a named bad file fails the same way every time); falling back
         is `restore_latest`'s."""
+        self.wait()
         err = verify(path)
         if err is not None:
             raise ValueError(f"{err} — use --auto_resume to fall back to the "
@@ -361,6 +431,7 @@ class CheckpointManager:
         """`restore_latest` that also says WHAT it restored: (state,
         next_epoch, path, sha256), path and digest None on a fresh start
         (what the fleet's consensus broadcasts from rank 0)."""
+        self.wait()
         for e in sorted(self._epoch_checkpoints(), reverse=True):
             path = self.epoch_path(e)
             if self._restore_verified(state, path):
@@ -382,6 +453,7 @@ class CheckpointManager:
         scanning and renaming are rank 0's alone, so a bad file makes ONE
         `*.corrupt`; a follower's failure surfaces in the fleet's digest
         agreement (rc 9) instead."""
+        self.wait()
         try:
             if _sha256_file(path) != expected_digest:
                 return None

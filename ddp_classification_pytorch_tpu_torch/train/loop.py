@@ -40,8 +40,21 @@ watchdog's rc 7 is an `os._exit`, which runs none); the capture is
 written to `<out>/profile/<host>.trace.json.gz` (or `--profile_dir`),
 which `obs/trace.py::breakdown_from_torch_trace` reads.
 
-Not ported yet (ROADMAP.md): async checkpoints, `h2d_overlap` and the
-compile sentinel.
+Checkpoints are written on a background thread (`run.async_checkpoint`,
+on by default as in JAX; `train/checkpoint.py`): the manager waits for
+the write in flight before the next save and before a restore, and `run`
+waits on every way out that runs its `finally` (a write's failure is
+raised there unless another exception is already on its way, which it
+does not mask); under a fault plan the step loop also lets the write
+land before each step's host faults (`_chaos_step_hooks`), since a kill
+that lands mid-write would make a drill's outcome depend on the
+writer's speed. `data.h2d_overlap` gives both prefetchers a fetcher
+thread beside the stager (`data/device_prefetch.py`).
+`parallel.grad_accum`, `zero_opt` and `grad_reduce_dtype` live in the
+step (`train/steps.py`), the state (`train/state.py`) and the DDP
+wrapper (`parallel/ddp.py`).
+
+Not ported yet (ROADMAP.md): the compile sentinel.
 """
 
 from __future__ import annotations
@@ -71,6 +84,7 @@ from ..utils.logging import EtaLogger, RecordWriter, host0_print
 from ..ops.nested import best_k
 from .checkpoint import CheckpointManager
 from .sentinel import SentinelDiverged, StepSentinel
+from . import schedule
 from .state import TRESNET_ARCHS, create_train_state, param_count
 from .steps import make_eval_step, make_nested_eval_step, make_train_step
 
@@ -278,10 +292,12 @@ class Trainer:
             batcher=val_batcher, **shard)
         # the eval batch's valid_mask joins it on the stager thread
         self.train_prefetch = DevicePrefetcher(self.train_loader, device,
-                                               depth=d.device_prefetch)
+                                               depth=d.device_prefetch,
+                                               overlap=d.h2d_overlap)
         self.val_prefetch = DevicePrefetcher(
             self.val_loader, device, depth=d.device_prefetch,
-            assemble=lambda b, hb: (*hb, self.val_loader.valid_mask(b)))
+            assemble=lambda b, hb: (*hb, self.val_loader.valid_mask(b)),
+            overlap=d.h2d_overlap)
         self.steps_per_epoch = max(len(self.train_loader), 1)
         self.state = create_train_state(cfg, device, self.steps_per_epoch,
                                         group=ddp.group())
@@ -299,7 +315,7 @@ class Trainer:
         self.ckpt = CheckpointManager(
             cfg.run.out_dir, save_every_epoch=cfg.run.save_every_epoch,
             best_only=cfg.run.save_best_only, keep=cfg.run.keep_checkpoints,
-            chaos=self.chaos or None)
+            chaos=self.chaos or None, async_save=cfg.run.async_checkpoint)
         self.start_epoch = 0
         if cfg.run.resume:
             self.ckpt.restore(self.state, cfg.run.resume)
@@ -323,7 +339,8 @@ class Trainer:
             # keep the curve before the stop: the resumed run appends
             self.records.resume_at(self.start_epoch)
         if ddp.initialized():  # after the restore: every rank starts equal
-            self.state.ddp = ddp.wrap(self.state.model, device)
+            self.state.ddp = ddp.wrap(self.state.model, device,
+                                      cfg.parallel.grad_reduce_dtype)
         if self.records is not None and self.native_dataplane:
             self.records.append_txt("# native C++ dataplane active")
         # the global step counter, the chaos step hooks' coordinate
@@ -334,6 +351,9 @@ class Trainer:
             f"params={param_count(self.state):,} device={device} "
             f"world={world} ddp={ddp.backend()} "
             f"global_batch={d.batch_size * world} "
+            f"grad_accum={cfg.parallel.grad_accum} "
+            f"zero={schedule.is_zero(self.state.optimizer)} "
+            f"wire={cfg.parallel.grad_reduce_dtype} "
             f"dtype={cfg.model.dtype} flash={cfg.model.flash_attention} "
             f"steps/epoch={self.steps_per_epoch}")
 
@@ -370,7 +390,13 @@ class Trainer:
             self.fleet.note_abort(SentinelDiverged.exit_code, str(e))
 
     def _chaos_step_hooks(self) -> None:
-        """The host-side step faults at this step's global index."""
+        """The host-side step faults at this step's global index. The
+        checkpoint write in flight lands first: a fault that ends the
+        process (sigterm, peer_slow's watchdog exit, host_lost) then finds
+        the run directory as a synchronous save would have left it, so a
+        drill's outcome does not depend on how fast the writer is. Without
+        a fault plan nothing waits here."""
+        self.ckpt.wait()
         self._host_step += 1
         step = self._host_step - 1
         self.chaos.maybe_sigterm(step=step)
@@ -489,6 +515,7 @@ class Trainer:
         cfg = self.cfg
         eta = EtaLogger(self.steps_per_epoch, cfg.run.epochs, cfg.run.log_every)
         last: Dict[str, float] = {}
+        done = False
         try:
             if cfg.run.eval_first and self.start_epoch == 0:
                 host0_print("[initial eval] " + " ".join(
@@ -514,14 +541,28 @@ class Trainer:
                         self.tb.add_scalar(f"{group}/{k}", v, epoch)
                     self.tb.flush()
                 self.ckpt.save(self.state, epoch, metric=val_m.get("val_top1"))
+            done = True
         finally:
-            self._teardown()
+            self._teardown(done)
         return last
 
-    def _teardown(self) -> None:
-        """`run`'s way out, whatever it is: the watchdog stopped, a capture
+    def _teardown(self, done: bool = False) -> None:
+        """`run`'s way out, whatever it is: the checkpoint in flight landed
+        (its failure raised after a run that `done`, only logged when
+        another exception is on its way), the watchdog stopped, a capture
         cut short closed and written, tensorboard flushed, the loaders'
         threads stopped."""
+        try:
+            self._heartbeat.touch()  # the wait is progress, not a hang
+            self.ckpt.wait()
+        except RuntimeError as e:
+            if done:
+                raise
+            host0_print(f"[ckpt] {e}: {e.__cause__!r}")
+        finally:
+            self._close()
+
+    def _close(self) -> None:
         self._heartbeat.stop()
         if self._prof is not None:
             try:

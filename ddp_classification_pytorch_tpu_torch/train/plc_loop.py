@@ -202,6 +202,7 @@ class PLCTrainer(Trainer):
         eta = EtaLogger(self.steps_per_epoch, cfg.run.epochs, cfg.run.log_every)
         last: Dict[str, float] = {}
         labels_path = os.path.join(cfg.run.out_dir, "plc_labels.npy")
+        done = False
         try:
             for epoch in range(self.start_epoch, cfg.run.epochs):
                 t0 = time.time()
@@ -232,10 +233,14 @@ class PLCTrainer(Trainer):
                     self.tb.flush()
                 self.ckpt.save(self.state, epoch, metric=val_m.get("val_top1"))
                 if ddp.is_primary():
-                    # the correction state beside the checkpoints
+                    # the correction state beside the checkpoints, once the
+                    # epoch's write has landed: one writer of meta.json,
+                    # and meta never ahead of the files
+                    self.ckpt.wait()
                     self.ckpt._write_meta(plc_delta=float(self.delta))
                     np.save(labels_path, _dataset_labels(self.train_ds))
                 ddp.barrier()  # no rank reads a stale copy
+            done = True
         finally:
-            self._teardown()
+            self._teardown(done)
         return last

@@ -12,7 +12,9 @@ optax returns as given):
 - "constant";
 - a linear warmup from `warmup_start_lr` over `warmup_iters` iterations,
   overlaid on the main schedule so its decay milestones stay anchored at
-  the true step (`schedule.py:48-62`).
+  the true step (`schedule.py:48-62`). The schedule counts optimizer
+  updates, so under gradient accumulation (`grad_accum` K) the warmup is
+  `warmup_iters // K` of them (JAX `schedule.py:47-50`).
 
 `build_optimizer` gives `torch.optim.SGD(momentum, weight_decay)` or
 `Adam(weight_decay)`: PyTorch's coupled weight decay adds wd·p to the
@@ -20,6 +22,11 @@ gradient before momentum/Adam, which is optax's `add_decayed_weights`
 chained before `sgd`/`adam`. The trainer sets each update's lr from its
 group's schedule at the count of updates applied so far (optax keeps that
 count in the optimizer state, so a skipped step does not advance it).
+With `zero` (ZeRO-1, `parallel.zero_opt` over more than one rank) the
+same class over the same groups runs inside
+`torch.distributed.optim.ZeroRedundancyOptimizer`: each rank keeps the
+state of, and updates, its share of the params, then broadcasts them;
+its `param_groups` are the global groups, which the lr schedule sets.
 
 `param_groups` forms the optimizer's groups from a model (JAX
 `schedule.py:84-162`):
@@ -48,6 +55,7 @@ step before `optimizer.step()`.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Callable, Dict, Iterable, List
 
 import numpy as np
@@ -62,7 +70,8 @@ Schedule = Callable[[int], float]
 _f32 = np.float32
 
 
-def build_schedule(cfg: OptimConfig, steps_per_epoch: int) -> Schedule:
+def build_schedule(cfg: OptimConfig, steps_per_epoch: int,
+                   grad_accum: int = 1) -> Schedule:
     if cfg.schedule == "step":
         transition = cfg.step_size * steps_per_epoch
         if transition <= 0:  # optax returns the constant schedule then
@@ -90,7 +99,7 @@ def build_schedule(cfg: OptimConfig, steps_per_epoch: int) -> Schedule:
     else:
         raise ValueError(f"unknown schedule {cfg.schedule!r}")
 
-    warmup = max(cfg.warmup_iters, 0)
+    warmup = max(cfg.warmup_iters // max(grad_accum, 1), 0)
     if warmup == 0:
         return main
     start, end = _f32(cfg.warmup_start_lr), _f32(cfg.lr)
@@ -104,18 +113,42 @@ def build_schedule(cfg: OptimConfig, steps_per_epoch: int) -> Schedule:
     return overlaid
 
 
-def build_optimizer(cfg: OptimConfig,
-                    params: Iterable) -> torch.optim.Optimizer:
+def build_optimizer(cfg: OptimConfig, params: Iterable,
+                    zero: bool = False) -> torch.optim.Optimizer:
     """The optimizer over `params` (parameters, or the groups of
     `param_groups`); each group's lr is set per update from its schedule
-    (the value given here is the schedule's start)."""
+    (the value given here is the schedule's start). `zero` wraps it in
+    ZeRO-1 over the world group (needs one)."""
     if cfg.optimizer == "sgd":
-        return torch.optim.SGD(params, lr=cfg.lr, momentum=cfg.momentum,
-                               weight_decay=cfg.weight_decay)
-    if cfg.optimizer == "adam":
-        return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999),
-                                eps=1e-8, weight_decay=cfg.weight_decay)
-    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+        cls, kw = torch.optim.SGD, dict(momentum=cfg.momentum)
+    elif cfg.optimizer == "adam":
+        cls, kw = torch.optim.Adam, dict(betas=(0.9, 0.999), eps=1e-8)
+    else:
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    kw.update(lr=cfg.lr, weight_decay=cfg.weight_decay)
+    if not zero:
+        return cls(params, **kw)
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    return ZeroRedundancyOptimizer(list(params), optimizer_class=cls, **kw)
+
+
+def is_zero(opt: torch.optim.Optimizer) -> bool:
+    """Whether `opt` is ZeRO-1's (its state lives sharded over the ranks).
+    Its module takes seconds to import: a process that never built one
+    never imports it."""
+    mod = sys.modules.get("torch.distributed.optim.zero_redundancy_optimizer")
+    return mod is not None and isinstance(opt, mod.ZeroRedundancyOptimizer)
+
+
+def zero_enabled(setting: str, world: int) -> bool:
+    """`parallel.zero_opt` against the world (JAX `mesh.py:292-300`): auto
+    and on mean ZeRO-1 when the world is above 1 (at 1 the partition is
+    the identity), off never. Another value is a ValueError (rc 2)."""
+    if setting not in ("auto", "on", "off"):
+        raise ValueError(
+            f"parallel.zero_opt must be auto|on|off, got {setting!r}")
+    return setting != "off" and world > 1
 
 
 # the top-level module whose params form the head group (JAX

@@ -10,6 +10,12 @@ global grad norm is not finite, and reports `step_ok`. This layer counts:
   `run.max_bad_steps` CONSECUTIVE skips (the streak carries across
   windows and epochs). The train CLI maps it to rc 8: deterministic, a
   supervisor must not restart it.
+
+Under gradient accumulation (`parallel.grad_accum` K > 1) the step's gate
+reads the summed gradients once, at the optimizer boundary, and
+`train/loop.py::train_epoch` observes once a step: one non-finite
+microbatch skips the whole step, and `max_bad_steps` counts optimizer
+steps whatever K is (JAX `sentinel.py:10-16`).
 """
 
 from __future__ import annotations

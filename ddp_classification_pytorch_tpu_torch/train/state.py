@@ -29,8 +29,10 @@ from .schedule import (
     build_optimizer,
     build_schedule,
     head_config,
+    is_zero,
     param_groups,
     two_groups,
+    zero_enabled,
 )
 
 # jax.nn.initializers' truncated normal: the stddev of a standard normal cut
@@ -133,9 +135,36 @@ class TrainState:
 
     @property
     def params(self) -> List[nn.Parameter]:
-        """The params the optimizer updates (freeze-BN's are not)."""
+        """The params the optimizer updates (freeze-BN's are not); under
+        ZeRO-1 every rank's, from its global groups."""
         return [p for group in self.optimizer.param_groups
                 for p in group["params"]]
+
+    def consolidate(self) -> None:
+        """Under ZeRO-1, gather every rank's share of the optimizer state
+        on rank 0, where `state_dict` then reads it: a collective, every
+        rank calls it. A no-op otherwise."""
+        if is_zero(self.optimizer):
+            self.optimizer.consolidate_state_dict(to=0)
+
+    def optimizer_state_dict(self) -> Dict[str, Any]:
+        """The optimizer's state in the plain optimizer's format (`state`
+        keyed by the param's index over the groups, `param_groups` with
+        index lists and every hyperparameter), which a run with or
+        without ZeRO-1, at any world size, loads: JAX's "checkpoints hold
+        the gathered full state". Under ZeRO-1, on rank 0 after
+        `consolidate`."""
+        opt = self.optimizer
+        if not is_zero(opt):
+            return opt.state_dict()
+        sd = opt.state_dict()
+        # ZeRO's own groups carry only the hyperparameters it was given;
+        # its inner optimizer's carry the class's defaults too
+        for group, inner in zip(sd["param_groups"], opt.optim.param_groups):
+            for key, value in inner.items():
+                if key != "params":
+                    group.setdefault(key, value)
+        return sd
 
     def set_lrs(self) -> None:
         """Each group's lr from its schedule at `opt_count`."""
@@ -145,10 +174,11 @@ class TrainState:
 
     def state_dict(self) -> Dict[str, Any]:
         """What resuming needs: the model's f32 master weights and buffers
-        (BN running statistics), the optimizer's state (momentum buffers),
-        `step` and `opt_count` (the count the schedule reads)."""
+        (BN running statistics), the optimizer's state (momentum buffers;
+        `optimizer_state_dict`), `step` and `opt_count` (the count the
+        schedule reads). The tensors are the live ones, not copies."""
         return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
+                "optimizer": self.optimizer_state_dict(),
                 "step": self.step, "opt_count": self.opt_count}
 
     def load_state_dict(self, sd: Mapping[str, Any]) -> None:
@@ -162,10 +192,13 @@ class TrainState:
             raise ValueError(f"not a train-state checkpoint (no "
                              f"{', '.join(missing)}): it holds weights only "
                              "and cannot be resumed from")
+        osd = sd["optimizer"]
+        if is_zero(self.optimizer):  # it clears the other ranks' entries
+            osd = {**osd, "state": dict(osd["state"])}
         try:
             self.model.load_state_dict(sd["model"])
-            self.optimizer.load_state_dict(sd["optimizer"])
-        except (RuntimeError, KeyError) as e:  # other keys or shapes
+            self.optimizer.load_state_dict(osd)
+        except (RuntimeError, KeyError, IndexError) as e:  # keys, shapes
             raise ValueError(f"checkpoint does not fit this model and "
                              f"optimizer: {e}") from None
         self.step, self.opt_count = int(sd["step"]), int(sd["opt_count"])
@@ -187,9 +220,12 @@ def create_train_state(cfg: Config, device: torch.device,
     (`param_groups`: the head group, freeze-BN) and LR schedules. Every
     ported arch trains under every head; anything else is a ValueError.
     `group` is the process group whose ranks share the ResNet and VGG BNs'
-    batch statistics. The conv nets go to the device in channels_last, as K1 and
-    its training passes take their activations (weights in NCHW could lead
-    cuDNN to hand back NCHW outputs)."""
+    batch statistics, and over which ZeRO-1 (`parallel.zero_opt`, on when
+    it has more than one rank unless off) shards the optimizer state. The
+    schedules count optimizer updates (`parallel.grad_accum`). The conv
+    nets go to the device in channels_last, as K1 and its training passes
+    take their activations (weights in NCHW could lead cuDNN to hand back
+    NCHW outputs)."""
     if cfg.model.arch not in TRAIN_ARCHS:
         raise ValueError(f"training arch {cfg.model.arch!r} not yet ported "
                          f"to the torch package (ported: "
@@ -210,12 +246,16 @@ def create_train_state(cfg: Config, device: torch.device,
     else:
         model.to(device)
     opt = cfg.optim
+    world = dist.get_world_size(group) if group is not None else 1
+    accum = max(int(cfg.parallel.grad_accum), 1)
     return TrainState(
         model=model,
         optimizer=build_optimizer(
-            opt, param_groups(opt, model, cfg.model.freeze_bn)),
-        schedule=build_schedule(opt, steps_per_epoch),
-        head_schedule=(build_schedule(head_config(opt), steps_per_epoch)
+            opt, param_groups(opt, model, cfg.model.freeze_bn),
+            zero=zero_enabled(cfg.parallel.zero_opt, world)),
+        schedule=build_schedule(opt, steps_per_epoch, accum),
+        head_schedule=(build_schedule(head_config(opt), steps_per_epoch,
+                                      accum)
                        if two_groups(opt) else None),
         steps_per_epoch=steps_per_epoch)
 

@@ -14,7 +14,7 @@ and device tensors; there is nothing to trace or compile.
 from __future__ import annotations
 
 import contextlib
-from typing import TYPE_CHECKING, Any, Callable, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ from ..ops.cdr import cdr_clip, cdr_mask_
 from ..ops.nested import nested_all_k_counts, nested_k, prefix_mask
 from ..parallel import ddp
 from ..utils.metrics import topk_correct, topk_hits
+from .schedule import zero_enabled
 
 if TYPE_CHECKING:
     from .state import TrainState
@@ -160,16 +161,51 @@ def _grad_norm(params) -> torch.Tensor:
         [torch.linalg.vector_norm(p.grad.float()) for p in params]))
 
 
+def check_scaling(cfg: Config, world: int = 1) -> None:
+    """The scaling levers' rejections (ValueError: rc 2), the JAX
+    package's (`steps.py:174-212,230-258`, `mesh.py:292-300`): a wire dtype
+    or ZeRO setting outside its choices; `grad-accum-indivisible`, a
+    per-process batch that K does not split into K equal microbatches (a
+    ragged one would re-weight its samples); the bf16 wire under the
+    nested head over more than one rank (JAX draws that head's k per
+    shard in its bf16 section; the check there does not look at K)."""
+    p = cfg.parallel
+    if p.grad_reduce_dtype not in ("float32", "bfloat16"):
+        raise ValueError("parallel.grad_reduce_dtype must be "
+                         f"float32|bfloat16, got {p.grad_reduce_dtype!r}")
+    zero_enabled(p.zero_opt, world)
+    k = grad_accum(cfg)
+    if k > 1 and cfg.data.batch_size % k:
+        raise ValueError(
+            f"grad-accum-indivisible: per-process batch "
+            f"{cfg.data.batch_size} does not split into grad_accum={k} "
+            "equal microbatches — pick K dividing --batchsize (equal "
+            "microbatches keep the accumulated mean exact)")
+    if (p.grad_reduce_dtype == "bfloat16" and world > 1
+            and cfg.model.head == "nested"):
+        raise ValueError(
+            "grad_reduce_dtype=bfloat16 does not support the nested "
+            "workload (per-batch mask k must be sampled globally)")
+
+
+def grad_accum(cfg: Config) -> int:
+    """K, the microbatches a step (0 and 1 both mean the plain step)."""
+    return max(int(cfg.parallel.grad_accum), 1)
+
+
 def _step_inputs(cfg: Config) -> Callable[..., Tuple]:
     """`(state, images, flip, k) -> (x, k, buffers, kept)`: the train
     step's start, shared by `make_train_step` and `make_phase_probes`: the
     uint8 epilogue with the train-time flip (the `flip` given, else
-    `flip_mask(run.seed, state.step, B)`), the nested head's k (the `k`
-    given, else `nested_k`), train mode, every gradient cleared, and the
-    buffers as they were (`kept`) for a skipped step."""
+    `flip_mask(run.seed, state.step, B)`) over the whole batch, the nested
+    head's k (the `k` given, else `nested_k`; under accumulation a list of
+    one k a microbatch, None each for the other heads), train mode, every gradient cleared, and the
+    buffers as they were (`kept`) for a skipped step, taken once, before
+    any microbatch."""
     consts: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
     flips = _train_flip_enabled(cfg)
     seed = cfg.run.seed
+    accum = grad_accum(cfg)
 
     def prepare(state: "TrainState", images: torch.Tensor,
                 flip: Optional[np.ndarray], k: Optional[int]) -> Tuple:
@@ -182,8 +218,12 @@ def _step_inputs(cfg: Config) -> Callable[..., Tuple]:
         x = device_input_epilogue(images.permute(0, 3, 1, 2),
                                   *_cached_consts(consts, images.device), mask)
         if cfg.model.head == "nested" and k is None:
-            k = nested_k(seed, state.step, model.feat_dim,
-                         cfg.model.nested_std)
+            k = (nested_k(seed, state.step, model.feat_dim,
+                          cfg.model.nested_std) if accum == 1 else
+                 [nested_k(seed, state.step, model.feat_dim,
+                           cfg.model.nested_std, i) for i in range(accum)])
+        elif k is None and accum > 1:
+            k = [None] * accum
         model.train()
         # every parameter's, not only the optimizer's: freeze-BN's params
         # are in no group but still get (and must not accumulate) gradients
@@ -207,6 +247,47 @@ def _phase(name: str):
     if torch.autograd.profiler._is_profiler_enabled:
         return torch.profiler.record_function(name)
     return _NO_RANGE
+
+
+def _microbatches(cfg: Config, state: "TrainState", x: torch.Tensor,
+                  labels: torch.Tensor, ks: List[Optional[int]],
+                  backward: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K = len(ks) equal microbatches of an accumulated step (JAX
+    `_scan_microbatches`, `steps.py:420-466`): each one's head forward and
+    f32 CE, in order, the BN statistics moving from one to the next, and
+    with `backward` its backward on its own mean loss, the gradients
+    summing into `.grad`; under DDP the first K − 1 run in `no_sync()`,
+    so the gradients cross the ranks once, summed, in the last one's
+    backward (the BN statistics' all-reduce still runs in every
+    microbatch's forward). Returns the mean of the K losses (summed in
+    order, then ÷K, as JAX's carry) and the K × mb logits. The caller
+    divides the summed gradients by K once: JAX's mean of means."""
+    k = len(ks)
+    mb = labels.shape[0] // k
+    net = state.model if state.ddp is None else state.ddp
+    total, logits = None, []
+    for i in range(k):
+        sl = slice(i * mb, (i + 1) * mb)
+        defer = backward and state.ddp is not None and i < k - 1
+        with state.ddp.no_sync() if defer else _NO_RANGE:
+            with _phase("fwd"):
+                out = _forward(cfg, net, x[sl], labels[sl], ks[i])
+                loss = _cross_entropy(out, labels[sl])
+            if backward:
+                with _phase("bwd"):
+                    loss.backward()
+        loss = loss.detach()
+        total = loss if total is None else total + loss
+        logits.append(out.detach())
+    return total / k, torch.cat(logits)
+
+
+def _mean_of_sums(model: nn.Module, k: int) -> None:
+    """Every summed gradient ÷ K (freeze-BN's too: the grad norm reads
+    them)."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if grads:
+        torch._foreach_div_(grads, float(k))
 
 
 def make_train_step(cfg: Config, chaos: Optional[Any] = None
@@ -245,19 +326,42 @@ def make_train_step(cfg: Config, chaos: Optional[Any] = None
     rank's loss to NaN AFTER the backward pass on the steps inside them
     (JAX `steps.py:591-640`): the gradients stay untouched, the global
     loss and so the gate see the NaN, and the step is skipped on every
-    rank. Outside its windows the step is the step without chaos."""
+    rank. Outside its windows the step is the step without chaos.
+
+    Under `parallel.grad_accum` K > 1 (JAX `_scan_microbatches` and its
+    deferred reduction, `steps.py:420-544,614-669`) the epilogue and the
+    flip run once on the whole batch, the buffers are kept once, then
+    `_microbatches` runs K equal slices forward and backward (the nested
+    head's k one a microbatch: `k` is then a list of K), the gradients
+    summed and divided by K once — JAX's mean of the microbatch means,
+    which equals the mean over the batch for equal microbatches — and one
+    all-reduce carries them across the ranks. The loss metric is the mean
+    of the K losses, top1 and top3 count all K × mb logits, and the gate,
+    CDR and the update run once, at this optimizer boundary: one
+    `step_ok` a step, one sentinel observation. A skipped step puts the
+    buffers back as they were before microbatch 0. K = 1 is the plain
+    step above, call for call. `check_scaling` rejects what JAX does."""
     if cfg.optim.grad_transform not in ("none", "cdr"):
         raise ValueError(f"unknown optim.grad_transform "
                          f"{cfg.optim.grad_transform!r}; one of none, cdr")
+    check_scaling(cfg, ddp.world_size())
     o = cfg.optim
     cdr = o.grad_transform == "cdr"
     nan_windows = list(chaos.windows("nan_loss", "step")) if chaos else []
     prepare = _step_inputs(cfg)
+    accum = grad_accum(cfg)
 
     def step(state: "TrainState", images: torch.Tensor, labels: torch.Tensor,
              flip: Optional[np.ndarray] = None,
-             k: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        model, opt = state.model, state.optimizer
+             k: Optional[Any] = None) -> Dict[str, torch.Tensor]:
+        model = state.model
+        if accum > 1:
+            with _phase("fwd"):
+                x, k, buffers, kept = prepare(state, images, flip, k)
+            loss, logits = _microbatches(cfg, state, x, labels, k,
+                                         backward=True)
+            _mean_of_sums(model, accum)
+            return finish(state, loss, logits, labels, buffers, kept)
         with _phase("fwd"):
             x, k, buffers, kept = prepare(state, images, flip, k)
             logits = _forward(cfg, model if state.ddp is None else state.ddp,
@@ -265,11 +369,18 @@ def make_train_step(cfg: Config, chaos: Optional[Any] = None
             loss = _cross_entropy(logits, labels)
         with _phase("bwd"):
             loss.backward()
+        return finish(state, loss, logits.detach(), labels, buffers, kept)
+
+    def finish(state: "TrainState", loss: torch.Tensor, logits: torch.Tensor,
+               labels: torch.Tensor, buffers, kept) -> Dict[str, torch.Tensor]:
+        """The optimizer boundary, once a step however many microbatches
+        fed it: chaos, the global gate, CDR, the update or the skip."""
+        model, opt = state.model, state.optimizer
         with _phase("optimizer"):
             if any(state.step >= lo and (hi is None or state.step <= hi)
                    for lo, hi in nan_windows):
                 loss = torch.full_like(loss, float("nan"))
-            metrics = _global_metrics(loss, logits.detach(), labels)
+            metrics = _global_metrics(loss, logits, labels)
             params = [p for p in model.parameters() if p.grad is not None]
             grad_norm = _grad_norm(params)
             ok = torch.isfinite(metrics["loss"]) & torch.isfinite(grad_norm)
@@ -308,14 +419,26 @@ def make_phase_probes(cfg: Config) -> Dict[str, Callable]:
     state times every call. With the full step's time they feed
     `obs/trace.py::SpanRecorder`: fwd = t(fwd), bwd = t(fwd_bwd) − t(fwd),
     optimizer = t(step) − t(fwd_bwd). The caller synchronizes the device
-    before reading a clock."""
+    before reading a clock. Under accumulation both run the step's K
+    microbatches (`_microbatches`), `fwd_bwd` with the summed gradients
+    ÷K before their norm."""
     prepare = _step_inputs(cfg)
+    accum = grad_accum(cfg)
 
     def run(state: "TrainState", images: torch.Tensor, labels: torch.Tensor,
             backward: bool):
         x, k, buffers, kept = prepare(state, images, None, None)
         net = state.model if state.ddp is None else state.ddp
         try:
+            if accum > 1:
+                with torch.set_grad_enabled(backward):
+                    loss, _ = _microbatches(cfg, state, x, labels, k,
+                                            backward)
+                if not backward:
+                    return loss
+                _mean_of_sums(state.model, accum)
+                return loss, _grad_norm([p for p in state.model.parameters()
+                                         if p.grad is not None])
             if not backward:
                 with torch.no_grad():
                     return _cross_entropy(_forward(cfg, net, x, labels, k),

@@ -797,3 +797,58 @@ def test_flash_autograd_matches_the_plain_versions_autograd(cuda, monkeypatch, d
     for i, (a, b) in enumerate(zip(got, want)):
         _assert_flash_close(a, b, o_tol if i == 0 else g_tol, rtol,
                             o_rms if i == 0 else g_rms)
+
+
+def test_accumulated_step_launches_the_abn_family_once_a_microbatch(cuda):
+    """A TResNet-M train step at `grad_accum` 4 (64 px, batch 8: four
+    microbatches of 2) launches K1, K1s, K1r and K1d at each of the 36
+    ABN sites once a microbatch: 36 × 4 each; the step is not skipped."""
+    from ddp_classification_pytorch_tpu_torch.config import get_preset
+    from ddp_classification_pytorch_tpu_torch.train.state import create_train_state
+    from ddp_classification_pytorch_tpu_torch.train.steps import make_train_step
+
+    cfg = get_preset("baseline")
+    cfg.model.arch, cfg.model.dtype = "tresnet_m", "bfloat16"
+    cfg.data.dataset, cfg.data.image_size, cfg.data.num_classes = (
+        "synthetic", 64, 10)
+    cfg.data.batch_size, cfg.parallel.grad_accum = 8, 4
+    state = create_train_state(cfg, cuda, 1)
+    step = make_train_step(cfg)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    images = torch.randint(0, 256, (8, 64, 64, 3), device=cuda, generator=g,
+                           dtype=torch.uint8)
+    labels = torch.randint(0, 10, (8,), device=cuda, generator=g,
+                           dtype=torch.int32)
+    wrappers = (fused_abn.fused_bn_leaky_relu, fused_abn.bn_stats,
+                fused_abn.abn_grad_sums, fused_abn.abn_grad_input)
+    for f in wrappers:
+        f.launches = 0
+    m = step(state, images, labels)
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == [36 * 4] * 4
+    assert float(m["step_ok"]) == 1.0 and state.opt_count == 1
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_overlap_prefetcher_on_the_card_matches_the_synchronous_path(cuda,
+                                                                     depth):
+    """`data.h2d_overlap`'s fetcher thread beside the stager: the batches
+    on the card, in order, bitwise those of depth 0 (the synchronous
+    copy), over a shuffled loader."""
+    from ddp_classification_pytorch_tpu_torch.data.device_prefetch import (
+        DevicePrefetcher)
+    from ddp_classification_pytorch_tpu_torch.data.loader import Loader
+    from ddp_classification_pytorch_tpu_torch.data.synthetic import (
+        SyntheticDataset)
+
+    ld = Loader(SyntheticDataset(96, 32, 10, seed=4, out_dtype="uint8"), 8,
+                shuffle=True, seed=4, num_workers=2)
+    ld.set_epoch(1)
+    want = [tuple(t.cpu() for t in b)
+            for b in DevicePrefetcher(ld, cuda, depth=0)]
+    pf = DevicePrefetcher(ld, cuda, depth=depth, overlap=True)
+    got = [tuple(t.cpu() for t in b) for b in pf]
+    assert pf.fetch_thread is not None and len(got) == len(want) == 12
+    for g, w in zip(got, want):
+        assert all(a.device.type == "cpu" and torch.equal(a, b)
+                   for a, b in zip(g, w))

@@ -435,6 +435,60 @@ def test_device_prefetcher_reraises_and_joins_on_early_stop():
     assert not _alive("device-stager") and not _alive("loader")
 
 
+@pytest.mark.parametrize("depth", [0, 1, 2])
+def test_device_prefetcher_overlap_keeps_the_order_as_jax(depth):
+    """`overlap` (the fetcher thread beside the stager, `data.h2d_overlap`)
+    hands out the batches of the synchronous path in its order, as the
+    JAX prefetcher's overlap mode does over the same loader; depth 0
+    ignores the flag."""
+    from ddp_classification_pytorch_tpu.data.device_prefetch import (
+        DevicePrefetcher as JaxPrefetcher)
+
+    ld = Loader(_synthetic(20), 6, shuffle=True, seed=3, num_workers=2)
+    ld.set_epoch(1)
+    want = list(DevicePrefetcher(ld, CPU, depth=0))
+    pf = DevicePrefetcher(ld, CPU, depth=depth, overlap=True,
+                          assemble=lambda b, hb: (*hb, np.array([b])))
+    got = list(pf)
+    jax_got = list(JaxPrefetcher(ld, depth=depth, overlap=True,
+                                 assemble=lambda b, hb: hb))
+    assert len(got) == len(want) == len(jax_got) == 4
+    for b, (g, w, j) in enumerate(zip(got, want, jax_got)):
+        for x, y, z in zip(g, w, j):
+            assert torch.equal(x, y)
+            np.testing.assert_array_equal(x.numpy(), z)
+        assert int(g[2]) == b  # assemble saw the batches in order
+    if depth:
+        assert pf.fetch_thread and pf.stager_thread != pf.fetch_thread
+    else:
+        assert pf.fetch_thread is None and pf.stager_thread is None
+    assert pf.batches == 4
+
+
+def test_device_prefetcher_overlap_reraises_and_joins_both_threads():
+    pf = DevicePrefetcher(Loader(_Boom(), 4, shuffle=False), CPU, depth=2,
+                          overlap=True)
+    with pytest.raises(OSError, match="item 3"):  # a loader error
+        list(pf)
+
+    def explode(b, hb):
+        if b == 2:
+            raise ValueError("bad batch 2")
+        return hb
+
+    ld = Loader(_synthetic(64), 4, shuffle=False, num_workers=2)
+    with pytest.raises(ValueError, match="bad batch 2"):  # the fetcher's
+        list(DevicePrefetcher(ld, CPU, depth=2, overlap=True,
+                              assemble=explode))
+    it = iter(DevicePrefetcher(ld, CPU, depth=1, overlap=True))
+    next(it)
+    assert _alive("device-stager") and _alive("host-fetcher")
+    it.close()  # the consumer stops early: both threads joined
+    ld.close()
+    assert not (_alive("device-stager") or _alive("host-fetcher")
+                or _alive("loader"))
+
+
 # -------------------------------------------------------------------- flip --
 
 def _jax_flip_mask(seed, step, n):
