@@ -13,8 +13,10 @@ control, ViT-B/16 through the flash forward, training under injected
 faults through the supervisor, the train→serve chaos scenario (a
 trainer and serve replicas as processes sharing the card and one run
 directory), and VGG19-BN, the arcface and nested heads on TResNet-M and
-the ViT, the trainer's profiler window, `--debug_nans` and
-`cli/verify_import.py` — on one NVIDIA GPU.
+the ViT, the trainer's profiler window, `--debug_nans`,
+`cli/verify_import.py`, the scaling levers, and the model options
+(`--remat` on ViT-B/16 and ResNet-50, the MoE ViT-B/16, `--dropout`,
+`--ln_bf16`) — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -403,7 +405,28 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    for an epoch; (e) `--h2d-overlap` off and on over CIFAR-10 pickles
    (ResNet-18's CIFAR stem, batch 16): the step loop's prefetch wait ms a
    step, and the 16 batches' checksums equal. Each line beside the card's
-   name and power limit.
+   name and power limit;
+33. (run before the summary line) the model options, through
+   `cli/train.py`'s parser and `Trainer`, every launch count set to 0
+   just before each leg — (a) ViT-B/16 at 512 px, batch 32, bf16,
+   `--flash_attention`: one step with and without `--remat` from the same
+   seed and batch, states bitwise equal, K2/K3/K4 24/12/12 a remat step
+   and 12/12/12 a plain one (checked), peak allocated memory and wall /
+   device ms of each; (b) ResNet-50 at batch 128 (224 px, 2173 classes,
+   bf16) with and without `--remat`: one step (cuDNN deterministic for
+   it) with parameters and running statistics bitwise equal, then peak
+   memory and wall / device ms of each; (c) ViT-B/16 with `--moe_experts
+   8 --moe_top_k 2` through `Trainer.run()` (2 steps, 1 eval batch):
+   the loss finite, the balance penalty at init within [top_k, E] a
+   block (0.24-0.96 weighted), K2 12 a forward and K3/K4 12 a step
+   (checked), the step's wall / device ms, and the experts' card route
+   (cuBLAS bf16 products with f32 output) against the f32 product of the
+   same bf16 operands on one block's input, within MOE_ROUTE_TOL of the
+   output's largest value;
+   (d) `--dropout 0.1 --remat` against `--dropout 0.1` over two steps of
+   ViT-B/16 (512 px, batch 8, flash), bitwise; (e) `--ln_bf16` eval
+   logits bitwise those without it; (f) every rejection of the options
+   exits rc 2.
 
 Numerics on the card: `torch.backends.cudnn.allow_tf32 = False` and
 `torch.backends.cuda.matmul.allow_tf32 = False` (f32 convolutions and
@@ -4162,6 +4185,318 @@ def slice16_phase(torch, device, train_cli, checkpoint, fused_abn, counters,
     return rec
 
 
+# ------------------------------------------------------------- phase 33 --
+# the model options. (a) ViT-B/16, 512 px (1024 tokens: K2-K4), batch 32,
+# bf16, flash, with and without --remat
+VIT_OPT_ARGV = ["baseline", "--dataset", "synthetic", "--synthetic_size",
+                "64", "--model", "vit_b16", "--image_size", "512",
+                "--num_classes", "1000", "--batchsize", "32",
+                "--flash_attention", "--dtype", "bfloat16", "--epochs", "1",
+                "--device", "cuda"]
+# (c) the MoE ViT-B/16: 2 train steps and one eval batch through run()
+VIT_MOE_ARGV = VIT_OPT_ARGV + ["--moe_experts", "8", "--moe_top_k", "2"]
+VIT_MOE_STEPS, VIT_MOE_EVALS = 2, 1
+MOE_ROUTE_TOL = 1e-2  # × max |f32-route output|: bf16 outputs, one ulp 2^-8
+# (d) dropout with and without remat, batch 8
+VIT_DROP_ARGV = [a if b != "--batchsize" else "8"
+                 for b, a in zip([None] + VIT_OPT_ARGV, VIT_OPT_ARGV)] + [
+    "--dropout", "0.1"]
+# (f) each option's rejections (rc 2), on tiny synthetic runs
+OPTION_REJECTIONS = [
+    ["--model", "resnet18", "--moe_experts", "4"],
+    ["--model", "vit_b16", "--moe_experts", "5"],
+    ["--model", "vit_b16", "--moe_experts", "4", "--dropout", "0.1"],
+    ["--model", "vit_b16", "--moe_experts", "4", "--moe_top_k", "5"],
+    ["--model", "vit_b16", "--moe_experts", "4", "--moe_aux_weight", "-1"],
+    ["--mp", "2"]]
+
+
+def _reset(counters):
+    for f in counters.values():
+        f.launches = 0
+
+
+def _step_metrics(torch, device, trainer, images, labels) -> dict:
+    """Peak `max_memory_allocated` over one step (after one warm step),
+    wall (host clock, median of 5) and device ms (CUDA events, median of
+    STEP_REPS) of the trainer's own step on one batch."""
+    def step():
+        return trainer.train_step(trainer.state, images, labels)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    return {"peak_allocated_gb": peak / 1e9, "allocated_before_gb": base / 1e9,
+            "wall_ms": host_ms(torch, step),
+            "device_ms": event_step_ms(torch, step)}
+
+
+def _random_batch(torch, device, n, size, classes, seed):
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.integers(0, 256, (n, size, size, 3),
+                                           dtype=np.uint8)).to(device)
+    labels = torch.from_numpy(rng.integers(0, classes, n).astype(np.int32)
+                              ).to(device)
+    return images, labels
+
+
+def _free():
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def remat_pair(torch, device, train_cli, counters, argv, want, tag, card,
+               deterministic=False) -> dict:
+    """One step of `argv` with and without `--remat` from the same seed on
+    one batch: the states after it bitwise equal (or, if not, the largest
+    difference over each tensor's largest update), the launches of that
+    step (held to `want[remat]`), then the step's peak memory and times."""
+    size = int(argv[argv.index("--image_size") + 1])
+    n = int(argv[argv.index("--batchsize") + 1])
+    classes = int(argv[argv.index("--num_classes") + 1])
+    images, labels = _random_batch(torch, device, n, size, classes, 33)
+    rec, states, before = {}, {}, None
+    for remat in (False, True):
+        trainer, tmp = _trainer(train_cli, argv + (["--remat"] if remat
+                                                   else []), device)
+        shutil.rmtree(tmp, ignore_errors=True)
+        check(trainer.cfg.model.remat is remat, f"{tag}: --remat not set")
+        if before is None:
+            before = {k: v.detach().clone() for k, v in
+                      trainer.state.model.state_dict().items()}
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic or prev
+        try:
+            _reset(counters)
+            m = trainer.train_step(trainer.state, images, labels)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        launches = {k: f.launches for k, f in counters.items()}
+        check(float(m["step_ok"]) == 1.0, f"{tag} remat={remat}: skipped")
+        check(launches == want[remat], f"{tag} remat={remat}: launches "
+              f"{launches}, want {want[remat]}")
+        states[remat] = {k: v.detach().clone() for k, v in
+                         trainer.state.model.state_dict().items()}
+        key = "remat" if remat else "plain"
+        rec[key] = {"launches": launches, "loss": float(m["loss"])} | \
+            _step_metrics(torch, device, trainer, images, labels)
+        del trainer, m
+        _free()
+    bitwise = all(torch.equal(states[False][k], states[True][k])
+                  for k in states[False])
+    worst = max(((states[False][k].float() - states[True][k].float())
+                 .abs().max() / (states[False][k].float() - before[k].float())
+                 .abs().max().clamp_min(1e-30)).item()
+                for k in states[False] if states[False][k].is_floating_point())
+    rec |= {"argv": argv, "bitwise_equal": bitwise,
+            "max_diff_over_largest_update": worst,
+            "peak_ratio": rec["remat"]["peak_allocated_gb"]
+            / rec["plain"]["peak_allocated_gb"],
+            "device_ms_added": rec["remat"]["device_ms"]
+            - rec["plain"]["device_ms"]}
+    log(f"[{tag}] {card}: {json.dumps(rec)}")
+    check(bitwise or worst <= 1e-6, f"{tag}: remat step differs from the "
+          f"plain step by {worst} of an update")
+    del states, before
+    _free()
+    return rec
+
+
+def moe_vit_path(torch, device, train_cli, counters, card) -> dict:
+    """Phase 33 (c): the MoE ViT-B/16 through `Trainer.run()`, the
+    penalty at init, the step's times, and the experts' card route against
+    the f32 route on one block's input."""
+    from ddp_classification_pytorch_tpu_torch.models import vit
+    from ddp_classification_pytorch_tpu_torch.ops import moe
+
+    trainer, tmp = _trainer(train_cli, VIT_MOE_ARGV, device)
+    try:
+        check(trainer.steps_per_epoch == VIT_MOE_STEPS
+              and len(trainer.val_loader) == VIT_MOE_EVALS,
+              f"moe: {trainer.steps_per_epoch} steps")
+        model = trainer.state.model
+        backbone = model.backbone
+        images, labels = _random_batch(torch, device, 32, 512, 1000, 35)
+        x = (images.permute(0, 3, 1, 2).float() / 255.0 - 0.45) / 0.25
+        # the penalty at init, and one block's input for the route check
+        seen = {}
+        hook = backbone.blocks[0].register_forward_pre_hook(
+            lambda mod, args: seen.setdefault("x", args[0].detach()))
+        model.train()
+        with torch.no_grad():
+            model(x)
+        hook.remove()
+        aux = float(vit.pop_moe_aux(model))
+        weighted = trainer.cfg.model.moe_aux_weight * aux
+        # each block's E·Σ f_e·p_e lies in [top_k, E]: top_k (2) under a
+        # uniform router, more as the top-k experts' probability grows
+        k, e = trainer.cfg.model.moe_top_k, trainer.cfg.model.moe_experts
+        check(0.99 * k * VIT_BLOCKS <= aux <= e * VIT_BLOCKS,
+              f"moe: penalty {aux} at init outside [top_k, E] a block")
+        blk = backbone.blocks[0]
+        with torch.no_grad():
+            y = blk.ln2(seen["x"]).to(blk.dtype)
+            gates = moe.topk_gates(moe.router_logits(y, blk.moe_router), 2)
+            args = (y, gates, blk.moe_w_in, blk.moe_b_in, blk.moe_w_out,
+                    blk.moe_b_out, blk.dtype)
+            card_out = moe.moe_mlp(*args)
+            card_ms = event_step_ms(torch, lambda: moe.moe_mlp(*args))
+            card_route = moe._product
+            moe._product = lambda a, b: torch.matmul(a.float(), b.float())
+            try:
+                f32_out = moe.moe_mlp(*args)
+                f32_ms = event_step_ms(torch, lambda: moe.moe_mlp(*args))
+            finally:
+                moe._product = card_route
+        ref = f32_out.float()
+        route_err = (card_out.float() - ref).abs().max().item()
+        route_scale = ref.abs().max().item()
+        check(route_err <= MOE_ROUTE_TOL * route_scale,
+              f"moe: card route {route_err} off the f32 route "
+              f"(scale {route_scale})")
+        del seen, y, gates, args, card_out, f32_out, ref
+        _reset(counters)
+        t0 = time.perf_counter()
+        last = trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        want = dict.fromkeys(counters, 0) | {
+            "fwd": VIT_BLOCKS * (VIT_MOE_STEPS + VIT_MOE_EVALS),
+            "dq": VIT_BLOCKS * VIT_MOE_STEPS, "dkv": VIT_BLOCKS * VIT_MOE_STEPS}
+        check(launches == want, f"moe launches {launches}, want {want}")
+        check(np.isfinite(last["loss"]) and last["step_ok"] == 1.0,
+              f"moe: {last}")
+        _reset(counters)
+        m = trainer.train_step(trainer.state, images, labels)
+        torch.cuda.synchronize()
+        step_launches = {k: f.launches for k, f in counters.items()}
+        check(step_launches == dict.fromkeys(counters, 0) | {
+            "fwd": VIT_BLOCKS, "dq": VIT_BLOCKS, "dkv": VIT_BLOCKS},
+            f"moe step launches {step_launches}")
+        check(np.isfinite(float(m["loss"])), "moe: step loss not finite")
+        rec = {"argv": VIT_MOE_ARGV, "epoch": last, "launches": launches,
+               "step_launches": step_launches, "run_wall_s": wall,
+               "aux_at_init": aux, "weighted_aux_at_init": weighted,
+               "route_max_abs_err": route_err, "route_scale": route_scale,
+               "route_tol": MOE_ROUTE_TOL, "card_route_fwd_ms": card_ms,
+               "f32_route_fwd_ms": f32_ms,
+               "params": sum(p.numel() for p in model.parameters())} | \
+            _step_metrics(torch, device, trainer, images, labels)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[moe] {card}: {json.dumps(rec)}")
+    del trainer
+    _free()
+    return rec
+
+
+def dropout_remat_bitwise(torch, device, train_cli) -> dict:
+    """Phase 33 (d): two steps of `--dropout 0.1` with and without
+    `--remat` from one seed: bitwise equal states (the recompute reused
+    the forward's masks)."""
+    states = {}
+    for remat in (False, True):
+        trainer, tmp = _trainer(train_cli, VIT_DROP_ARGV + (
+            ["--remat"] if remat else []), device)
+        shutil.rmtree(tmp, ignore_errors=True)
+        for s in range(2):
+            images, labels = _random_batch(torch, device, 8, 512, 1000, 40 + s)
+            m = trainer.train_step(trainer.state, images, labels)
+            check(float(m["step_ok"]) == 1.0, "dropout step skipped")
+        torch.cuda.synchronize()
+        states[remat] = trainer.state.state_dict()
+        del trainer
+        _free()
+    rec = {"argv": VIT_DROP_ARGV, "steps": 2,
+           "bitwise_equal": same_state(torch, states[False], states[True])}
+    log(f"[dropout] --dropout 0.1 --remat vs --dropout 0.1: {json.dumps(rec)}")
+    check(rec["bitwise_equal"], "--dropout with --remat differs from "
+          "--dropout alone")
+    return rec
+
+
+def ln_bf16_bitwise(torch, device, train_cli) -> dict:
+    """Phase 33 (e): eval logits of ViT-B/16 (512 px, bf16, flash) from one
+    seed with and without `--ln_bf16`: bitwise."""
+    from ddp_classification_pytorch_tpu_torch.models.factory import build_model
+    from ddp_classification_pytorch_tpu_torch.train.state import init_weights_
+
+    images, _ = _random_batch(torch, device, 8, 512, 1000, 45)
+    x = (images.permute(0, 3, 1, 2).float() / 255.0 - 0.45) / 0.25
+    logits = {}
+    for flag in (False, True):
+        cfg = train_cli.config_from_args(train_cli.build_parser().parse_args(
+            VIT_OPT_ARGV + (["--ln_bf16"] if flag else [])))
+        check(cfg.model.ln_bf16 is flag, "--ln_bf16 not set")
+        model = init_weights_(build_model(cfg.model, 1000, 512),
+                              torch.Generator().manual_seed(cfg.run.seed))
+        model = model.to(device).eval()
+        with torch.no_grad():
+            logits[flag] = model(x)
+        del model
+    rec = {"bitwise_equal": torch.equal(logits[False], logits[True]),
+           "logits_std": logits[False].float().std().item()}
+    log(f"[ln-bf16] eval logits with and without --ln_bf16: {json.dumps(rec)}")
+    check(rec["bitwise_equal"], "--ln_bf16 changed the logits")
+    return rec
+
+
+def option_rejections(train_cli) -> dict:
+    """Phase 33 (f): each option's rejection exits rc 2."""
+    import contextlib
+    import io
+
+    rcs = {}
+    for extra in OPTION_REJECTIONS:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_reject_")
+        argv = ["baseline", "--dataset", "synthetic", "--synthetic_size", "8",
+                "--image_size", "32", "--num_classes", "10", "--batchsize",
+                "4", "--epochs", "1", "--device", "cuda", "--out", tmp] + extra
+        err = io.StringIO()
+        try:
+            with contextlib.redirect_stderr(err):
+                train_cli.main(argv)
+            rc = 0
+        except SystemExit as e:
+            rc = e.code
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        rcs[" ".join(extra)] = {"rc": rc, "stderr": err.getvalue().strip()}
+        check(rc == 2, f"{extra}: rc {rc}, want 2")
+    log(f"[options] rejections: {json.dumps(rcs)}")
+    return rcs
+
+
+def slice17_phase(torch, device, train_cli, counters, card) -> dict:
+    """Phase 33 (a)-(f); (a) and (c) are the main paths of
+    `vit_remat_step_launches` and `vit_moe_path_launches`."""
+    t0 = time.perf_counter()
+    zero = dict.fromkeys(counters, 0)
+    vit_want = {False: zero | {"fwd": VIT_BLOCKS, "dq": VIT_BLOCKS,
+                               "dkv": VIT_BLOCKS},
+                True: zero | {"fwd": 2 * VIT_BLOCKS, "dq": VIT_BLOCKS,
+                              "dkv": VIT_BLOCKS}}
+    rec = {"vit_remat": remat_pair(torch, device, train_cli, counters,
+                                   VIT_OPT_ARGV, vit_want, "remat-vit", card)}
+    rec["resnet50_remat"] = remat_pair(
+        torch, device, train_cli, counters, ACCUM_R50_ARGV,
+        {False: zero, True: zero}, "remat-resnet50", card, deterministic=True)
+    rec["moe"] = moe_vit_path(torch, device, train_cli, counters, card)
+    rec["dropout_remat"] = dropout_remat_bitwise(torch, device, train_cli)
+    rec["ln_bf16"] = ln_bf16_bitwise(torch, device, train_cli)
+    rec["rejections"] = option_rejections(train_cli)
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -4907,6 +5242,13 @@ def main() -> int:
     log(f"[slice16] phase 32 took {levers['phase_s']:.1f} s ({card})")
     report["slice16"] = levers
 
+    # ------------------------------------------- 33. the model options --
+    gc.collect()
+    torch.cuda.empty_cache()
+    options = slice17_phase(torch, device, train_cli, counters, card)
+    log(f"[slice17] phase 33 took {options['phase_s']:.1f} s ({card})")
+    report["slice17"] = options
+
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as f:
@@ -4926,7 +5268,10 @@ def main() -> int:
             for leg in ("vgg_nested", "tresnet_arcface", "tresnet_nested",
                         "vit_arcface", "debug_nans", "profile_window")} | {
             "grad_accum_path_launches":
-                levers["tresnet_accum"]["launches"][kind]}
+                levers["tresnet_accum"]["launches"][kind],
+            "vit_remat_step_launches":
+                options["vit_remat"]["remat"]["launches"][kind],
+            "vit_moe_path_launches": options["moe"]["launches"][kind]}
 
     log(json.dumps({"kernels": [{
         "name": "fused_bn_leaky_relu",

@@ -5,7 +5,9 @@ cards, on TResNet-M and the ViT family on one; on synthetic data, image
 folders, CIFAR pickles and PLC's annotation datasets, with resume; the
 profiler window and `--debug_nans`; the scaling levers `--grad_accum`,
 `--zero_opt`, `--grad_reduce_dtype`, `--h2d-overlap` and async
-checkpoints), on the card.
+checkpoints; the model options `--remat`, `--dropout`, `--ln_bf16` and
+the ViT's mixture of experts `--moe_experts` / `--moe_top_k` /
+`--moe_aux_weight`), on the card.
 
     torchrun --nproc_per_node 4 -m ddp_classification_pytorch_tpu_torch.cli.train \
         baseline --dataset imagefolder --train_dir T --val_dir V \
@@ -22,6 +24,10 @@ checkpoints), on the card.
     python -m ddp_classification_pytorch_tpu_torch.cli.train baseline \
         --dataset synthetic --model vit_b16 --image_size 512 \
         --flash_attention --batchsize 32 --epochs 1 --out runs/vit
+    python -m ddp_classification_pytorch_tpu_torch.cli.train baseline \
+        --dataset synthetic --model vit_b16 --image_size 512 \
+        --flash_attention --moe_experts 8 --moe_top_k 2 --remat \
+        --batchsize 32 --epochs 1 --out runs/vit_moe
     python -m ddp_classification_pytorch_tpu_torch.cli.train arcface \
         --dataset synthetic --model resnet50 --out runs/arc   # or cdr, nested
     python -m ddp_classification_pytorch_tpu_torch.cli.train nested \
@@ -79,7 +85,10 @@ Exit codes, as the JAX CLI's:
   `grad-accum-indivisible` (a `--batchsize` that `--grad_accum` K does
   not split into K equal microbatches, or K > 1 with `--sharded_ce`), and
   `--grad_reduce_dtype bfloat16` under the nested head over more than
-  one rank (its k is drawn once for the global batch);
+  one rank (its k is drawn once for the global batch); `--mp` above 1;
+  `--moe_experts` on an arch other than a ViT, with `--dropout` above
+  0, or not dividing 4·dim; `--moe_top_k` outside [1, experts]; a
+  negative `--moe_aux_weight`;
 - **rc 3**: no CUDA device and `--device cpu` not asked for (it never
   carries on on the CPU);
 - **rc 6**: the `--multihost` rendezvous never completed within its
@@ -172,6 +181,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="below this token count --flash_attention takes the "
                         "dense op (default 1024; 0 = kernel always)")
     m.add_argument("--dtype", default="", help="bfloat16 | float32 compute dtype")
+    m.add_argument("--ln_bf16", action="store_true",
+                   help="ViT: LayerNorms in bf16 (bitwise the f32 ones under "
+                        "flax's promotion: accepted, computes the same)")
+    m.add_argument("--dropout", type=float, default=-1.0,
+                   help="ViT: dropout after the MLP's GELU; VGG19-BN: the "
+                        "classifier's (0 = its 0.5); default the preset's")
+    m.add_argument("--remat", action="store_true",
+                   help="rematerialize residual blocks (ResNets whole, ViTs "
+                        "under checkpoint_dots): activation memory for "
+                        "recompute")
 
     o = p.add_argument_group("optimization")
     o.add_argument("--optimizer", default="", help="sgd | adam")
@@ -248,6 +267,17 @@ def build_parser() -> argparse.ArgumentParser:
                      help="wire dtype of the gradient all-reduce; bfloat16 "
                           "halves its bytes (a DDP comm hook; a no-op at "
                           "world 1), master weights and momentum stay f32")
+    par.add_argument("--mp", type=int, default=0,
+                     help="model-axis width: only 1 (0) is ported; > 1 "
+                          "exits rc 2")
+    par.add_argument("--moe_experts", type=int, default=0,
+                     help="ViT: dropless split-FFN mixture-of-experts with "
+                          "N experts per block")
+    par.add_argument("--moe_top_k", type=int, default=2,
+                     help="router top-k for --moe_experts")
+    par.add_argument("--moe_aux_weight", type=float, default=None,
+                     help="router load-balance penalty weight "
+                          "(default 0.01; 0 disables)")
     par.add_argument("--sharded_ce", action="store_true",
                      help="the partial-FC ArcFace CE over a model axis: not "
                           "ported (rc 2)")
@@ -330,6 +360,11 @@ def config_from_args(args: argparse.Namespace) -> Config:
         raise ValueError("--sharded_ce (the partial-FC ArcFace CE over a "
                          "model axis) is not ported: the port has no model "
                          "axis (ROADMAP.md)")
+    if args.mp > 1:
+        raise ValueError(
+            f"--mp {args.mp}: the model axis (ring attention, expert "
+            "parallelism, GPipe, class-sharded heads) is not ported yet "
+            "(ROADMAP.md)")
     cfg = get_preset(args.workload)
     if args.folder:
         cfg.data.train_dir = f"{args.folder}/train"
@@ -379,6 +414,12 @@ def config_from_args(args: argparse.Namespace) -> Config:
         cfg.model.flash_min_tokens = args.flash_min_tokens
     if args.dtype:
         cfg.model.dtype = args.dtype
+    if args.ln_bf16:
+        cfg.model.ln_bf16 = True
+    if args.dropout >= 0:
+        cfg.model.dropout = args.dropout
+    if args.remat:
+        cfg.model.remat = True
     if args.variant:
         cfg.model.variant = args.variant
     if args.pretrained:
@@ -403,6 +444,14 @@ def config_from_args(args: argparse.Namespace) -> Config:
         cfg.parallel.zero_opt = args.zero_opt
     if args.grad_reduce_dtype:
         cfg.parallel.grad_reduce_dtype = args.grad_reduce_dtype
+    if args.moe_aux_weight is not None and args.moe_aux_weight < 0:
+        raise ValueError(
+            f"--moe_aux_weight must be >= 0, got {args.moe_aux_weight}")
+    if args.moe_experts:
+        cfg.model.moe_experts = args.moe_experts
+        cfg.model.moe_top_k = args.moe_top_k
+        if args.moe_aux_weight is not None:
+            cfg.model.moe_aux_weight = args.moe_aux_weight
 
     if args.optimizer:
         cfg.optim.optimizer = args.optimizer

@@ -83,14 +83,25 @@ class ModelConfig:
     nested_std: float = 100.0
     freeze_bn: bool = False
     dtype: str = "bfloat16"  # compute dtype; ABN math, pool and fc stay f32
+    # ViT: after the MLP's GELU; VGG19-BN: `dropout or 0.5`; the others
+    # ignore it
     dropout: float = 0.0
-    remat: bool = False  # not ported: refused (ROADMAP.md)
-    moe_experts: int = 0  # not ported: refused (ROADMAP.md)
+    # per-block rematerialization on the ResNets (whole) and the ViTs
+    # (checkpoint_dots), the activation-memory lever (models/remat.py)
+    remat: bool = False
+    # ViT: dropless split-FFN mixture of experts in every block (ops/moe.py)
+    # when > 0; the router's top-k; the weight of the summed balance
+    # penalty in the training loss (0 leaves it out)
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_aux_weight: float = 0.01
     # ViT: the flash kernels (ops/flash_attention.py) for attention when
     # the token count reaches flash_min_tokens (0 = always)
     flash_attention: bool = False
     flash_min_tokens: int = 1024
-    ln_bf16: bool = False  # not ported: refused (ROADMAP.md)
+    # ViT: LayerNorms "in bf16" — bitwise the f32 ones under flax's
+    # promotion, so accepted and computed as those (models/vit.py)
+    ln_bf16: bool = False
 
 
 @dataclass

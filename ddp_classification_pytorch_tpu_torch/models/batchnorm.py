@@ -22,6 +22,11 @@ all-reduce sums the statistics' gradients across the ranks, so each
 rank's input gradient is the global batch's. Without a group (or with one
 rank) nothing is exchanged and the forward is the plain one.
 
+Under `--remat` (`models/remat.py`) a block's backward recomputes its
+forward: the recompute normalizes with the same batch statistics (and
+exchanges them again under a group) but skips the running update, which
+the forward made, so the statistics are a plain step's, bitwise.
+
 `frozen` (the NESTED workload's freeze-BN): training mode normalizes with
 the running statistics as eval mode does, updates none of them and
 exchanges nothing, while the gradients still flow to x, γ and β — flax's
@@ -37,6 +42,8 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .remat import recomputing
 
 MOMENTUM = 0.9  # flax BatchNorm's: ra = MOMENTUM·ra + (1 − MOMENTUM)·batch
 
@@ -100,5 +107,6 @@ class BatchNorm(nn.Module):
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        self.update_running(mean, var)
+        if not recomputing():  # a remat block's recompute: made already
+            self.update_running(mean, var)
         return y.to(x.dtype)

@@ -37,6 +37,7 @@ import torch
 
 from .tresnet import blur_filter
 from .vgg import CFG_E, GRID
+from .vit import MOE_PARAMS
 
 _BN_LEAVES = (("scale", "params", "weight"), ("bias", "params", "bias"),
               ("mean", "batch_stats", "running_mean"),
@@ -110,7 +111,10 @@ def vit_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax ViT `params` (or a ClassifierModel's, with the single
     `backbone` level) → the port ViT's `state_dict`: conv HWIO → OIHW, Dense
     (I, O) → Linear (O, I), LayerNorm `scale`/`bias` → `weight`/`bias`,
-    `pos_embed` as it is. A ViT has no batch statistics."""
+    `pos_embed` and a MoE block's five expert params (`MOE_PARAMS`) as
+    they are: the port keeps JAX's (C, E), (E, C, H), (E, H), (E, H, C)
+    and (E, C) layouts under the same names. A ViT has no batch
+    statistics."""
     if set(params) == {"backbone"}:
         params = params["backbone"]
     sd: Dict[str, torch.Tensor] = {
@@ -131,8 +135,12 @@ def vit_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         ln(f"{pre}.ln2", p["ln2"])
         _dense(sd, f"{pre}.attn.qkv", p["attn"]["qkv"])
         _dense(sd, f"{pre}.attn.proj", p["attn"]["proj"])
-        _dense(sd, f"{pre}.mlp_in", p["mlp_in"])
-        _dense(sd, f"{pre}.mlp_out", p["mlp_out"])
+        if "moe_router" in p:  # the experts, in JAX's layouts
+            for name in MOE_PARAMS:
+                sd[f"{pre}.{name}"] = _t(p[name])
+        else:
+            _dense(sd, f"{pre}.mlp_in", p["mlp_in"])
+            _dense(sd, f"{pre}.mlp_out", p["mlp_out"])
     ln("ln_final", params["ln_final"])
     if "fc" in params:
         _dense(sd, "fc", params["fc"])
@@ -332,6 +340,8 @@ def _vit_path(rest: List[str], leaf: str) -> str:
         mods = [f"block{rest[1]}", *rest[2:]]
     else:  # patch_embed, ln_final, fc
         mods = list(rest)
+    if leaf in MOE_PARAMS:  # a block's own param, named as in flax
+        return "/".join(mods + [leaf])
     ln = mods[-1].startswith("ln")
     return "/".join(mods + [(_BN_LEAF if ln else _LEAF)[leaf]])
 

@@ -4,7 +4,9 @@ package's `models/factory.py` (`factory.py:27-194`): every ported arch
 fc, arcface and nested. `freeze_bn` freezes the ResNets' BNs (JAX passes
 it to them only, `factory.py:56-59`); on the other archs the BNs keep
 batch statistics and only the optimizer's filter applies
-(`train/schedule.py::param_groups`). Anything else is a ValueError (rc 2)."""
+(`train/schedule.py::param_groups`). `dropout` reaches the ViTs and
+VGG19-BN (`dropout or 0.5` there, so 0 means 0.5, JAX `factory.py:62`).
+Anything else is a ValueError (rc 2)."""
 
 from __future__ import annotations
 
@@ -62,12 +64,19 @@ def build_backbone(cfg: ModelConfig, num_classes: int = 0,
     """Backbone emitting features (num_classes=0) or logits. `image_size`
     sizes the ViT position table (the flax model infers it at init).
     `group`: the process group whose ranks share the ResNet and VGG BNs'
-    batch statistics in training (TResNet-M and the ViTs take none)."""
+    batch statistics in training (TResNet-M and the ViTs take none).
+    `remat` reaches the ResNets and the ViTs (VGG19-BN and TResNet-M
+    ignore it, as JAX's factory does); `moe_experts` on any other arch is
+    a ValueError."""
+    if cfg.moe_experts and cfg.arch not in _vit.VIT_CONFIGS:
+        raise ValueError(
+            f"moe_experts requires a ViT arch (transformer FFN to split); "
+            f"got {cfg.arch!r}")
     if cfg.arch in RESNET_DEPTHS:
         return build_resnet(cfg.arch, num_classes=num_classes,
                             variant=cfg.variant,
                             dtype=compute_dtype(cfg.dtype), group=group,
-                            freeze_bn=cfg.freeze_bn)
+                            freeze_bn=cfg.freeze_bn, remat=cfg.remat)
     if cfg.arch == "vgg19_bn":
         return vgg19_bn(num_classes, compute_dtype(cfg.dtype), group,
                         dropout=cfg.dropout or 0.5)
@@ -79,7 +88,7 @@ def build_backbone(cfg: ModelConfig, num_classes: int = 0,
             cfg.arch, num_classes=num_classes, image_size=image_size,
             dtype=compute_dtype(cfg.dtype), dropout=cfg.dropout,
             remat=cfg.remat, use_flash=cfg.flash_attention,
-            moe_experts=cfg.moe_experts,
+            moe_experts=cfg.moe_experts, moe_top_k=cfg.moe_top_k,
             flash_min_tokens=cfg.flash_min_tokens, ln_bf16=cfg.ln_bf16)
     raise ValueError(f"arch {cfg.arch!r} not yet ported to the torch package "
                      f"(ported: {', '.join(PORTED_ARCHS)})")

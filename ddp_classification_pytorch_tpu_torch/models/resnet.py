@@ -31,6 +31,10 @@ takes global batch statistics (`models/batchnorm.py`): the JAX model's
 BatchNorm over a batch sharded on the mesh's `data` axis (`:136-141`).
 With `freeze_bn` every BN normalizes with its running statistics in
 training too and exchanges nothing (the NESTED workload, `:136-141`).
+With `remat` (`--remat`) each residual block is rematerialized whole in
+training, as JAX's `nn.remat(block_cls)` (`:155`): its activations are
+recomputed in the backward instead of kept, and the BNs' running update
+is made once (`models/remat.py`).
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .batchnorm import BatchNorm
+from .remat import remat_whole
 from .tresnet import Conv2d
 
 
@@ -112,18 +117,21 @@ class ResNet(nn.Module):
     `group`: the process group whose ranks share every BN's batch
     statistics in training (None: this process's batch only).
     `freeze_bn`: every BN normalizes with its running statistics in
-    training too (`models/batchnorm.py`)."""
+    training too (`models/batchnorm.py`). `remat`: in training each
+    residual block is recomputed whole in the backward
+    (`models/remat.py::remat_whole`)."""
 
     def __init__(self, stage_sizes: Sequence[int],
                  block_cls: Type[nn.Module], num_classes: int = 0,
                  num_filters: int = 64, cifar_stem: bool = False,
                  dtype: torch.dtype = torch.bfloat16,
                  group: Optional[dist.ProcessGroup] = None,
-                 freeze_bn: bool = False):
+                 freeze_bn: bool = False, remat: bool = False):
         super().__init__()
         norm = functools.partial(BatchNorm, process_group=group,
                                  frozen=freeze_bn)
         self.dtype = dtype
+        self.remat = remat
         self.cifar_stem = cifar_stem
         if cifar_stem:
             self.conv1 = _conv(3, num_filters, 3)
@@ -146,8 +154,14 @@ class ResNet(nn.Module):
         x = F.relu(self.bn1(self.conv1(x.to(self.dtype))))
         if not self.cifar_stem:
             x = F.max_pool2d(x, 3, 2, 1)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for i in range(self.num_stages):
-            x = getattr(self, f"layer{i + 1}")(x)
+            layer = getattr(self, f"layer{i + 1}")
+            if not remat:
+                x = layer(x)
+                continue
+            for block in layer:
+                x = remat_whole(block, x)
         x = x.float().mean(dim=(2, 3))
         if self.fc is not None:
             x = self.fc(x)
@@ -175,7 +189,7 @@ DEPTHS = {
 def build_resnet(name: str, num_classes: int = 0, variant: str = "imagenet",
                  dtype: torch.dtype = torch.bfloat16,
                  group: Optional[dist.ProcessGroup] = None,
-                 freeze_bn: bool = False) -> ResNet:
+                 freeze_bn: bool = False, remat: bool = False) -> ResNet:
     """The published ResNet `name` (JAX `resnet.py:174-191`)."""
     if variant not in ("imagenet", "cifar"):
         raise ValueError(f"unknown ResNet variant {variant!r}; one of "
@@ -183,4 +197,4 @@ def build_resnet(name: str, num_classes: int = 0, variant: str = "imagenet",
     block_cls, stages = DEPTHS[name]
     return ResNet(stages, block_cls, num_classes=num_classes,
                   cifar_stem=(variant == "cifar"), dtype=dtype, group=group,
-                  freeze_bn=freeze_bn)
+                  freeze_bn=freeze_bn, remat=remat)

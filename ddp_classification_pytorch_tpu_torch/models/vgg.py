@@ -29,13 +29,14 @@ once (`cast_to_compute_dtype`).
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 
 from .batchnorm import BatchNorm
+from .dropout import Dropout
 from .tresnet import Conv2d
 
 # torchvision cfg 'E' (VGG-19): conv output widths, "M" = 2×2 max pool
@@ -45,33 +46,6 @@ CFG_E: Sequence[Any] = (
 )
 GRID = 7  # the classifier's input grid (torchvision's AdaptiveAvgPool2d(7))
 WIDTH = 4096  # fc1/fc2 width, the feature the heads read
-
-
-class Dropout(nn.Module):
-    """flax's `nn.Dropout`: in training, `where(keep, x / (1 − p), 0)` with
-    keep ~ Bernoulli(1 − p) from torch's generator; the identity in eval
-    mode. `next_mask` (a bool tensor of x's shape), when set, is the keep
-    mask of the next training call, which clears it: parity tests hand in
-    the JAX step's masks, as the nested tests hand in its k. A list of
-    masks feeds the next calls one each, in order (one per microbatch of
-    an accumulated step)."""
-
-    def __init__(self, p: float):
-        super().__init__()
-        self.p = p
-        self.next_mask: Union[None, torch.Tensor, List[torch.Tensor]] = None
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.p == 0.0:
-            return x
-        keep, self.next_mask = self.next_mask, None
-        if isinstance(keep, list):
-            keep, rest = keep[0], keep[1:]
-            self.next_mask = rest or None
-        if keep is None:
-            keep = torch.rand_like(x) >= self.p
-        return torch.where(keep.to(x.device), x / (1.0 - self.p),
-                           torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class VGG(nn.Module):

@@ -23,7 +23,7 @@ from ..models.resnet import DEPTHS as RESNET_DEPTHS
 from ..models.resnet import ResNet
 from ..models.tresnet import TResNet
 from ..models.vgg import CFG_E, VGG
-from ..models.vit import VIT_CONFIGS
+from ..models.vit import MOE_WEIGHTS, VIT_CONFIGS, xavier_uniform_
 from .schedule import (
     Schedule,
     build_optimizer,
@@ -58,7 +58,9 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     layers LeCun normal (flax's Dense default, a truncated normal of
     fan_in), and the ArcFace margin's (C, D) weight flax's xavier-uniform,
     U(±sqrt(6 / (C + D))) (JAX `models/heads.py:68-73`). The other archs'
-    conv and linear weights are N(0, 1/fan_in). `torch.Generator` and
+    conv and linear weights are N(0, 1/fan_in); a MoE ViT's router and
+    expert banks flax's xavier-uniform with the expert count in both fans
+    (JAX `models/vit.py:128-132`), its expert biases zero. `torch.Generator` and
     `jax.random` give different numbers from one seed; parity tests carry
     weights across with `models/convert.py`."""
     resnet = any(isinstance(m, ResNet) for m in model.modules())
@@ -83,6 +85,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         for name, p in model.named_parameters():
             if name.endswith("pos_embed"):  # the ViT's N(0, 0.02), as flax's
                 p.normal_(0.0, 0.02, generator=generator)
+            elif name.rsplit(".", 1)[-1] in MOE_WEIGHTS:
+                xavier_uniform_(p, generator)  # the experts' banks
     return model
 
 

@@ -7,6 +7,12 @@ host-timed step breakdown (`make_phase_probes`). While a profiler is
 active the train step opens `fwd`, `bwd` and `optimizer` ranges
 (`obs/trace.py` reads them).
 
+The train loss is the f32 CE plus, on a MoE ViT, `moe_aux_weight` × the
+summed balance penalties of its blocks (`_loss`), in every step JAX adds
+it to: the dense step, each microbatch and the phase probes. Every
+active Dropout draws its masks from one generator a step, seeded from
+the run seed, the step and the rank (`seed_dropout`).
+
 PyTorch runs eagerly, so a "step" here is a plain function over the state
 and device tensors; there is nothing to trace or compile.
 """
@@ -23,6 +29,8 @@ import torch.nn.functional as F
 
 from ..config import Config
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD, preset_for_dataset
+from ..models.dropout import Dropout
+from ..models.vit import pop_moe_aux
 from ..ops.cdr import cdr_clip, cdr_mask_
 from ..ops.nested import nested_all_k_counts, nested_k, prefix_mask
 from ..parallel import ddp
@@ -34,6 +42,7 @@ if TYPE_CHECKING:
 
 # the JAX step derives its flip stream as fold_in(step_key, _FLIP_FOLD)
 _FLIP_FOLD = 0x464C4950  # "FLIP"
+_DROPOUT_FOLD = 0x44524F50  # "DROP"
 
 
 def device_input_epilogue(images: torch.Tensor, mean: torch.Tensor,
@@ -76,6 +85,31 @@ def flip_mask(seed: int, step: int, n: int) -> np.ndarray:
     run draws the masks the uninterrupted run drew. torch cannot reproduce
     `jax.random`'s bits: parity tests pass the JAX mask to the step."""
     return np.random.default_rng((seed + 1, step, _FLIP_FOLD)).random(n) < 0.5
+
+
+def dropout_seed(seed: int, step: int, rank: int = 0) -> int:
+    """The seed of the dropout generator of the train step at `step` on
+    `rank`: keyed on (seed + 1, step, _DROPOUT_FOLD, rank), as JAX folds
+    the step into its key and the data-axis index into the dropout key
+    (`steps.py:385-389`), so a resumed run draws the masks the
+    uninterrupted run drew and the ranks draw their own."""
+    ss = np.random.SeedSequence([seed + 1, step, _DROPOUT_FOLD, rank])
+    return int(ss.generate_state(1, np.uint64)[0])
+
+
+def seed_dropout(model: nn.Module, seed: int, step: int,
+                 device: torch.device) -> None:
+    """Give every active Dropout of `model` one generator on `device`,
+    seeded with `dropout_seed(seed, step, rank)`: the step's masks, drawn
+    in the order the forward reaches them (microbatch after microbatch
+    under accumulation)."""
+    drops = [m for m in model.modules() if isinstance(m, Dropout) and m.p > 0]
+    if not drops:
+        return
+    gen = torch.Generator(device=device)
+    gen.manual_seed(dropout_seed(seed, step, ddp.rank()))
+    for m in drops:
+        m.generator = gen
 
 
 def make_topk_predict_step(
@@ -123,6 +157,21 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax-CE on f32 logits (the reference's LogSoftmax + NLLLoss
     pair, BASELINE/main.py:139,152)."""
     return F.cross_entropy(logits.float(), labels.long())
+
+
+def _loss(cfg: Config, model: nn.Module, logits: torch.Tensor,
+          labels: torch.Tensor) -> torch.Tensor:
+    """The train loss of one forward (JAX `_dense_loss_fn`,
+    `steps.py:261-295`): the f32 CE plus, on a MoE ViT, `moe_aux_weight`
+    × the summed balance penalties of its blocks (`models/vit.py::
+    pop_moe_aux`, taken after every forward so its graph is not kept;
+    left out at weight 0)."""
+    loss = _cross_entropy(logits, labels)
+    if cfg.model.moe_experts:
+        aux = pop_moe_aux(model)
+        if aux is not None and cfg.model.moe_aux_weight:
+            loss = loss + cfg.model.moe_aux_weight * aux
+    return loss
 
 
 def _global_metrics(loss: torch.Tensor, logits: torch.Tensor,
@@ -225,6 +274,7 @@ def _step_inputs(cfg: Config) -> Callable[..., Tuple]:
         elif k is None and accum > 1:
             k = [None] * accum
         model.train()
+        seed_dropout(model, seed, state.step, x.device)
         # every parameter's, not only the optimizer's: freeze-BN's params
         # are in no group but still get (and must not accumulate) gradients
         model.zero_grad(set_to_none=True)
@@ -272,7 +322,7 @@ def _microbatches(cfg: Config, state: "TrainState", x: torch.Tensor,
         with state.ddp.no_sync() if defer else _NO_RANGE:
             with _phase("fwd"):
                 out = _forward(cfg, net, x[sl], labels[sl], ks[i])
-                loss = _cross_entropy(out, labels[sl])
+                loss = _loss(cfg, state.model, out, labels[sl])
             if backward:
                 with _phase("bwd"):
                     loss.backward()
@@ -302,7 +352,8 @@ def make_train_step(cfg: Config, chaos: Optional[Any] = None
     wrapper, when there is one) by head (`_forward`; the nested head's k
     is `nested_k(run.seed, state.step, D, model.nested_std)`, or the `k`
     the caller passes: parity tests pass the JAX step's), f32 CE, backward
-    (DDP averages the gradients across the ranks in it), global grad norm
+    (DDP averages the gradients across the ranks in it; the loss adds
+    the MoE penalty, `_loss`), global grad norm
     over every parameter (freeze-BN's too, as JAX's), then the skip-step
     gate: `step_ok = isfinite(loss) & isfinite(grad_norm)`. The gate is
     global: the loss is the global batch's mean (summed across the ranks
@@ -366,7 +417,7 @@ def make_train_step(cfg: Config, chaos: Optional[Any] = None
             x, k, buffers, kept = prepare(state, images, flip, k)
             logits = _forward(cfg, model if state.ddp is None else state.ddp,
                               x, labels, k)
-            loss = _cross_entropy(logits, labels)
+            loss = _loss(cfg, model, logits, labels)
         with _phase("bwd"):
             loss.backward()
         return finish(state, loss, logits.detach(), labels, buffers, kept)
@@ -441,9 +492,10 @@ def make_phase_probes(cfg: Config) -> Dict[str, Callable]:
                                          if p.grad is not None])
             if not backward:
                 with torch.no_grad():
-                    return _cross_entropy(_forward(cfg, net, x, labels, k),
-                                          labels)
-            loss = _cross_entropy(_forward(cfg, net, x, labels, k), labels)
+                    return _loss(cfg, state.model,
+                                 _forward(cfg, net, x, labels, k), labels)
+            loss = _loss(cfg, state.model, _forward(cfg, net, x, labels, k),
+                         labels)
             loss.backward()
             return loss.detach(), _grad_norm(
                 [p for p in state.model.parameters() if p.grad is not None])

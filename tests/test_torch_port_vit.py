@@ -125,15 +125,6 @@ def test_flash_gate_follows_flash_min_tokens(monkeypatch, images, floor, launche
     assert len(calls) == launches
 
 
-@pytest.mark.parametrize("option", [dict(moe_experts=4), dict(remat=True),
-                                    dict(ln_bf16=True), dict(dropout=0.1)],
-                         ids=["moe", "remat", "ln_bf16", "dropout"])
-def test_unported_options_are_refused(option):
-    cfg = ModelConfig(arch="vit_t16", **option)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        build_model(cfg, 10, IMAGE)
-
-
 def test_vit_b16_is_the_published_shape():
     """ViT-B/16 at 512 px: width 768, 12 heads, depth 12, 1024 tokens."""
     model = build_model(ModelConfig(arch="vit_b16", dtype="bfloat16",

@@ -66,3 +66,34 @@ def random_variables(model, image_size: int, rng):
 
     filled = jax.tree_util.tree_map_with_path(fill, shapes)
     return randomize_bn(filled["params"], filled.get("batch_stats", {}), rng)
+
+
+def random_vit_params(model, image_size: int, rng):
+    """numpy params for a flax ViT `model` without compiling its init (the
+    tree's shapes from `jax.eval_shape`): kernels N(0, 1/fan_in),
+    `pos_embed` N(0, 0.02²), every LayerNorm γ U(0.5, 1.5) and every bias
+    (a MoE block's expert biases too) N(0, 0.1²), so a scale↔bias swap in
+    a mapping shows; a MoE block's router and expert banks flax's
+    xavier-uniform bound U(±sqrt(6 / ((fan_in + fan_out)·E))), E the
+    product of the leading dims."""
+    shapes = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, image_size, image_size, 3)),
+        train=False))["params"]
+
+    def fill(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        if name == "scale":
+            out = rng.uniform(0.5, 1.5, shape)
+        elif name in ("bias", "moe_b_in", "moe_b_out"):
+            out = rng.normal(0.0, 0.1, shape)
+        elif name == "pos_embed":
+            out = rng.normal(0.0, 0.02, shape)
+        elif name in ("moe_router", "moe_w_in", "moe_w_out"):
+            r = int(np.prod(shape[:-2]))
+            bound = np.sqrt(6.0 / ((shape[-2] + shape[-1]) * r))
+            out = rng.uniform(-bound, bound, shape)
+        else:
+            out = rng.normal(0.0, 1.0 / np.sqrt(np.prod(shape[:-1])), shape)
+        return out.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)

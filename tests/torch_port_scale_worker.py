@@ -26,7 +26,10 @@ optimizer's consolidated state (`TrainState.consolidate` +
   head group (`head_lr`, Adam), ZeRO-1 on and off;
 - `bf16`: the bf16 wire (`grad_reduce_dtype=bfloat16`), ZeRO-1 on;
 - `accum`: `grad_accum` 2, the f32 wire, ZeRO-1 on: one all-reduce a
-  step through `no_sync()`.
+  step through `no_sync()`;
+- `plain` / `remat`: ZeRO-1 on, the f32 wire, each block of the ResNet
+  plain or rematerialized (`--remat`: the backward recomputes it, its
+  BNs' all-reduces with it).
 
 Imports torch, numpy and the port only (no JAX), so a rank starts fast.
 """
@@ -58,7 +61,7 @@ def _cfg(data, head="fc", **parallel):
     return cfg
 
 
-def _model(head, group):
+def _model(head, group, remat=False):
     """tests/torch_port_heads.py's reduced ResNet-50 under `head` (fc or
     arcface), its BNs over `group`."""
     from ddp_classification_pytorch_tpu_torch.models import factory, heads, resnet
@@ -66,7 +69,7 @@ def _model(head, group):
     backbone = resnet.ResNet(
         block_cls=resnet.Bottleneck, dtype=torch.float32, group=group,
         num_classes=10 if head == "fc" else 0, stage_sizes=(1, 1, 1, 1),
-        num_filters=8)
+        num_filters=8, remat=remat)
     if head == "fc":
         return factory.ClassifierModel(backbone)
     return factory.ArcFaceModel(backbone, heads.ArcEmbedding(256, (512, 256)),
@@ -80,7 +83,7 @@ def _state(data, cfg, head="fc"):
     from ddp_classification_pytorch_tpu_torch.train import schedule
     from ddp_classification_pytorch_tpu_torch.train.state import TrainState
 
-    model = _model(head, ddp.group())
+    model = _model(head, ddp.group(), cfg.model.remat)
     model.load_state_dict(data[f"{head}_state_dict"])
     model.to(memory_format=torch.channels_last)
     o = cfg.optim
@@ -133,6 +136,7 @@ def run(data, case, rank, world, out_dir):
     if case == "accum":
         parallel["grad_accum"] = 2
     cfg = _cfg(data, head, **parallel)
+    cfg.model.remat = case == "remat"
     state = _state(data, cfg, head)
     step = make_train_step(cfg)
     batches = data["accum_batches" if case == "accum" else "batches"]
