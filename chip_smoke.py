@@ -16,7 +16,9 @@ directory), and VGG19-BN, the arcface and nested heads on TResNet-M and
 the ViT, the trainer's profiler window, `--debug_nans`,
 `cli/verify_import.py`, the scaling levers, and the model options
 (`--remat` on ViT-B/16 and ResNet-50, the MoE ViT-B/16, `--dropout`,
-`--ln_bf16`) — on one NVIDIA GPU.
+`--ln_bf16`), and serving through a CUDA graph per bucket with the hot
+swap into the captured weights, the AOT sidecar, `--strict_compile`,
+`--serve_devices` and a JAX-format msgpack checkpoint — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -426,7 +428,30 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    (d) `--dropout 0.1 --remat` against `--dropout 0.1` over two steps of
    ViT-B/16 (512 px, batch 8, flash), bitwise; (e) `--ln_bf16` eval
    logits bitwise those without it; (f) every rejection of the options
-   exits rc 2.
+   exits rc 2;
+34. (run before the summary line) serving's remaining surface, every
+   launch count set to 0 just before each main-path leg — (a) TResNet-M
+   (224 px, 2173 classes, bf16, uint8 wire, buckets 1/2/4/8) through
+   `build_engine` and `warmup()`: one eager pass and one CUDA graph
+   capture a bucket (checked: 4 captures, 0 builds), then 2 batches of
+   every bucket as replays (K1 36 × (4 eager + 8 replays), checked), each
+   replay's top-k against the eager predict on the same images (bitwise,
+   or within one bf16 ulp of the largest score, reported), and per bucket
+   the wall (CUDA events, median of 20) and device ms (torch.profiler) of
+   the eager forward and of copy-in + replay, with the busy share of
+   each; the same for ViT-B/16 at 512 px with the flash forward at bucket
+   8 (K2 12 a forward); (b) a second set of weights swapped in at a batch
+   boundary: copied into the captured tensors, no capture recorded, the
+   answers the new weights' eager predict; (c) the AOT sidecar: a cold
+   boot (a process with an empty build dir) banks the kernel libraries,
+   a warm boot (another, nvcc hidden) loads them, builds nothing, sets
+   `aot_hit` and answers as the cold one; both timed to the first
+   answer; (d) a dropped graph recaptured in steady state: counted in
+   `recompiles`, and rc 2 from `cli/serve.py --strict_compile`; (e)
+   `--serve_devices 1` answers as 0, beyond the cards is rc 2; (f) a
+   ResNet-50 train state written as the JAX package writes it (flax's
+   msgpack, with its sidecar) served through `--ckpt`: top-5 bitwise the
+   same weights' `.pt`.
 
 Numerics on the card: `torch.backends.cudnn.allow_tf32 = False` and
 `torch.backends.cuda.matmul.allow_tf32 = False` (f32 convolutions and
@@ -440,6 +465,7 @@ Details land in `chiprun_out/chip_smoke.json`.
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import os
 import shutil
@@ -2895,6 +2921,7 @@ def serve_http_phase(torch, device, serve_cli, checkpoint, counters, root,
             HTTP_ARGV + ["--ckpt", e1, "--queue_depth", str(HTTP_BURST_QUEUE)]))
         engine2 = ServingEngine.from_config(bcfg, new_model, predict, device,
                                             metrics=ServeMetrics())
+        engine2.warmup()  # its graphs, before the batcher runs
         shedder = AdmissionController(engine2, tenants="a:3,b:1",
                                       deadline_ms=1.0, rate_fn=lambda: 1.0)
         servers = [http_mod.start_server(engine2, 0),
@@ -2935,7 +2962,8 @@ def serve_http_phase(torch, device, serve_cli, checkpoint, counters, root,
 
         # the launches of (a)-(e): K1 36 a forward, nothing else
         forwards = (len(engine.buckets) + metrics.batches
-                    + engine2.metrics.batches + direct_forwards)
+                    + len(engine2.buckets) + engine2.metrics.batches
+                    + direct_forwards)
         launches = {kd: f.launches for kd, f in counters.items()}
         want = dict.fromkeys(counters, 0) | {"k1": ABN_SITES * forwards}
         check(launches == want, f"HTTP path launches {launches}, expected "
@@ -4497,6 +4525,428 @@ def slice17_phase(torch, device, train_cli, counters, card) -> dict:
     return rec
 
 
+# ------------------------------------------------------------- phase 34 --
+def flax_train_state(sd, convert) -> dict:
+    """The tree the JAX package's trainer writes (flax's `to_state_dict`
+    of its TrainState: step, params, batch_stats, opt_state) for a port
+    model's f32 `state_dict`: each parameter at its flax path
+    (`models/convert.py::flax_path`) in flax's layout (conv OIHW → HWIO,
+    Linear (O, I) → (I, O)), each BN's running statistics under
+    `batch_stats` as `mean` / `var`, and SGD momentum's zero trace."""
+    params, stats = {}, {}
+    for name, t in sd.items():
+        stem, leaf = name.rsplit(".", 1)
+        a = t.detach().cpu().numpy()
+        if leaf in ("running_mean", "running_var"):
+            tree = stats
+            path = convert.flax_path(f"{stem}.weight").rsplit("/", 1)[0] + (
+                "/mean" if leaf == "running_mean" else "/var")
+        else:
+            tree, path = params, convert.flax_path(name)
+            if a.ndim == 4:
+                a = a.transpose(2, 3, 1, 0)
+            elif a.ndim == 2:
+                a = a.T
+        *outer, last = path.split("/")
+        for key in outer:
+            tree = tree.setdefault(key, {})
+        tree[last] = np.ascontiguousarray(a)
+
+    def zeros(tree):
+        return {k: zeros(v) if isinstance(v, dict) else np.zeros_like(v)
+                for k, v in tree.items()}
+
+    return {"step": np.asarray(0, np.int32), "params": params,
+            "batch_stats": stats, "opt_state": {"0": {"trace": zeros(params)},
+                                                "1": {}}}
+
+
+GRAPH_ARGV = SERVE_ARGV  # TResNet-M, 224 px, 2173 classes, bf16, buckets 1-8
+GRAPH_BUCKETS = (1, 2, 4, 8)
+VIT_GRAPH_ARGV = ["8" if a == "1,2,4,8" else a for a in VIT_SERVE_ARGV]
+GRAPH_ROUNDS = 2  # replays of every bucket on the counted main path
+MSGPACK_ARGV = RESNET_SERVE_ARGV  # ResNet-50, 224 px, 2173 classes, bf16
+# a serve boot in a process of its own, timed from its first line to the
+# first answer: the kernel build directory and nvcc as the caller gives
+# them (argv: repo, build dir, the serve CLI's argv as JSON, "1" to hide
+# nvcc — the toolkit's default install included)
+BOOT_CHILD = r"""
+import json, os, sys, time
+t0 = time.perf_counter()
+repo, build_dir, argv, hide = sys.argv[1], sys.argv[2], json.loads(sys.argv[3]), sys.argv[4]
+sys.path.insert(0, repo)
+from ddp_classification_pytorch_tpu_torch.ops import _build
+_build.BUILD_DIR = build_dir
+if hide == "1":
+    _build.DEFAULT_CUDA_HOME = os.path.join(build_dir, "no-cuda-toolkit")
+    try:
+        _build.find_nvcc()
+        sys.exit("nvcc is still found")
+    except _build.BuildError:
+        pass
+import numpy as np
+import torch
+from ddp_classification_pytorch_tpu_torch.cli import serve as serve_cli
+cfg = serve_cli.config_from_args(serve_cli.build_parser().parse_args(argv))
+engine = serve_cli.build_engine(cfg, torch.device("cuda"))
+engine.warmup()
+h = cfg.data.image_size
+img = np.random.default_rng(0).integers(0, 256, (h, h, 3)).astype(np.uint8)
+future = engine.submit(img)
+engine.process_once()
+pred = future.result(timeout=120)
+first = time.perf_counter() - t0
+banner = serve_cli.warm_banner(engine)
+engine.drain()
+print(json.dumps({"first_answer_s": first, "boot": engine.boot,
+                  "aot_hit": engine.aot_hit, "banner": banner,
+                  "built": sorted(os.listdir(build_dir)),
+                  "indices": pred.indices.tolist(),
+                  "scores": pred.scores.tolist()}))
+"""
+
+
+def _zero(counters) -> None:
+    for f in counters.values():
+        f.launches = 0
+
+
+def _serve_batch(engine, imgs):
+    """One batch of len(imgs) requests through `process_once` (no
+    batcher thread): one padded bucket, one replay."""
+    futures = [engine.submit(im) for im in imgs]
+    check(engine.process_once() == len(imgs), "a batch was split")
+    return [f.result(timeout=120) for f in futures]
+
+
+def _stack(preds):
+    return (np.stack([p.scores for p in preds]),
+            np.stack([p.indices for p in preds]))
+
+
+def _agree(scores, indices, ref_scores, ref_indices, what: str) -> dict:
+    """Replay against eager: bitwise, or within one bf16 ulp of the
+    largest score where a library picked another algorithm under capture
+    (then reported)."""
+    bitwise = (np.array_equal(scores, ref_scores)
+               and np.array_equal(indices, ref_indices))
+    diff = float(np.abs(scores - ref_scores).max())
+    ulp = float(2.0 ** (np.floor(np.log2(float(ref_scores.max()))) - 7))
+    check(bitwise or diff <= ulp, f"{what}: scores {diff} apart, more than "
+          f"one bf16 ulp ({ulp}) of the largest score")
+    return {"bitwise": bitwise, "max_score_diff": diff, "ulp_bound": ulp,
+            "indices_equal": bool(np.array_equal(indices, ref_indices))}
+
+
+def graph_leg(torch, device, serve_cli, counters, argv, kind, per_forward,
+              tag, card, flash=False):
+    """Phase 34 (a) for one model: the engine's warmup (one eager pass and
+    one capture per bucket), GRAPH_ROUNDS batches of every bucket as
+    replays (every counter 0 just before, read just after: `kind`
+    `per_forward` a forward that ran, the others 0), each replay against
+    the eager predict on the same images, then the wall (CUDA events,
+    median of REPS) and device ms (torch.profiler) of the eager forward and
+    of copy-in + replay, from a device-resident input. Returns (record,
+    engine, cfg, the images, the answers)."""
+    cfg = serve_cli.config_from_args(serve_cli.build_parser().parse_args(argv))
+    cfg.model.flash_attention = flash
+    _zero(counters)
+    t0 = time.perf_counter()
+    engine = serve_cli.build_engine(cfg, device)
+    engine.warmup()
+    warm_s = time.perf_counter() - t0
+    buckets = engine.buckets
+    check(engine.graph_mode and engine.boot["captures"] == len(buckets)
+          and sorted(engine._graphs) == [(0, b) for b in buckets],
+          f"{tag}: warmup captured {engine.boot['captures']} graphs for "
+          f"buckets {list(buckets)}")
+    check(engine.boot["builds"] == 0, f"{tag}: warmup built "
+          f"{engine.boot['builds']} libraries (phase 2 built them all)")
+    h = cfg.data.image_size
+    rng = np.random.default_rng(34)
+    imgs = {b: rng.integers(0, 256, (b, h, h, 3)).astype(np.uint8)
+            for b in buckets}
+    answers = {}
+    for _ in range(GRAPH_ROUNDS):
+        for b in buckets:
+            answers[b] = _serve_batch(engine, imgs[b])
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    replays = GRAPH_ROUNDS * len(buckets)
+    want = dict.fromkeys(counters, 0) | {
+        kind: per_forward * (len(buckets) + replays)}
+    check(launches == want, f"{tag}: launches {launches}, expected {want} "
+          f"({len(buckets)} eager warmup forwards + {replays} replays)")
+    predict, model = engine._predict, engine._state
+    xs = {b: torch.from_numpy(imgs[b]).to(device) for b in buckets}
+    rows = {}
+    for b in buckets:
+        ep, ei = predict(model, xs[b])
+        rows[b] = _agree(*_stack(answers[b]), ep.cpu().numpy(),
+                         ei.cpu().numpy(), f"{tag} bucket {b}")
+
+    def replay(b):
+        g = engine._graphs[(0, b)]
+        g.static_in.copy_(xs[b])
+        g.graph.replay()
+
+    for b in buckets:
+        rows[b]["eager_wall_ms"] = wall_ms(torch, lambda b=b: predict(model, xs[b]))
+        rows[b]["graph_wall_ms"] = wall_ms(torch, lambda b=b: replay(b))
+    with DeviceTimer(torch) as timer:
+        for b in buckets:
+            timer.run(f"eager {b}", lambda b=b: predict(model, xs[b]), reps=10)
+            timer.run(f"graph {b}", lambda b=b: replay(b), reps=10)
+    res = timer.results()
+    part = "fused_abn" if kind == "k1" else "flash_fwd_kernel"
+    for b in buckets:
+        r = rows[b]
+        r["eager_device_ms"], r["graph_device_ms"] = (res[f"eager {b}"][0],
+                                                      res[f"graph {b}"][0])
+        r["eager_busy"] = r["eager_device_ms"] / r["eager_wall_ms"]
+        r["graph_busy"] = r["graph_device_ms"] / r["graph_wall_ms"]
+        r["graph_seen_by_profiler"] = res[f"graph {b}"][1] is not None
+        if r["graph_seen_by_profiler"]:
+            _, n = timer.kernel_ms(f"graph {b}", part)
+            r[f"{kind}_per_replay_seen"] = n
+            check(n == per_forward, f"{tag} bucket {b}: {n} {part} kernels "
+                  f"a replay, expected {per_forward}")
+        log(f"[graph] {card}: {tag} bucket {b}: {json.dumps(r)}")
+    rec = {"argv": argv, "flash_attention": flash, "warmup_s": warm_s,
+           "boot": engine.boot, "launches": launches, "replays": replays,
+           "buckets": rows, "profiler": timer.record()}
+    return rec, engine, cfg, imgs, answers
+
+
+def hot_swap_leg(torch, device, engine, cfg, imgs, card) -> dict:
+    """Phase 34 (b): a second set of weights swapped in at a batch
+    boundary: copied into the captured model's tensors (the served object
+    stays), no capture recorded, the answers the new weights' eager
+    predict."""
+    from ddp_classification_pytorch_tpu_torch.train.state import (
+        create_served_model,
+    )
+
+    new = create_served_model(cfg, device)
+    randomize_(torch, new, seed=2)
+    served, total = engine._state, engine.compile_sentinel.total
+    b = engine.buckets[-1]
+    t0 = time.perf_counter()
+    engine.swap_state(new, digest="swap", generation=1)
+    got = _serve_batch(engine, imgs[b])
+    swap_s = time.perf_counter() - t0
+    check(all(p.digest == "swap" and p.generation == 1 for p in got),
+          "the swapped batch does not carry the new provenance")
+    check(engine._state is served and engine.compile_sentinel.total == total
+          and engine.metrics.recompiles == 0,
+          f"the swap rebound the model or recorded "
+          f"{engine.compile_sentinel.total - total} events")
+    ep, ei = engine._predict(new, torch.from_numpy(imgs[b]).to(device))
+    rec = _agree(*_stack(got), ep.cpu().numpy(), ei.cpu().numpy(),
+                 "hot swap") | {"bucket": b, "swap_and_batch_s": swap_s,
+                                "captures_recorded": 0}
+    log(f"[graph] {card}: (b) hot swap at a batch boundary: {json.dumps(rec)}")
+    del new
+    return rec
+
+
+def strict_leg(serve_cli, engine, imgs, card) -> dict:
+    """Phase 34 (d): a dropped graph (the engine's test hook) recaptured in
+    steady state: counted in `recompiles` without --strict_compile; rc 2
+    from cli/serve.py with it (the hook dropping every graph right after
+    warmup, the selfcheck's batch then capturing)."""
+    from ddp_classification_pytorch_tpu_torch.serve.engine import ServingEngine
+
+    b = engine.buckets[-1]
+    engine.drop_graph(b)
+    got = _serve_batch(engine, imgs[b])
+    check(engine.metrics.recompiles == 1 and engine.fatal_error is None
+          and len(got) == b, f"a steady-state capture without "
+          f"--strict_compile: recompiles {engine.metrics.recompiles}")
+    warmup = ServingEngine.warmup
+
+    def dropping(self):
+        warmup(self)
+        for bucket in self.buckets:
+            self.drop_graph(bucket)
+
+    ServingEngine.warmup = dropping
+    try:
+        rc = 0
+        try:
+            # one batch of all 8: the batcher waits for company
+            serve_cli.main(GRAPH_ARGV[:GRAPH_ARGV.index("--selfcheck")]
+                           + ["--selfcheck", "8", "--device", "cuda",
+                              "--batch_timeout_ms", "2000",
+                              "--strict_compile"])
+        except SystemExit as e:
+            rc = e.code
+    finally:
+        ServingEngine.warmup = warmup
+    check(rc == 2, f"--strict_compile over a steady-state capture: rc {rc}")
+    rec = {"recompiles_without_flag": 1, "rc_with_flag": rc}
+    log(f"[graph] {card}: (d) steady-state capture: {json.dumps(rec)}")
+    return rec
+
+
+def serve_devices_leg(torch, device, serve_cli, imgs, answers, card) -> dict:
+    """Phase 34 (e): --serve_devices 1 answers as the default 0 (every
+    card: one here) did; more than the cards is rc 2."""
+    argv = GRAPH_ARGV + ["--serve_devices", "1"]
+    cfg = serve_cli.config_from_args(serve_cli.build_parser().parse_args(argv))
+    engine = serve_cli.build_engine(cfg, device)
+    engine.warmup()
+    b = engine.buckets[-1]
+    got = _serve_batch(engine, imgs[b])
+    engine.drain()
+    same = _agree(*_stack(got), *_stack(answers[b]), "--serve_devices 1 vs 0")
+    check(same["bitwise"], "--serve_devices 1 and 0 answer differently")
+    rc = 0
+    try:
+        serve_cli.main(argv[:-1] + [str(torch.cuda.device_count() + 1)])
+    except SystemExit as e:
+        rc = e.code
+    check(rc == 2, f"--serve_devices beyond the cards: rc {rc}")
+    rec = {"serve_devices_1_equals_0": True, "dp": engine.dp,
+           "rc_beyond": rc}
+    log(f"[graph] {card}: (e) serve devices: {json.dumps(rec)}")
+    return rec
+
+
+def aot_leg(card) -> dict:
+    """Phase 34 (c): a cold boot (an empty build dir, nvcc there) banks the
+    kernel libraries into --aot_cache; a warm boot (another empty build
+    dir, nvcc hidden) loads them, builds nothing, sets aot_hit, captures
+    its graphs and answers as the cold one did. Each boot is a process of
+    its own, timed to its first answer."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_aot_")
+    side = os.path.join(root, "aot")
+    argv = GRAPH_ARGV + ["--aot_cache", side]
+    plain = os.environ.copy()
+    hidden = {k: v for k, v in plain.items()
+              if k not in ("CUDA_HOME", "CUDA_PATH")}
+    hidden["PATH"] = os.pathsep.join(
+        p for p in plain.get("PATH", "").split(os.pathsep)
+        if "cuda" not in p.lower())
+    boots = {}
+    try:
+        for name, env, hide in (("cold", plain, "0"), ("warm", hidden, "1")):
+            build_dir = os.path.join(root, f"build_{name}")
+            os.makedirs(build_dir)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", BOOT_CHILD, REPO, build_dir,
+                 json.dumps(argv), hide], env=env, cwd=root,
+                capture_output=True, text=True, timeout=900)
+            check(proc.returncode == 0, f"{name} boot rc {proc.returncode}: "
+                  f"{proc.stderr[-3000:]}")
+            boots[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+            boots[name]["process_s"] = time.perf_counter() - t0
+            log(f"[aot] {card}: {name} boot: {boots[name]['banner']}; first "
+                f"answer {boots[name]['first_answer_s']:.2f} s after the "
+                f"process's first line ({boots[name]['process_s']:.2f} s of "
+                f"process)")
+        cold, warm = boots["cold"], boots["warm"]
+        banked = sorted(f for f in os.listdir(side) if f.endswith(".so"))
+        check(cold["boot"]["builds"] >= 1 and not cold["aot_hit"] and banked,
+              f"cold boot: {cold['boot']}, banked {banked}")
+        check(warm["aot_hit"] and warm["boot"]["builds"] == 0
+              and warm["boot"]["captures"] == len(GRAPH_BUCKETS)
+              and "from the AOT sidecar, 0 builds" in warm["banner"],
+              f"warm boot: {warm['boot']} {warm['banner']}")
+        check(warm["indices"] == cold["indices"]
+              and warm["scores"] == cold["scores"],
+              "warm and cold boots answer differently")
+        rec = {"banked": banked, "cold": cold, "warm": warm}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
+def msgpack_leg(torch, device, serve_cli, card) -> dict:
+    """Phase 34 (f): a ResNet-50 train state as the JAX package's trainer
+    writes it (`flax_train_state`, `train/flax_msgpack.py::packb`: flax's
+    bytes, with its sha256 sidecar) and the same f32 weights as the
+    port's `.pt`, each served through cli/serve.py's `--ckpt`: the same
+    top-k, bitwise."""
+    from ddp_classification_pytorch_tpu_torch.models import convert
+    from ddp_classification_pytorch_tpu_torch.train import (
+        checkpoint,
+        flax_msgpack,
+    )
+    from ddp_classification_pytorch_tpu_torch.train.state import (
+        create_served_model,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_msgpack_")
+    try:
+        cfg32 = serve_cli.config_from_args(serve_cli.build_parser().parse_args(
+            MSGPACK_ARGV + ["--dtype", "float32"]))
+        model = create_served_model(cfg32, torch.device("cpu"))
+        randomize_(torch, model, seed=3)
+        sd = model.state_dict()
+        data = flax_msgpack.packb(flax_train_state(sd, convert))
+        paths = {"msgpack": os.path.join(root, "ckpt_e0.msgpack"),
+                 "pt": os.path.join(root, "ckpt_e0.pt")}
+        with open(paths["msgpack"], "wb") as f:
+            f.write(data)
+        with open(checkpoint.checksum_path(paths["msgpack"]), "w") as f:
+            f.write(hashlib.sha256(data).hexdigest() + "\n")
+        checkpoint.save(sd, paths["pt"])
+        h = cfg32.data.image_size
+        imgs = np.random.default_rng(35).integers(0, 256, (8, h, h, 3)).astype(
+            np.uint8)
+        served = {}
+        for kind, path in paths.items():
+            cfg = serve_cli.config_from_args(serve_cli.build_parser().parse_args(
+                MSGPACK_ARGV + ["--ckpt", path, "--aot_cache", "off"]))
+            engine = serve_cli.build_engine(cfg, device)
+            engine.warmup()
+            served[kind] = _stack(_serve_batch(engine, imgs))
+            engine.drain()
+        same = _agree(*served["msgpack"], *served["pt"], ".msgpack vs .pt")
+        check(same["bitwise"], ".msgpack and .pt serve different top-k")
+        rec = {"bytes": len(data), "top5_equal_pt": True,
+               "top1": served["msgpack"][1][:, 0].tolist()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[msgpack] {card}: (f) a JAX-format ResNet-50 train state "
+        f"({rec['bytes']} bytes) served through --ckpt: top-5 bitwise the "
+        f".pt's")
+    return rec
+
+
+def slice18_phase(torch, device, serve_cli, counters, card) -> dict:
+    """Phase 34 (a)-(f); (a) is the main path of
+    `serve_graph_path_launches` (K1 36 a TResNet-M forward, K2 12 a ViT
+    forward, the others 0)."""
+    t0 = time.perf_counter()
+    tres, engine, cfg, imgs, answers = graph_leg(
+        torch, device, serve_cli, counters, GRAPH_ARGV, "k1", ABN_SITES,
+        "TResNet-M", card)
+    rec = {"tresnet": tres}
+    rec["hot_swap"] = hot_swap_leg(torch, device, engine, cfg, imgs, card)
+    rec["strict"] = strict_leg(serve_cli, engine, imgs, card)
+    engine.drain()
+    del engine
+    rec["serve_devices"] = serve_devices_leg(torch, device, serve_cli, imgs,
+                                             answers, card)
+    vit, engine, *_ = graph_leg(torch, device, serve_cli, counters,
+                                VIT_GRAPH_ARGV, "fwd", VIT_BLOCKS, "ViT-B/16",
+                                card, flash=True)
+    engine.drain()
+    del engine
+    rec["vit"] = vit
+    rec["launches"] = {k: tres["launches"][k] + vit["launches"][k]
+                       for k in counters}
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["aot"] = aot_leg(card)
+    rec["msgpack"] = msgpack_leg(torch, device, serve_cli, card)
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -5249,6 +5699,13 @@ def main() -> int:
     log(f"[slice17] phase 33 took {options['phase_s']:.1f} s ({card})")
     report["slice17"] = options
 
+    # ---------------------------------- 34. serving's remaining surface --
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving18 = slice18_phase(torch, device, serve_cli, counters, card)
+    log(f"[slice18] phase 34 took {serving18['phase_s']:.1f} s ({card})")
+    report["slice18"] = serving18
+
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as f:
@@ -5271,7 +5728,8 @@ def main() -> int:
                 levers["tresnet_accum"]["launches"][kind],
             "vit_remat_step_launches":
                 options["vit_remat"]["remat"]["launches"][kind],
-            "vit_moe_path_launches": options["moe"]["launches"][kind]}
+            "vit_moe_path_launches": options["moe"]["launches"][kind],
+            "serve_graph_path_launches": serving18["launches"][kind]}
 
     log(json.dumps({"kernels": [{
         "name": "fused_bn_leaky_relu",

@@ -52,10 +52,29 @@ The train → publish → watch → serve loop, as with the JAX CLI:
   the run appends `serve_ready`, `verify_ok`, `swap`, `drain_begin` and
   `drain_end` (`obs/events.py`).
 
-Not ported yet (ROADMAP.md): `--serve_devices` (one card per process),
-the AOT sidecar and `--strict_compile` (eager PyTorch compiles nothing per
-bucket; a CUDA graph per bucket is the counterpart), `--platform`; the
-parser does not know these flags (rc 2).
+On a card the engine captures one CUDA graph per bucket at warmup and
+serves every batch as a replay (`serve/engine.py`), under the JAX CLI's
+compile-discipline flags:
+
+    python -m ddp_classification_pytorch_tpu_torch.cli.serve baseline \
+        --model tresnet_m --ckpt runs/t/ckpt_e3.pt --aot_cache auto \
+        --strict_compile --serve_devices 1 --platform gpu
+
+- `--strict_compile`: a steady-state capture or kernel build after
+  warmup is fatal, **rc 2** (counted in `recompiles` otherwise);
+- `--aot_cache auto|off|<dir>`: the AOT sidecar (`serve/aot.py`), by
+  default `<checkpoint dir>/aot` (or `<watch dir>/aot`; off for a
+  weightless selfcheck): a cold boot banks the kernel libraries it built,
+  a joining replica loads them and builds nothing (its banner says so);
+- `--serve_devices N`: serve data-parallel over the first N visible
+  cards (0, the default, = all); buckets must divide by N, more cards
+  than exist is rc 2;
+- `--platform cpu|gpu|cuda` beside `--device` (the JAX CLI's spelling:
+  `cpu` is `--device cpu`, `gpu`/`cuda` the card); `tpu`, or a pair that
+  disagrees, is rc 2;
+- `--ckpt <file>.msgpack` serves a checkpoint the JAX package's trainer
+  wrote (`train/checkpoint.py::load_jax_checkpoint`, its sidecar
+  verified) under every head and arch the port serves.
 """
 
 from __future__ import annotations
@@ -71,6 +90,7 @@ import numpy as np
 import torch
 
 from ..config import Config, get_preset
+from ..utils.backend_probe import PLATFORMS
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -127,6 +147,23 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--selfcheck", type=int, default=0,
                    help="serve N seeded requests through the full engine "
                         "path, print metrics, drain, exit 0 (smoke mode)")
+    s.add_argument("--serve_devices", "--serve-devices", dest="serve_devices",
+                   type=int, default=-1,
+                   help="cards the engine serves over, data-parallel (0 = "
+                        "all visible, the default): padded bucket batches "
+                        "split over them; buckets must divide evenly (rc 2 "
+                        "otherwise)")
+    s.add_argument("--aot_cache", "--aot-cache", dest="aot_cache", default="",
+                   help="AOT sidecar: 'auto' (default) banks the kernel "
+                        "libraries in <ckpt dir>/aot so the next replica "
+                        "boots without building them, 'off' disables, else "
+                        "an explicit sidecar dir")
+    s.add_argument("--strict_compile", action="store_true",
+                   help="make a steady-state capture or kernel build fatal "
+                        "(rc 2): warmup captures exactly one graph per "
+                        "bucket and serve device and arms a compile "
+                        "sentinel; default logs + counts it in metrics "
+                        "(analysis/compile_sentinel.py)")
     s.add_argument("--fleet_dir", "--fleet-dir", dest="fleet_dir", default="",
                    help="shared fleet run dir: replicas heartbeat via "
                         "<dir>/serve_fleet/lease.r<id> and serialize hot "
@@ -165,6 +202,10 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--device", default="", choices=["", "cuda", "cpu"],
                    help="default cuda; cpu only when asked (rc 3 when cuda "
                         "is missing and cpu was not asked for)")
+    r.add_argument("--platform", default="", choices=list(PLATFORMS),
+                   help="the JAX CLI's spelling of --device: cpu, gpu or "
+                        "cuda (tpu, or a value that disagrees with "
+                        "--device, is rc 2)")
     return p
 
 
@@ -220,7 +261,15 @@ def config_from_args(args: argparse.Namespace) -> Config:
         sv.admission_deadline_ms = args.admission_deadline_ms
     if args.admission_tenants:
         sv.admission_tenants = args.admission_tenants
+    if args.strict_compile:
+        sv.strict_compile = True
+    if args.serve_devices >= 0:
+        sv.serve_devices = args.serve_devices
+    if args.aot_cache:
+        sv.aot_cache = args.aot_cache
 
+    # the divisibility by the serve devices' count is checked again in
+    # build_engine, once they are known; this catches the rest first
     sv.resolve_buckets()  # raises ValueError on bad knob combinations
     sv.validate_fleet()  # fleet/admission knobs are config-shaped too
     if sv.topk > cfg.data.num_classes:
@@ -248,23 +297,56 @@ def served_model_builder(cfg: Config, device: torch.device):
     return lambda state_dict: create_served_model(cfg, device, state_dict)
 
 
+def _resolve_aot_dir(cfg: Config) -> str:
+    """Where the AOT sidecar lives ("" = disabled), as the JAX CLI
+    resolves it. 'auto' puts it next to the weights — the one location
+    every replica of a deployment shares — and disables itself for a
+    weightless selfcheck (fresh weights have no durable identity worth
+    keying a cache on)."""
+    mode = cfg.serve.aot_cache
+    if mode == "off":
+        return ""
+    if mode and mode != "auto":
+        return mode
+    if cfg.serve.checkpoint:
+        base = os.path.dirname(os.path.abspath(cfg.serve.checkpoint)) or "."
+        return os.path.join(base, "aot")
+    if cfg.serve.watch_dir:
+        return os.path.join(cfg.serve.watch_dir, "aot")
+    return ""
+
+
+def load_served_weights(path: str):
+    """The served model's weights from `path`: a JAX package checkpoint
+    (`*.msgpack`) or the port's own (a trainer's train state, or bare
+    weights); both verified against their sidecars (ValueError)."""
+    from ..train import checkpoint
+
+    if path.endswith(".msgpack"):
+        return checkpoint.load_jax_checkpoint(path)
+    return checkpoint.model_state(checkpoint.restore(path))
+
+
 def build_engine(cfg: Config, device: torch.device):
     """Model (fresh from `run.seed`, or the verified `serve.checkpoint`) →
-    predict → engine, with the val transform of the data preset for
-    `submit_image`. Raises ValueError for everything config-shaped."""
+    predict → engine over `serve.serve_devices` devices of `device`'s
+    kind, with the val transform of the data preset for `submit_image`
+    and the AOT sidecar `_resolve_aot_dir` names. Raises ValueError for
+    everything config-shaped."""
+    from ..parallel.mesh import serve_devices
     from ..serve.engine import ServingEngine
     from ..serve.metrics import ServeMetrics
-    from ..train import checkpoint
     from ..train.steps import make_topk_predict_step
 
-    state_dict = None
-    if cfg.serve.checkpoint:  # a trainer's train state, or bare weights
-        state_dict = checkpoint.model_state(
-            checkpoint.restore(cfg.serve.checkpoint))
-    model = served_model_builder(cfg, device)(state_dict)
+    devices = serve_devices(cfg.serve.serve_devices, device)
+    cfg.serve.resolve_buckets(len(devices))  # serve-bucket-dp-indivisible
+    state_dict = (load_served_weights(cfg.serve.checkpoint)
+                  if cfg.serve.checkpoint else None)
+    model = served_model_builder(cfg, devices[0])(state_dict)
     predict = make_topk_predict_step(cfg, cfg.serve.topk)
-    return ServingEngine.from_config(cfg, model, predict, device,
-                                     metrics=ServeMetrics())
+    return ServingEngine.from_config(cfg, model, predict, devices[0],
+                                     metrics=ServeMetrics(), devices=devices,
+                                     aot_dir=_resolve_aot_dir(cfg))
 
 
 def run_selfcheck(engine, cfg: Config, n: int) -> List:
@@ -383,6 +465,29 @@ class Serving:
         emit("drain_end")
 
 
+def warm_banner(engine) -> str:
+    """What `warmup()` did, one line: the graphs it captured and where the
+    kernel libraries came from."""
+    boot = engine.boot
+    graphs = (f"{boot['captures']} graphs captured" if engine.graph_mode
+              else "eager on the CPU, no graphs")
+    if engine.aot_hit:
+        return (f"[serve] warm boot: kernel libraries from the AOT sidecar, "
+                f"0 builds; {graphs} ({boot['warmup_s']:.2f} s)")
+    return (f"[serve] cold boot: {boot['builds']} kernel library builds; "
+            f"{graphs}" + (" (libraries banked to the AOT sidecar)"
+                           if engine.aot_dir else "")
+            + f" ({boot['warmup_s']:.2f} s)")
+
+
+def _exit_if_fatal(engine) -> None:
+    """rc 2 when strict_compile tripped: deterministic (the same traffic
+    replays the same capture), so supervisors must not restart it."""
+    if engine.fatal_error is not None:
+        print(f"[serve] {engine.fatal_error}", file=sys.stderr)
+        raise SystemExit(2)
+
+
 def _install_signal_handlers(stop: threading.Event):
     """SIGTERM/SIGINT → set the drain event (the serve loop does the actual
     drain: stop intake, flush queue, exit rc 0). Returns the previous
@@ -394,12 +499,14 @@ def _install_signal_handlers(stop: threading.Event):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    from ..utils.backend_probe import BackendUnavailable, resolve_device
+    from ..utils.backend_probe import (BackendUnavailable, requested_device,
+                                       resolve_device)
     from ..utils.logging import host0_print
 
     args = build_parser().parse_args(argv)
     try:
         cfg = config_from_args(args)
+        wanted = requested_device(args.device, args.platform)
     except ValueError as e:
         print(f"[serve] config error: {e}", file=sys.stderr)
         raise SystemExit(2) from None
@@ -413,7 +520,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                   file=sys.stderr)
             raise SystemExit(2)
     try:
-        device = resolve_device(args.device)
+        device = resolve_device(wanted)
     except BackendUnavailable as e:
         print(f"[serve] backend unreachable: {e}", file=sys.stderr)
         raise SystemExit(3) from None
@@ -433,9 +540,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 f"buckets={list(engine.buckets)} "
                 f"max_batch={cfg.serve.max_batch} "
                 f"timeout={cfg.serve.batch_timeout_ms}ms "
-                f"topk={cfg.serve.topk} device={device}")
+                f"topk={cfg.serve.topk} device={device} "
+                f"serve_devices={engine.serve_devices} dp={engine.dp} "
+                f"aot={engine.aot_dir or 'off'}")
     engine.warmup()
-    host0_print(f"[serve] warm: {len(engine.buckets)} buckets run once")
+    host0_print(warm_banner(engine))
 
     tb = None
     if cfg.run.tensorboard:
@@ -453,6 +562,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         if tb is not None:
             metrics.to_tensorboard(tb, 0)
             tb.close()
+        _exit_if_fatal(engine)
         host0_print(f"[serve] selfcheck ok: {args.selfcheck} requests, "
                     f"buckets used {sorted(engine.seen_buckets)}")
         return
@@ -462,6 +572,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     serving.start()
     step = 0
     while not stop.wait(cfg.serve.log_every_s):
+        if engine.fatal_error is not None:
+            break  # strict_compile tripped: intake already stopped
         host0_print(metrics.log_line(engine.queue_depth), flush=True)
         if tb is not None:
             metrics.to_tensorboard(tb, step)
@@ -472,6 +584,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if tb is not None:
         metrics.to_tensorboard(tb, step)
         tb.close()
+    _exit_if_fatal(engine)
     host0_print("[serve] drained clean")
 
 

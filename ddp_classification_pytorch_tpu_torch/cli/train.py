@@ -7,7 +7,8 @@ profiler window and `--debug_nans`; the scaling levers `--grad_accum`,
 `--zero_opt`, `--grad_reduce_dtype`, `--h2d-overlap` and async
 checkpoints; the model options `--remat`, `--dropout`, `--ln_bf16` and
 the ViT's mixture of experts `--moe_experts` / `--moe_top_k` /
-`--moe_aux_weight`), on the card.
+`--moe_aux_weight`; the compile sentinel's `--strict_compile` and the
+JAX spelling `--platform`), on the card.
 
     torchrun --nproc_per_node 4 -m ddp_classification_pytorch_tpu_torch.cli.train \
         baseline --dataset imagefolder --train_dir T --val_dir V \
@@ -89,6 +90,10 @@ Exit codes, as the JAX CLI's:
   `--moe_experts` on an arch other than a ViT, with `--dropout` above
   0, or not dividing 4·dim; `--moe_top_k` outside [1, experts]; a
   negative `--moe_aux_weight`;
+  `--platform tpu` (the port has no TPU route) or a `--platform` that
+  disagrees with `--device`; under `--strict_compile`, a kernel library
+  built after the compile sentinel armed (the top of the epoch after the
+  first evaluated one);
 - **rc 3**: no CUDA device and `--device cpu` not asked for (it never
   carries on on the CPU);
 - **rc 6**: the `--multihost` rendezvous never completed within its
@@ -114,6 +119,7 @@ import sys
 from typing import Optional, Sequence
 
 from ..config import Config, get_preset
+from ..utils.backend_probe import PLATFORMS
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -304,6 +310,16 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--device", default="", choices=["", "cuda", "cpu"],
                    help="default cuda; cpu only when asked (rc 3 when cuda "
                         "is missing and cpu was not asked for)")
+    r.add_argument("--platform", default="", choices=list(PLATFORMS),
+                   help="the JAX CLI's spelling of --device: cpu, gpu or "
+                        "cuda (tpu, or a value that disagrees with "
+                        "--device, is rc 2)")
+    r.add_argument("--strict_compile", action="store_true",
+                   help="make a steady-state kernel library build fatal "
+                        "(rc 2 at the epoch boundary): after the first "
+                        "evaluated epoch the compile sentinel treats any "
+                        "further build as a drift; default logs and counts "
+                        "it (analysis/compile_sentinel.py)")
     r.add_argument("--hang_timeout_s", type=float, default=0.0,
                    help="mid-run hang watchdog: exit 7 when no host-observed "
                         "progress lands for this many seconds, so "
@@ -522,6 +538,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
         cfg.run.profile_dir = args.profile_dir
     if args.debug_nans:
         cfg.run.debug_nans = True
+    if args.strict_compile:
+        cfg.run.strict_compile = True
     if cfg.data.batch_size < 1 or cfg.run.log_every < 1:
         raise ValueError("--batchsize and --log_every must be >= 1")
     from ..train.steps import check_scaling
@@ -535,12 +553,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from ..parallel.fleet import (FleetConfigError, PodAbort,
                                   PodInconsistent, PodReform, PodUnviable,
                                   RendezvousFailed, initialize_with_retry)
+    from ..analysis.compile_sentinel import SteadyStateRecompile
     from ..train.sentinel import SentinelDiverged
-    from ..utils.backend_probe import BackendUnavailable, resolve_device
+    from ..utils.backend_probe import (BackendUnavailable, requested_device,
+                                       resolve_device)
 
     args = build_parser().parse_args(argv)
     try:
         cfg = config_from_args(args)
+        wanted = requested_device(args.device, args.platform)
     except ValueError as e:
         print(f"[trainer] config error: {e}", file=sys.stderr)
         raise SystemExit(2) from None
@@ -550,7 +571,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
               "world and the card come from torchrun's variables "
               "(or --multihost's FLEET_*)")
     try:
-        device = resolve_device(args.device)
+        device = resolve_device(wanted)
     except BackendUnavailable as e:
         print(f"[trainer] backend unreachable: {e}", file=sys.stderr)
         raise SystemExit(3) from None
@@ -573,6 +594,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         # PodUnviable rc 10 and RendezvousFailed rc 6 are outage-shaped
         print(f"[trainer] {type(e).__name__}: {e}", file=sys.stderr)
         raise SystemExit(e.exit_code) from None
+    except SteadyStateRecompile as e:
+        # --strict_compile tripped: a kernel library built after the
+        # sentinel armed — deterministic (the same run replays it), so
+        # rc 2: supervisors must not restart it
+        print(f"[trainer] steady-state recompile: {e}", file=sys.stderr)
+        raise SystemExit(SteadyStateRecompile.exit_code) from None
     except SentinelDiverged as e:
         print(f"[trainer] diverged: {e}", file=sys.stderr)
         raise SystemExit(SentinelDiverged.exit_code) from None

@@ -213,6 +213,21 @@ class RunConfig:
     # the --debug_nans check (utils/debug_nans.py): raise at the first op
     # with a NaN output, as jax_debug_nans does
     debug_nans: bool = False
+    # the compile sentinel (analysis/compile_sentinel.py), armed at the top
+    # of the epoch after the first evaluated one: a kernel library build
+    # after that is logged and counted; True = rc 2 at the epoch boundary
+    # (a steady-state build replays on restart, so supervisors must not
+    # retry it)
+    strict_compile: bool = False
+
+
+def dp_round_up_buckets(buckets: Sequence[int], dp: int) -> tuple:
+    """Round each bucket UP to the next dp multiple and dedup (ascending):
+    at most len(buckets) padded shapes, each evenly split over dp serve
+    devices (the JAX package's `config.py::dp_round_up_buckets`)."""
+    if dp < 1:
+        raise ValueError(f"dp must be >= 1, got {dp}")
+    return tuple(sorted({((int(b) + dp - 1) // dp) * dp for b in buckets}))
 
 
 @dataclass
@@ -232,13 +247,29 @@ class ServeConfig:
     batch_timeout_ms: float = 5.0
     queue_depth: int = 64  # bounded intake; submits beyond it are rejected
     # padded batch shapes (ascending). () = powers of two up to max_batch.
+    # Each bucket is one CUDA graph per serve device; requests pad to the
+    # smallest bucket that fits the collected batch. Over more than one
+    # serve device every bucket must be divisible by their count (each
+    # padded batch splits evenly); auto-buckets round up.
     buckets: Sequence[int] = ()
+    # cards the engine serves over, data-parallel (0 = all visible): a
+    # padded bucket splits into equal row blocks, one a card
+    serve_devices: int = 0
+    # the AOT sidecar (serve/aot.py): "auto" = <checkpoint dir>/aot (or
+    # <watch dir>/aot), "off" = disable, else an explicit dir. A joining
+    # replica loads the banked kernel libraries instead of building them
+    aot_cache: str = "auto"
     topk: int = 5  # classes returned per request
     checkpoint: str = ""  # explicit checkpoint to serve (verified; rc 2 if corrupt)
     watch_dir: str = ""  # run dir to poll for checkpoint hot-reload
     reload_poll_s: float = 5.0  # hot-reload poll cadence
     port: int = 0  # >0: stdlib http front-end on this port (serve/http.py)
     log_every_s: float = 10.0  # metrics console line cadence
+    # the compile sentinel: warmup() arms it after its one capture per
+    # bucket and serve device; a steady-state capture or kernel build is
+    # counted + logged. True = the engine stops intake and cli.serve exits
+    # rc 2 (deterministic)
+    strict_compile: bool = False
     # --- serve-fleet control plane (serve/fleet.py) ---
     # shared fleet run dir ("" = fleet off, lone-replica mode). Replicas
     # sharing it heartbeat via $FLEET_DIR/serve_fleet/lease.r<id> and
@@ -270,10 +301,16 @@ class ServeConfig:
 
         parse_tenants(self.admission_tenants)
 
-    def resolve_buckets(self) -> tuple:
+    def resolve_buckets(self, dp: int = 1) -> tuple:
         """Validated ascending bucket tuple (ValueError = config-shaped, the
-        serve CLI maps it to rc 2). The port serves on one device: the JAX
-        package's data-parallel width is 1 here, so no bucket is rounded."""
+        serve CLI maps it to rc 2).
+
+        `dp` is the number of serve devices: every padded batch splits its
+        leading axis into dp equal row blocks, so each bucket must be a dp
+        multiple. Explicit buckets that violate this are rejected (the
+        operator asked for shapes that cannot run); auto-buckets round UP
+        to the next dp multiple — padding overhead, never a dropped
+        request (the JAX package's rule and error text)."""
         if self.max_batch < 1:
             raise ValueError(f"serve.max_batch must be >= 1, got {self.max_batch}")
         if self.batch_timeout_ms < 0:
@@ -283,14 +320,24 @@ class ServeConfig:
             raise ValueError(f"serve.queue_depth must be >= 1, got {self.queue_depth}")
         if self.topk < 1:
             raise ValueError(f"serve.topk must be >= 1, got {self.topk}")
+        if dp < 1:
+            raise ValueError(f"serve data-parallel width must be >= 1, got {dp}")
         if self.buckets:
             buckets = tuple(int(b) for b in self.buckets)
+            bad = [b for b in buckets if b % dp]
+            if bad:
+                raise ValueError(
+                    f"serve.buckets {bad} not divisible by the serve mesh's "
+                    f"data-parallel width dp={dp} — every padded batch shards "
+                    "its leading axis over 'data', so each bucket must be a "
+                    f"multiple of {dp} (error: serve-bucket-dp-indivisible)")
         else:
             buckets, b = [], 1
             while b < self.max_batch:
                 buckets.append(b)
                 b *= 2
-            buckets = tuple(buckets + [self.max_batch])
+            buckets.append(self.max_batch)
+            buckets = dp_round_up_buckets(buckets, dp)
         if any(b < 1 for b in buckets) or list(buckets) != sorted(set(buckets)):
             raise ValueError(
                 f"serve.buckets must be positive and strictly ascending, "

@@ -287,6 +287,30 @@ def nested_from_jax(params: Mapping[str, Any],
     return sd
 
 
+def from_jax_variables(params: Mapping[str, Any],
+                       batch_stats: Mapping[str, Any],
+                       vgg_cfg: Sequence[Any] = CFG_E
+                       ) -> Dict[str, torch.Tensor]:
+    """The JAX package's model variables under any head → the port's
+    served model's `state_dict`, the head read off the top-level names:
+    `margin` an `ArcFaceModel`, `classifier` a `NestedModel`, else a
+    `ClassifierModel` (its single `backbone` level). A tree that is none
+    of these is a ValueError."""
+    try:
+        if "margin" in params:
+            return arcface_from_jax(params, batch_stats, vgg_cfg)
+        if "classifier" in params:
+            return nested_from_jax(params, batch_stats, vgg_cfg)
+        if set(params) == {"backbone"}:
+            return _backbone(params, batch_stats, vgg_cfg)
+    except (KeyError, IndexError, TypeError) as e:
+        raise ValueError(f"flax variables of a ported model are missing "
+                         f"{e!r}") from None
+    raise ValueError(f"not the variables of a JAX ClassifierModel, "
+                     f"ArcFaceModel or NestedModel (top-level names: "
+                     f"{sorted(params)[:6]})")
+
+
 _LEAF = {"weight": "kernel", "bias": "bias"}
 _BN_LEAF = {"weight": "scale", "bias": "bias"}  # LayerNorm's leaves too
 

@@ -15,6 +15,10 @@ into place, so two processes building at once cannot hand each other a
 half-written file.
 nvcc's output (register and shared-memory use from `-Xptxas -v`) is kept in
 `<library>.log`. A missing `nvcc` or a failed build raises `BuildError`.
+Each library `build` compiles calls every function in `BUILD_LISTENERS`
+with `("build:<name>", <source hash>)` once it has landed: the compile
+sentinel (`analysis/compile_sentinel.py`) listens there, so a build after
+warmup is a steady-state event. A library found already built calls none.
 """
 
 from __future__ import annotations
@@ -24,13 +28,17 @@ import os
 import re
 import shutil
 import subprocess
-from typing import List, Sequence
+from typing import Callable, List, Sequence
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"  # the toolkit's default install
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+# called with (event name, signature) after each nvcc build that landed
+BUILD_LISTENERS: List[Callable[[str, str], None]] = []
 
 
 class BuildError(RuntimeError):
@@ -108,4 +116,6 @@ def build(name: str, sources: Sequence[str]) -> str:
         f.write(proc.stdout)
     os.replace(f"{tmp}.log", f"{out}.log")
     os.replace(tmp, out)
+    for listener in list(BUILD_LISTENERS):
+        listener(f"build:{name}", os.path.basename(out))
     return out

@@ -171,8 +171,9 @@ class ServeMetrics:
             self._reloads_rejected.inc()
 
     def record_recompile(self, n: int = 1) -> None:
-        """Steady-state compile(s) observed by the engine's sentinel — each
-        one stalled a micro-batch for a full XLA compile."""
+        """Steady-state build(s) observed by the engine's sentinel — a
+        CUDA graph capture or a kernel library build after warmup, each of
+        which stalled a micro-batch."""
         self._recompiles.inc(n)
 
     # ----------------------------------------------------------- snapshot --

@@ -21,8 +21,9 @@ the training stack — this module points them at the engine:
   the served arch at all (`build` raises ValueError), is REJECTED, not
   quarantined: the file is fine, it belongs to another deployment;
 - the swap is `ServingEngine.swap_state()`: the batcher adopts the new
-  model at a batch boundary, so no micro-batch mixes two checkpoints, and
-  drops the old one there. The swap carries the verified sha256 + epoch
+  model at a batch boundary, so no micro-batch mixes two checkpoints —
+  on a card by copying its weights into the tensors the bucket graphs
+  were captured with (no capture), on the CPU by replacing the model. The swap carries the verified sha256 + epoch
   so every answer (and /healthz) attests which weights served it.
 
 A failed reload is therefore invisible to clients: the engine keeps

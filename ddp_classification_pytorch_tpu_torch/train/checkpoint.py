@@ -54,9 +54,15 @@ through — the JAX package's `train/checkpoint.py` for one process
   so the sidecar no longer vouches for it; a torn publish emits
   `publish_torn` (JAX `checkpoint.py:170-178,278-296`).
 
-Reading the JAX package's flax msgpack checkpoints is not ported yet: the
-GPU machine has no `msgpack` (ROADMAP.md). `models/convert.py` carries
-weights across from flax trees already in memory.
+`load_jax_checkpoint` reads a checkpoint the JAX package's trainer wrote
+(`ckpt_eN.msgpack`: flax's `to_bytes` of its TrainState) with the port's
+own msgpack reader (`train/flax_msgpack.py`: the card's machine has no
+`msgpack`) and maps its `params` and `batch_stats` through
+`models/convert.py` into the served model's `state_dict`: what
+`cli/serve.py --ckpt <file>.msgpack` serves. Its `.sha256` sidecar is
+verified as the JAX manager verifies it (`checkpoint.py:204-249` there): a
+mismatch raises ValueError (rc 2), a missing sidecar is JAX's "legacy"
+file and is accepted.
 """
 
 from __future__ import annotations
@@ -193,16 +199,46 @@ def load_verified(path: str, mmap: bool = False) -> Optional[Dict[str, Any]]:
         return None
 
 
+def load_jax_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The served model's `state_dict` from a JAX package checkpoint (see
+    the module docstring). ValueError for a file that fails its sidecar,
+    is not the msgpack flax writes, or holds no ported model."""
+    from ..models.convert import from_jax_variables
+    from . import flax_msgpack
+
+    if not os.path.isfile(path):
+        raise ValueError(f"checkpoint {path} does not exist")
+    sidecar = checksum_path(path)
+    if os.path.isfile(sidecar):
+        with open(sidecar) as f:
+            expected = f.read().strip()
+        if not _DIGEST.fullmatch(expected) or _sha256_file(path) != expected:
+            raise ValueError(
+                f"checkpoint {path} does not match its sha256 sidecar "
+                f"({sidecar}) — corrupt or torn")
+    else:
+        host0_print(f"[ckpt] no sha256 sidecar for {path} (pre-checksum "
+                    "checkpoint); accepting")
+    with open(path, "rb") as f:
+        tree = flax_msgpack.unpackb(f.read())
+    if not isinstance(tree, dict) or not isinstance(tree.get("params"), dict):
+        raise ValueError(f"checkpoint {path} holds no flax `params` tree")
+    stats = tree.get("batch_stats")
+    return from_jax_variables(tree["params"],
+                              stats if isinstance(stats, dict) else {})
+
+
 def model_state(obj: Mapping[str, Any]) -> Mapping[str, torch.Tensor]:
     """The model's weights in a restored file: the `model` part of a train
     state, or the file itself when it holds bare weights."""
     return obj["model"] if "optimizer" in obj else obj
 
 
-def quarantine_file(path: str, reason: str) -> None:
+def quarantine_file(path: str, reason: str, kind: str = "checkpoint") -> None:
     """Rename a corrupt checkpoint (and its sidecar) to `*.corrupt`, so the
     next restart's scan does not fail on it again; kept on disk as
-    evidence."""
+    evidence. `kind` names the artifact in the log line: the serve AOT
+    sidecar (serve/aot.py) quarantines its manifest and payloads here."""
     dst = path + ".corrupt"
     try:
         os.replace(path, dst)
@@ -213,7 +249,7 @@ def quarantine_file(path: str, reason: str) -> None:
     emit("quarantine", path=path, reason=reason)
     if os.path.exists(checksum_path(path)):
         os.replace(checksum_path(path), dst + ".sha256")
-    host0_print(f"[ckpt] quarantined corrupt checkpoint {path} -> {dst} "
+    host0_print(f"[ckpt] quarantined corrupt {kind} {path} -> {dst} "
                 f"({reason})")
 
 

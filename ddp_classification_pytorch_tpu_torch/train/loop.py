@@ -54,7 +54,13 @@ thread beside the stager (`data/device_prefetch.py`).
 step (`train/steps.py`), the state (`train/state.py`) and the DDP
 wrapper (`parallel/ddp.py`).
 
-Not ported yet (ROADMAP.md): the compile sentinel.
+The compile sentinel (`analysis/compile_sentinel.py`) arms where the JAX
+trainer's does (`loop.py:535-548,583` there): at the top of the epoch
+after the first evaluated one, when every program of a steady epoch has
+run once. It is checked at each later epoch's top and after the last
+epoch; a kernel library build after arming is logged and counted, and
+under `run.strict_compile` (`--strict_compile`) raises
+`SteadyStateRecompile`, which the CLI exits rc 2 with.
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..analysis.compile_sentinel import CompileSentinel
 from ..config import Config
 from ..data import native
 from ..data.device_prefetch import DevicePrefetcher
@@ -265,6 +272,11 @@ class Trainer:
         if self.fleet is not None and world > 1:
             self._defer_sigterm_to_epoch_boundary()
         self.sentinel = StepSentinel(cfg.run.max_bad_steps, registry=self.obs)
+        # recompile guard: armed by run() at the top of the epoch after the
+        # first evaluated one, when every steady-state program has run
+        self.compile_sentinel = CompileSentinel(
+            tag=f"trainer[{cfg.workload}]", log=host0_print)
+        self._compile_sentinel_ready = False
         if train_ds is None:
             train_ds, val_ds = build_datasets(cfg)
         self.train_ds, self.val_ds = train_ds, val_ds
@@ -521,6 +533,7 @@ class Trainer:
                 host0_print("[initial eval] " + " ".join(
                     f"{k}={v:.4f}" for k, v in self.evaluate().items()))
             for epoch in range(self.start_epoch, cfg.run.epochs):
+                self._compile_boundary()
                 t0 = time.time()
                 train_m = self.train_epoch(epoch, eta)
                 if self.fleet is not None:
@@ -541,10 +554,26 @@ class Trainer:
                         self.tb.add_scalar(f"{group}/{k}", v, epoch)
                     self.tb.flush()
                 self.ckpt.save(self.state, epoch, metric=val_m.get("val_top1"))
+                if val_m:
+                    self._compile_sentinel_ready = True  # arm at next top
+            if self.compile_sentinel.armed:
+                # the last epoch's builds, before the release
+                self.compile_sentinel.check(strict=cfg.run.strict_compile)
             done = True
         finally:
+            self.compile_sentinel.disarm()
             self._teardown(done)
         return last
+
+    def _compile_boundary(self) -> None:
+        """The epoch top: check the sentinel (strict raises here, on every
+        rank alike), or arm it once an evaluated epoch has completed."""
+        if self.compile_sentinel.armed:
+            self.compile_sentinel.check(strict=self.cfg.run.strict_compile)
+        elif self._compile_sentinel_ready:
+            self.compile_sentinel.arm()
+            host0_print("[compile-sentinel] armed: steady state begins "
+                        f"(strict={self.cfg.run.strict_compile})")
 
     def _teardown(self, done: bool = False) -> None:
         """`run`'s way out, whatever it is: the checkpoint in flight landed

@@ -5,7 +5,8 @@ watchdog.
 (`device="cpu"`, `--device cpu`). With no card and no such request the entry
 point refuses with `BackendUnavailable`, which the CLI turns into rc 3 — the
 JAX serve CLI's "backend unreachable" code — instead of carrying on on the
-CPU.
+CPU. `requested_device` reads the JAX CLIs' spelling, `--platform`, beside
+`--device`.
 
 `StepHeartbeat` is the JAX package's (`utils/backend_probe.py:90-135`
 there): a daemon thread that exits the process with rc 7 when the trainer
@@ -23,6 +24,28 @@ import time
 
 class BackendUnavailable(RuntimeError):
     """The requested accelerator is not there."""
+
+
+# --platform's values: the JAX CLIs' names and the port's own
+PLATFORMS = ("", "cpu", "gpu", "cuda", "tpu")
+
+
+def requested_device(device: str = "", platform: str = "") -> str:
+    """The device `--device` and `--platform` ask for together: `cpu` is
+    the CPU, `gpu` and `cuda` the card. `tpu`, or a `--platform` that
+    disagrees with `--device`, is a ValueError (rc 2 in the CLIs)."""
+    if platform == "tpu":
+        raise ValueError("--platform tpu: the torch port has no TPU route; "
+                         "it runs on a CUDA card (--platform gpu) or the "
+                         "CPU (--platform cpu)")
+    if platform not in PLATFORMS:
+        raise ValueError(f"unknown platform {platform!r}; one of "
+                         f"{', '.join(p for p in PLATFORMS if p)}")
+    wanted = {"gpu": "cuda"}.get(platform, platform)
+    if wanted and device and wanted != device:
+        raise ValueError(f"--platform {platform} and --device {device} "
+                         "disagree")
+    return wanted or device
 
 
 def resolve_device(requested: str = "") -> "torch.device":  # noqa: F821

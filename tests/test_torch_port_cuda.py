@@ -7,8 +7,10 @@ per-card counters left at 0), the wrappers' refusals and launch counts,
 K1 at every rows-per-thread on ragged row counts and its refusal of a
 launch geometry it does not take, the reductions' refusal of K1's
 geometry and of any other they do not take, the ABN and flash autograd Functions against the plain
-versions' autograd, and the served model on the card against the same
-model on the CPU.
+versions' autograd, the served model on the card against the same
+model on the CPU, and the serving engine's CUDA graphs (one a bucket at
+warmup, replays bitwise the eager predict, the hot swap into the
+captured weights, `--strict_compile` on a steady-state capture).
 
 Marked `cuda`; each test skips (inside a fixture, never at import) where
 `torch.cuda.is_available()` is false. On the card, without JAX installed:
@@ -852,3 +854,103 @@ def test_overlap_prefetcher_on_the_card_matches_the_synchronous_path(cuda,
     for g, w in zip(got, want):
         assert all(a.device.type == "cpu" and torch.equal(a, b)
                    for a, b in zip(g, w))
+
+
+GRAPH_SERVE = ["baseline", "--model", "tresnet_m", "--image_size", "64",
+               "--num_classes", "10", "--dtype", "bfloat16", "--max_batch",
+               "4", "--buckets", "1,2,4", "--batch_timeout_ms", "0",
+               "--device", "cuda", "--selfcheck", "1"]
+
+
+def _graph_engine(extra=()):
+    from ddp_classification_pytorch_tpu_torch.cli import serve as serve_cli
+
+    cfg = serve_cli.config_from_args(serve_cli.build_parser().parse_args(
+        GRAPH_SERVE + list(extra)))
+    return cfg, serve_cli.build_engine(cfg, torch.device("cuda"))
+
+
+def _serve(engine, imgs):
+    futures = [engine.submit(im) for im in imgs]
+    assert engine.process_once() == len(imgs)
+    return [f.result(timeout=60) for f in futures]
+
+
+def _imgs(n, seed=0):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, 256, (n, 64, 64, 3)).astype(
+        np.uint8)
+
+
+def test_graph_engine_captures_a_graph_a_bucket_and_replays_eager_bits(cuda):
+    """warmup() captures one CUDA graph per bucket (and builds nothing once
+    K1 is built); each batch is a replay whose top-k is bitwise the eager
+    predict's, and K1's counter rises 36 a replay."""
+    import numpy as np
+
+    fused_abn.build()
+    _, engine = _graph_engine()
+    fused_abn.fused_bn_leaky_relu.launches = 0
+    engine.warmup()
+    assert engine.graph_mode and engine.boot["captures"] == 3
+    assert engine.boot["builds"] == 0
+    assert sorted(engine._graphs) == [(0, 1), (0, 2), (0, 4)]
+    assert fused_abn.fused_bn_leaky_relu.launches == 36 * 3  # eager passes
+    for b in engine.buckets:
+        imgs = _imgs(b, seed=b)
+        before = fused_abn.fused_bn_leaky_relu.launches
+        got = _serve(engine, imgs)
+        assert fused_abn.fused_bn_leaky_relu.launches == before + 36
+        p, i = engine._predict(engine._state, torch.from_numpy(imgs).to(cuda))
+        np.testing.assert_array_equal(np.stack([g.indices for g in got]),
+                                      i.cpu().numpy())
+        np.testing.assert_array_equal(np.stack([g.scores for g in got]),
+                                      p.cpu().numpy())
+    assert engine.metrics.recompiles == 0
+    engine.drain()
+
+
+def test_graph_engine_hot_swap_copies_into_the_captured_weights(cuda):
+    """A swap copies the new weights into the captured tensors at the batch
+    boundary: the same model object, no capture, the new answers."""
+    import numpy as np
+
+    from ddp_classification_pytorch_tpu_torch.train.state import (
+        create_served_model,
+    )
+
+    cfg, engine = _graph_engine()
+    engine.warmup()
+    served, total = engine._state, engine.compile_sentinel.total
+    new = create_served_model(cfg, cuda)
+    with torch.no_grad():
+        for t in new.parameters():
+            t.mul_(1.5)
+    engine.swap_state(new, digest="d", generation=2)
+    imgs = _imgs(4, seed=9)
+    got = _serve(engine, imgs)
+    assert engine._state is served and engine.compile_sentinel.total == total
+    p, i = engine._predict(new, torch.from_numpy(imgs).to(cuda))
+    np.testing.assert_array_equal(np.stack([g.scores for g in got]),
+                                  p.cpu().numpy())
+    assert all(g.digest == "d" and g.generation == 2 for g in got)
+    with pytest.raises(ValueError, match="captured"):  # other shapes
+        engine.swap_state(torch.nn.Linear(2, 2).to(cuda))
+    engine.drain()
+
+
+def test_graph_engine_strict_compile_on_a_steady_state_capture(cuda):
+    from ddp_classification_pytorch_tpu_torch.analysis.compile_sentinel import (
+        SteadyStateRecompile,
+    )
+
+    _, engine = _graph_engine(["--strict_compile"])
+    engine.warmup()
+    engine.drop_graph(2)
+    futures = [engine.submit(im) for im in _imgs(2)]
+    with pytest.raises(SteadyStateRecompile, match="capture:b2@cuda"):
+        engine.process_once()
+    assert engine.fatal_error is not None and engine.closed
+    assert all(f.result(timeout=0).indices.shape == (5,) for f in futures)
+    engine.drain()

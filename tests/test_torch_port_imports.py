@@ -1,5 +1,7 @@
 """Import guard: the torch port and `chip_smoke.py` load with jax, flax,
-optax, the JAX package and PIL refused at import time (the port decodes
+optax, msgpack (the card's machine has none: the port reads flax
+checkpoints with its own `train/flax_msgpack.py`), the JAX package and
+PIL refused at import time (the port decodes
 training images with its native dataplane; PIL decodes HTTP request bodies
 only, imported inside `serve/http.py::decode_image` at request time —
 `test_pil_is_imported_only_in_the_http_decoder` scans the package's
@@ -26,7 +28,8 @@ PORT = "ddp_classification_pytorch_tpu_torch"
 _GUARD = r"""
 import importlib, importlib.util, os, sys
 
-BLOCKED = ("jax", "flax", "optax", "ddp_classification_pytorch_tpu", "PIL")
+BLOCKED = ("jax", "flax", "optax", "msgpack", "ddp_classification_pytorch_tpu",
+           "PIL")
 
 def blocked(name):
     return any(name == b or name.startswith(b + ".") for b in BLOCKED)
@@ -60,7 +63,9 @@ for name in ("models.resnet", "models.batchnorm", "parallel.ddp",
              "scenario.invariants", "scenario.supervisor", "scenario.fuzz",
              "analysis.lint", "cli.scenario", "cli.fuzz", "models.vgg",
              "models.torch_oracle", "models.import_torch",
-             "cli.verify_import", "obs.trace", "utils.debug_nans"):
+             "cli.verify_import", "obs.trace", "utils.debug_nans",
+             "analysis.compile_sentinel", "serve.aot", "parallel.mesh",
+             "train.flax_msgpack"):
     assert f"{port}.{name}" in names, name
 # the item route's decoder is the port's own C++ source, built from the
 # repo (it includes the dataplane's source; PIL stays refused)
