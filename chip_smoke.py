@@ -315,7 +315,8 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    `tresnet_nested_path_launches`, `vit_arcface_path_launches`,
    `debug_nans_path_launches`, `profile_window_path_launches`) and on
    phase 32 (b)'s (`grad_accum_path_launches`: the K1 family 36 × 4 a
-   step), then `{"ok": true, "device": {...}}` last;
+   step) and on phase 35's (`model_axis_path_launches`), then `{"ok":
+   true, "device": {...}}` last;
 29. (run before the summary line) the recovery chain on the card —
    (a) `Trainer` on TResNet-M at full width (224 px, 2173 classes, bf16,
    batch 32, 256 synthetic images: 8 steps an epoch, 2 epochs) with
@@ -451,7 +452,35 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    `--serve_devices 1` answers as 0, beyond the cards is rc 2; (f) a
    ResNet-50 train state written as the JAX package writes it (flax's
    msgpack, with its sidecar) served through `--ckpt`: top-5 bitwise the
-   same weights' `.pt`.
+   same weights' `.pt`;
+35. (run before the summary line) the model axis on the one card, its
+   bodies over N shards held by one process (the seams
+   `ring_attention_shards`, `moe_mlp_shards`, `arc_margin_ce_shards`;
+   the card's one process cannot run two NCCL ranks) — the references
+   first (the plain versions through the same Function and the same
+   ring, and `flash_attention` on the whole T): (a)
+   `flash_attention_with_lse` at (32, 1024, 12, 64) bf16 (ViT-B/16 at
+   512 px): out bitwise `flash_attention`'s, lse within LSE_TOL of the
+   plain version's, its backward under a nonzero lse cotangent within
+   LSE_GRAD_TOL of the plain backward; then every launch count set to 0
+   and (b) run, its K2/K3/K4 launches each kernel's
+   `model_axis_path_launches` (2² + 4² = 20 each, checked): the flash
+   ring's forward and backward over 2 and 4 token shards at that shape
+   against the same ring on the plain versions (phase 7's FLASH_TOL and
+   FLASH_RMS_TOL) and against `flash_attention` on the whole T
+   (RING_TOL), each N's device ms (CUDA events) beside
+   `flash_attention`'s forward + backward; (c) the EP combine over 2 and
+   4 expert shards of phase 33's MoE config (8 experts of 384, top-2, a
+   (32, 1024, 768) bf16 block input) against the one-shard `moe_mlp`
+   (MOE_ROUTE_TOL of the largest output), with each one's device ms; (d)
+   the partial-FC CE at B 128, D 256, C 100,000 over 4 shards against
+   the dense margin + CE in f32, each feature drawn near its label's
+   weight row so that the reference's top-1 and top-3 counts are nonzero
+   and differ (checked): loss, counts and gradients within CE_TOL, the
+   gradients' RMS shares (and that of the weight rows no label names)
+   within CE_RMS_TOL, the peak allocated memory of one shard's block
+   beside the dense path's, and both times; (e) `cli/train.py --mp 2` on
+   the one card exits rc 2 with the mesh text, `--mp 1` trains (rc 0).
 
 Numerics on the card: `torch.backends.cudnn.allow_tf32 = False` and
 `torch.backends.cuda.matmul.allow_tf32 = False` (f32 convolutions and
@@ -4947,6 +4976,337 @@ def slice18_phase(torch, device, serve_cli, counters, card) -> dict:
     return rec
 
 
+# ------------------------------------------------------------- phase 35 --
+RING_SHAPE = (32, 1024, 12, 64)  # ViT-B/16 at 512 px: B, T, H, D
+RING_SHARDS = (2, 4)
+LSE_TOL = 1e-4  # lse, f32 statistics of bf16 scores
+# dQ/dK/dV under an lse cotangent, the kernels against the plain versions
+# forwards included, bf16 (atol, RMS): the plain forward's own out feeds
+# Δ, so the f32 dS of the two sides differ by more than on phase 7's
+# shared inputs and their bf16 roundings straddle more: dQ/dK near 1.3e-3,
+# dV (no Δ) near 1.7e-4 (an H100). The gradients are held at phase 7's
+# limits against K2 with the plain backwards (the same out, lse and Δ:
+# near 1.5e-4); this all-plain comparison is the extra one
+LSE_GRAD_TOL = (1e-2, 2e-3)
+# the ring against flash_attention on the whole T, bf16: each side rounds
+# dQ/dK/dV (and out) to bf16 once, at different points of the sum (the
+# ring after its f32 sum over visits), so the two sit up to one bf16
+# rounding apart: (atol, RMS err / RMS ref)
+RING_TOL = {"out": (1e-2, 5e-3), "grad": (2e-2, 5e-3)}
+MOE_SHAPE = (32, 1024, 768)  # phase 33's MoE ViT-B/16 block input
+MOE_EXPERTS, MOE_TOP_K = 8, 2  # H = 4·768 / 8 = 384 an expert
+EP_SHARDS = (2, 4)
+CE_B, CE_D, CE_C, CE_SHARDS = 128, 256, 100_000, 4
+CE_TOL = 1e-4  # partial-FC vs dense, f32 (loss, gradients)
+# the gradients' RMS err / RMS ref, partial-FC vs dense, f32: the sums run
+# in another order (near 2e-6 on the CPU at this size)
+CE_RMS_TOL = 1e-5
+CE_NOISE = (0.6, 1.6)  # each row's feature: its label's unit row + σ·noise
+MP_ARGV = ["baseline", "--dataset", "synthetic", "--synthetic_size", "8",
+           "--model", "vit_b16", "--image_size", "64", "--num_classes", "10",
+           "--batchsize", "4", "--epochs", "1", "--flash_attention",
+           "--device", "cuda"]
+
+
+def _rel(got, want) -> dict:
+    """max |err|, max |ref| and RMS err / RMS ref of two tensors."""
+    d = got.float() - want.float()
+    ref = want.float()
+    return {"max_abs_err": d.abs().max().item(),
+            "max_abs_ref": ref.abs().max().item(),
+            "rms_ratio": (d.pow(2).mean().sqrt()
+                          / ref.pow(2).mean().sqrt().clamp_min(1e-30)).item()}
+
+
+def _check_close(tag, got, want, key_tol) -> dict:
+    """Each name's (got, want) within its (atol, RMS) of `key_tol`: max
+    |err| within atol + rtol·|ref| (FLASH_TOL's bf16 rtol) and RMS err
+    within RMS × RMS ref."""
+    out = {}
+    for name, (g, w) in zip(key_tol, zip(got, want)):
+        r = _rel(g, w)
+        atol, rms = key_tol[name]
+        torch_ok = (g.float() - w.float()).abs().le(
+            atol + FLASH_TOL["bfloat16"][2] * w.float().abs()).all().item()
+        check(torch_ok and r["rms_ratio"] <= rms,
+              f"{tag} {name}: {json.dumps(r)} (atol {atol}, RMS {rms})")
+        out[name] = r
+    return out
+
+
+def model_axis_phase(torch, device, train_cli, counters, card) -> dict:
+    """Phase 35 (a)-(e), the model axis's bodies at full width on the one
+    card, N shards in one process (the seams `ring_attention_shards`,
+    `moe_mlp_shards`, `arc_margin_ce_shards`: no CLI path reaches them).
+    The references and (a) run first; then every count is set to 0 and
+    (b) the flash ring's forward and backward over 2 and 4 shards run,
+    its K2/K3/K4 launches `model_axis_path_launches`; (c) and (d) launch
+    none of them."""
+    import contextlib
+    import io
+
+    from ddp_classification_pytorch_tpu_torch.ops import attention as att
+    from ddp_classification_pytorch_tpu_torch.ops import flash_attention as fa
+    from ddp_classification_pytorch_tpu_torch.ops import moe
+    from ddp_classification_pytorch_tpu_torch.ops import arcface
+    from ddp_classification_pytorch_tpu_torch.ops import sharded_head as sh
+    from ddp_classification_pytorch_tpu_torch.models.vit import xavier_uniform_
+
+    t0 = time.perf_counter()
+    rec = {}
+    b, t, h, d = RING_SHAPE
+    gen = torch.Generator(device=device).manual_seed(35)
+    q, k, v, do = (torch.randn(RING_SHAPE, device=device, generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    g_lse = torch.randn((b, h, t), device=device, generator=gen)
+
+    def lse_grads(fn):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        out, lse = fn(*xs)
+        torch.autograd.backward([out, lse], [do, g_lse])
+        return out.detach(), lse.detach(), *[x.grad for x in xs]
+
+    def rings():
+        out = {}
+        for n in RING_SHARDS:
+            chunks = [list(x.chunk(n, dim=1)) for x in (q, k, v, do)]
+            outs, grads = att.ring_attention_shards(*chunks, use_flash=True)
+            out[n] = [torch.cat(outs, 1)] + [torch.cat(g, 1) for g in grads]
+        return out
+
+    def plain_runs(names):
+        """lse_grads and rings with the wrappers `names` swapped for their
+        plain versions."""
+        wrappers = {nm: getattr(fa, nm) for nm in names}
+        for nm in names:
+            setattr(fa, nm, getattr(fa, nm + "_ref"))
+        try:
+            return lse_grads(fa.flash_attention_with_lse), rings()
+        finally:
+            for nm, fn in wrappers.items():
+                setattr(fa, nm, fn)
+
+    # references: the plain versions through the same Function and the
+    # same ring, forwards and backwards; K2 with the plain backwards, so
+    # that K3/K4 and their plain versions see the same out, lse and Δ;
+    # and flash_attention (the kernels) on the whole T
+    plain, plain_rings = plain_runs(("flash_forward", "flash_dq",
+                                     "flash_dkv"))
+    plain_bwd, plain_bwd_rings = plain_runs(("flash_dq", "flash_dkv"))
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    whole_out = fa.flash_attention(*xs)
+    whole_out.backward(do)
+    whole = (whole_out.detach(), *[x.grad for x in xs])
+    del xs, whole_out
+    got_a = lse_grads(fa.flash_attention_with_lse)
+    torch.cuda.synchronize()
+
+    # ----- the counted main path: (b), the flash ring with the kernels
+    _reset(counters)
+    shards = rings()
+    torch.cuda.synchronize()
+    launches = {kk: f.launches for kk, f in counters.items()}
+    visits = sum(n * n for n in RING_SHARDS)  # N shards × N visits
+    want = dict.fromkeys(counters, 0) | {"fwd": visits, "dq": visits,
+                                        "dkv": visits}
+    check(launches == want, f"model axis launches {launches}, want {want}")
+    rec["launches"] = launches
+
+    # (a) out = flash_attention's (the same K2), lse and the gradients
+    # (with a nonzero lse cotangent) against the plain versions
+    check(torch.equal(got_a[0], whole[0]),
+          "flash_attention_with_lse's out is not flash_attention's")
+    lse_err = _rel(got_a[1], plain[1])
+    check(lse_err["max_abs_err"] <= LSE_TOL * max(1.0, lse_err["max_abs_ref"]),
+          f"lse off its plain version: {json.dumps(lse_err)}")
+    o_tol, g_tol, _ = FLASH_TOL["bfloat16"]
+    o_rms, g_rms = FLASH_RMS_TOL["bfloat16"]
+    grad_tol = dict.fromkeys(("dq", "dk", "dv"), (g_tol, g_rms))
+    check(torch.equal(got_a[0], plain_bwd[0]) and torch.equal(
+        got_a[1], plain_bwd[1]), "K2 not bitwise the same in two runs")
+    rec["with_lse"] = {"lse": lse_err} | _check_close(
+        "with_lse", got_a[2:], plain_bwd[2:], grad_tol)
+    rec["with_lse"]["vs_all_plain"] = _check_close(
+        "with_lse vs all plain", got_a[2:], plain[2:],
+        dict.fromkeys(("dq", "dk", "dv"), LSE_GRAD_TOL))
+    log(f"[model-axis] (a) flash_attention_with_lse {list(RING_SHAPE)} bf16: "
+        f"out bitwise flash_attention's; {json.dumps(rec['with_lse'])}")
+
+    # (b) the ring over N shards against the same ring on the plain
+    # versions at phase 7's limits (out against the plain forwards, the
+    # gradients against the plain backwards after K2), and against
+    # flash_attention on the whole T
+    rec["ring"] = {}
+    for n, got in shards.items():
+        plain_errs = _check_close(f"ring N={n} vs plain ring", got[:1],
+                                  plain_rings[n][:1], {"out": (o_tol, o_rms)})
+        plain_errs |= _check_close(f"ring N={n} vs plain backward ring",
+                                   got[1:], plain_bwd_rings[n][1:], grad_tol)
+        errs = _check_close(f"ring N={n}", got, whole,
+                            {"out": RING_TOL["out"], "dq": RING_TOL["grad"],
+                             "dk": RING_TOL["grad"], "dv": RING_TOL["grad"]})
+        chunks = [list(x.chunk(n, dim=1)) for x in (q, k, v, do)]
+        ring_ms = event_step_ms(torch, lambda c=chunks: att.ring_attention_shards(
+            *c, use_flash=True))
+        rec["ring"][n] = {"errors_vs_plain_ring": plain_errs,
+                          "errors": errs, "fwd_bwd_ms": ring_ms,
+                          "k2_k3_k4_each": n * n}
+        log(f"[model-axis] (b) flash ring N={n} {list(RING_SHAPE)} bf16 vs "
+            f"the plain ring: {json.dumps(plain_errs)}; vs flash_attention "
+            f"on the whole T: {json.dumps(errs)}; forward + "
+            f"backward {ring_ms:.3f} ms ({card})")
+    del shards, plain_rings, plain_bwd_rings
+
+    def whole_fwd_bwd():
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        fa.flash_attention(*xs).backward(do)
+
+    rec["flash_attention_fwd_bwd_ms"] = event_step_ms(torch, whole_fwd_bwd)
+    log(f"[model-axis] (b) flash_attention on the whole T, forward + "
+        f"backward {rec['flash_attention_fwd_bwd_ms']:.3f} ms ({card})")
+    del q, k, v, do, g_lse, got_a, plain, plain_bwd, whole
+    _free()
+
+    # (c) the EP combine over N shards against the one-shard moe_mlp
+    bb, tt, c = MOE_SHAPE
+    hid = 4 * c // MOE_EXPERTS
+    x = torch.randn(MOE_SHAPE, device=device, generator=gen).to(torch.bfloat16)
+    w_in = xavier_uniform_(torch.empty(MOE_EXPERTS, c, hid, device=device))
+    w_out = xavier_uniform_(torch.empty(MOE_EXPERTS, hid, c, device=device))
+    b_in = torch.randn(MOE_EXPERTS, hid, device=device, generator=gen) * 0.1
+    b_out = torch.randn(MOE_EXPERTS, c, device=device, generator=gen) * 0.1
+    router = xavier_uniform_(torch.empty(c, MOE_EXPERTS, device=device))
+    with torch.no_grad():
+        gates = moe.topk_gates(moe.router_logits(x, router), MOE_TOP_K)
+        one = moe.moe_mlp(x, gates, w_in, b_in, w_out, b_out)
+        rec["ep"] = {"one_shard_ms": event_step_ms(
+            torch, lambda: moe.moe_mlp(x, gates, w_in, b_in, w_out, b_out))}
+        for n in EP_SHARDS:
+            banks = [tuple(t_.chunk(n)[i] for t_ in (w_in, b_in, w_out, b_out))
+                     for i in range(n)]
+            got = moe.moe_mlp_shards(x, gates, banks)
+            err = _rel(got, one)
+            check(err["max_abs_err"] <= MOE_ROUTE_TOL * err["max_abs_ref"],
+                  f"EP N={n}: {json.dumps(err)} (tol {MOE_ROUTE_TOL} × max)")
+            rec["ep"][n] = err | {"ms": event_step_ms(
+                torch, lambda bk=banks: moe.moe_mlp_shards(x, gates, bk))}
+    log(f"[model-axis] (c) EP combine {list(MOE_SHAPE)} bf16, "
+        f"{MOE_EXPERTS} experts of {hid}, top-{MOE_TOP_K}, vs one shard: "
+        f"{json.dumps(rec['ep'])} ({card})")
+    del x, w_in, w_out, b_in, b_out, router, gates, one
+    _free()
+
+    # (d) the partial-FC CE against the dense margin + CE, f32; each
+    # feature near its label's weight row, σ spread over CE_NOISE, so that
+    # some rows rank their label first, some second or third, some lower
+    weight = torch.randn(CE_C, CE_D, device=device, generator=gen)
+    labels = torch.randint(0, CE_C, (CE_B,), device=device, generator=gen)
+    unit = torch.nn.functional.normalize(weight[labels], dim=1)
+    sigma = torch.linspace(*CE_NOISE, CE_B, device=device)[:, None]
+    feats = unit + sigma * torch.randn(CE_B, CE_D, device=device,
+                                       generator=gen) / CE_D ** 0.5
+    del unit, sigma
+
+    def dense():
+        f, w = feats.clone().requires_grad_(), weight.clone().requires_grad_()
+        logits = arcface.arc_margin_logits(f, w, labels)
+        loss = torch.nn.functional.cross_entropy(logits, labels)
+        loss.backward()
+        top = torch.topk(logits.detach(), 3, dim=1).indices
+        hit = top == labels[:, None]
+        return loss.detach(), hit[:, 0].sum(), hit.any(1).sum(), f.grad, w.grad
+
+    def sharded():
+        f, w = feats.clone().requires_grad_(), weight.clone().requires_grad_()
+        loss, t1, t3 = sh.arc_margin_ce_shards(f, list(w.chunk(CE_SHARDS)),
+                                               labels)
+        loss.backward()
+        return loss.detach(), t1, t3, f.grad, w.grad
+
+    def peak(fn):
+        _free()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated(device) - base) / 1e6
+
+    want_ce, dense_mb = peak(dense)
+
+    def one_shard():  # shard 0's own block: what a rank of N holds
+        with torch.no_grad():
+            logits, _ = sh._local_margin_logits(
+                feats, weight.chunk(CE_SHARDS)[0], labels, 0, 30.0, 0.5,
+                False)
+            return torch.exp(logits - logits.amax(1, keepdim=True)).sum(1)
+
+    _, shard_mb = peak(one_shard)
+    def dense_forward():
+        with torch.no_grad():
+            return arcface.arc_margin_logits(feats, weight, labels)
+
+    _, dense_fwd_mb = peak(dense_forward)
+    got_ce, all_shards_mb = peak(sharded)
+    check(0 < int(want_ce[1]) < int(want_ce[2]) < CE_B,
+          f"partial-FC reference counts top-1 {int(want_ce[1])}, top-3 "
+          f"{int(want_ce[2])} of {CE_B}: the count check would be empty")
+    other = torch.ones(CE_C, dtype=torch.bool, device=device)
+    other[labels] = False  # the weight rows no label names
+    pairs = list(zip(("loss", "top1", "top3", "dfeatures", "dweight"),
+                     got_ce, want_ce))
+    pairs.append(("dweight_other_rows", got_ce[4][other], want_ce[4][other]))
+    errs = {}
+    for name, g, w in pairs:
+        e = _rel(g, w)
+        check(e["max_abs_err"] <= CE_TOL * max(1.0, e["max_abs_ref"]),
+              f"partial-FC {name}: {json.dumps(e)}")
+        if name.startswith("d"):
+            check(e["rms_ratio"] <= CE_RMS_TOL,
+                  f"partial-FC {name}: {json.dumps(e)} (RMS {CE_RMS_TOL})")
+        errs[name] = e
+    del other, pairs
+    rec["partial_fc"] = {
+        "shape": [CE_B, CE_D, CE_C], "shards": CE_SHARDS, "errors": errs,
+        "loss": float(want_ce[0]), "top1": int(want_ce[1]),
+        "top3": int(want_ce[2]),
+        "one_shard_forward_peak_mb": shard_mb,
+        "dense_forward_peak_mb": dense_fwd_mb,
+        "dense_fwd_bwd_peak_mb": dense_mb,
+        "in_process_shards_fwd_bwd_peak_mb": all_shards_mb,
+        "dense_ms": event_step_ms(torch, dense),
+        "sharded_in_process_ms": event_step_ms(torch, sharded)}
+    log(f"[model-axis] (d) partial-FC CE B={CE_B} D={CE_D} C={CE_C} over "
+        f"{CE_SHARDS} shards vs dense margin + CE: "
+        f"{json.dumps(rec['partial_fc'])} ({card})")
+    del feats, weight, labels, want_ce, got_ce
+    _free()
+
+    # (e) the CLI: --mp 2 on one card is rc 2 with the mesh text; --mp 1
+    # trains as before
+    rcs = {}
+    for mp in ("2", "1"):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+        err = io.StringIO()
+        try:
+            with contextlib.redirect_stderr(err):
+                train_cli.main(MP_ARGV + ["--mp", mp, "--out", tmp])
+            rc = 0
+        except SystemExit as e:
+            rc = e.code
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        rcs[mp] = {"rc": rc, "stderr": err.getvalue().strip()[-300:]}
+    check(rcs["2"]["rc"] == 2 and "mesh 0×2×1 does not cover 1 devices"
+          in rcs["2"]["stderr"], f"--mp 2 on one card: {rcs['2']}")
+    check(rcs["1"]["rc"] == 0, f"--mp 1: {rcs['1']}")
+    rec["cli"] = rcs
+    log(f"[model-axis] (e) --mp 2 rc {rcs['2']['rc']} "
+        f"({rcs['2']['stderr'][-80:]}); --mp 1 rc {rcs['1']['rc']}")
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -5706,6 +6066,13 @@ def main() -> int:
     log(f"[slice18] phase 34 took {serving18['phase_s']:.1f} s ({card})")
     report["slice18"] = serving18
 
+    # --------------------------------------------- 35. the model axis --
+    gc.collect()
+    torch.cuda.empty_cache()
+    axis_rec = model_axis_phase(torch, device, train_cli, counters, card)
+    log(f"[slice19] phase 35 took {axis_rec['phase_s']:.1f} s ({card})")
+    report["slice19"] = axis_rec
+
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as f:
@@ -5729,7 +6096,8 @@ def main() -> int:
             "vit_remat_step_launches":
                 options["vit_remat"]["remat"]["launches"][kind],
             "vit_moe_path_launches": options["moe"]["launches"][kind],
-            "serve_graph_path_launches": serving18["launches"][kind]}
+            "serve_graph_path_launches": serving18["launches"][kind],
+            "model_axis_path_launches": axis_rec["launches"][kind]}
 
     log(json.dumps({"kernels": [{
         "name": "fused_bn_leaky_relu",

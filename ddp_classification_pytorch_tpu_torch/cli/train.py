@@ -77,16 +77,20 @@ Exit codes, as the JAX CLI's:
 
 - **rc 1**: an unhandled exception (a loader IO error, an OOM): transient,
   the supervisor restarts it after a backoff;
-- **rc 2**: config errors — an unported dataset, preset, arch or option (`--sharded_ce`, `--head_lr` on a model
+- **rc 2**: config errors — an unported dataset, preset, arch or option (`--head_lr` on a model
   without a margin head, `--pretrained` on a ViT), a flag this CLI does not take (argparse), bad values, a
   missing data directory, a `--resume` file that fails its sha256, a
-  native dataplane (or its decoder) that does not build on this machine, `--dp` other
-  than the world size, TResNet-M over more than one rank, a malformed
+  native dataplane (or its decoder) that does not build on this machine, a mesh
+  `--dp` × `--mp` that does not cover the world (JAX's "mesh D×M×1 does not
+  cover N devices"), TResNet-M over more than one data rank, a malformed
   `--fault_spec`, malformed ``FLEET_*`` variables (`FleetConfigError`);
   `grad-accum-indivisible` (a `--batchsize` that `--grad_accum` K does
   not split into K equal microbatches, or K > 1 with `--sharded_ce`), and
   `--grad_reduce_dtype bfloat16` under the nested head over more than
-  one rank (its k is drawn once for the global batch); `--mp` above 1;
+  one rank (its k is drawn once for the global batch), or over more than
+  one data rank with `--mp` above 1 or `--sharded_ce`; `--sharded_ce`
+  without `--mp` above 1 (JAX's `_require_sharded_ce_mesh` text); a class
+  count, expert count or token count the model axis does not divide;
   `--moe_experts` on an arch other than a ViT, with `--dropout` above
   0, or not dividing 4·dim; `--moe_top_k` outside [1, experts]; a
   negative `--moe_aux_weight`;
@@ -274,8 +278,14 @@ def build_parser() -> argparse.ArgumentParser:
                           "halves its bytes (a DDP comm hook; a no-op at "
                           "world 1), master weights and momentum stay f32")
     par.add_argument("--mp", type=int, default=0,
-                     help="model-axis width: only 1 (0) is ported; > 1 "
-                          "exits rc 2")
+                     help="model-parallel axis (class-dim sharding of wide "
+                          "heads; ring-attention seq sharding for ViT; "
+                          "expert parallelism with --moe_experts); the "
+                          "world is --dp × --mp ranks")
+    par.add_argument("--dcn_slices", type=int, default=0,
+                     help="several nodes: two-tier mesh with DP across N "
+                          "nodes, model axis inside a node (NVLink); 0 = "
+                          "the world over LOCAL_WORLD_SIZE")
     par.add_argument("--moe_experts", type=int, default=0,
                      help="ViT: dropless split-FFN mixture-of-experts with "
                           "N experts per block")
@@ -285,8 +295,9 @@ def build_parser() -> argparse.ArgumentParser:
                      help="router load-balance penalty weight "
                           "(default 0.01; 0 disables)")
     par.add_argument("--sharded_ce", action="store_true",
-                     help="the partial-FC ArcFace CE over a model axis: not "
-                          "ported (rc 2)")
+                     help="arcface: partial-FC loss — class-sharded "
+                          "softmax-CE over the model axis, no (B, C) "
+                          "logits (needs --mp > 1, classes divisible)")
     par.add_argument("--multihost", action="store_true",
                      help="join an explicit pod from FLEET_COORDINATOR / "
                           "FLEET_NUM_PROCESSES / FLEET_PROCESS_ID with "
@@ -372,15 +383,6 @@ def config_from_args(args: argparse.Namespace) -> Config:
             "grad-accum-indivisible: grad_accum > 1 does not compose with "
             "arcface_sharded_ce (--sharded_ce: the partial-FC loss owns its "
             "batch) — drop one of the two")
-    if args.sharded_ce:
-        raise ValueError("--sharded_ce (the partial-FC ArcFace CE over a "
-                         "model axis) is not ported: the port has no model "
-                         "axis (ROADMAP.md)")
-    if args.mp > 1:
-        raise ValueError(
-            f"--mp {args.mp}: the model axis (ring attention, expert "
-            "parallelism, GPipe, class-sharded heads) is not ported yet "
-            "(ROADMAP.md)")
     cfg = get_preset(args.workload)
     if args.folder:
         cfg.data.train_dir = f"{args.folder}/train"
@@ -454,6 +456,12 @@ def config_from_args(args: argparse.Namespace) -> Config:
     if args.freeze_bn is not None:
         cfg.model.freeze_bn = args.freeze_bn
     cfg.parallel.data_parallel = args.dp
+    if args.mp:
+        cfg.parallel.model_axis = args.mp
+    if args.dcn_slices:
+        cfg.parallel.dcn_slices = args.dcn_slices
+    if args.sharded_ce:
+        cfg.parallel.arcface_sharded_ce = True
     if args.grad_accum:
         cfg.parallel.grad_accum = args.grad_accum
     if args.zero_opt:
@@ -581,7 +589,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         # $OUT/generation file; --dp gates an elastic world's viability
         def rendezvous(dev):
             initialize_with_retry(out_dir=cfg.run.out_dir, device=dev,
-                                  data_parallel=cfg.parallel.data_parallel)
+                                  data_parallel=cfg.parallel.data_parallel,
+                                  model_parallel=cfg.parallel.model_axis)
     try:
         # the process group (torchrun's or the pod's), torn down on every
         # way out; the rc 2 and rc 8 exits included

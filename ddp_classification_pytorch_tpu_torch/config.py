@@ -133,10 +133,11 @@ class OptimConfig:
 
 @dataclass
 class ParallelConfig:
-    """Data parallelism over torch.distributed: one process per card,
-    launched by torchrun (the JAX package's `data` mesh axis, `--dp`)."""
+    """Data and model parallelism over torch.distributed: one process per
+    card, launched by torchrun (the JAX package's `data` and `model` mesh
+    axes, `--dp` and `--mp`)."""
 
-    data_parallel: int = 0  # must equal the world size; 0 = the world size
+    data_parallel: int = 0  # × model_axis = the world; 0 = the rest
     # K equal microbatches a step, their gradients summed and averaged
     # once, one gradient all-reduce and one optimizer update per K
     # (train/steps.py); 1 = the plain step
@@ -147,6 +148,16 @@ class ParallelConfig:
     # the gradient all-reduce's wire dtype: bfloat16 is the port's DDP comm
     # hook (parallel/ddp.py), a no-op at world 1; master weights stay f32
     grad_reduce_dtype: str = "float32"  # float32 | bfloat16
+    # the model axis (parallel/mesh.py): ranks = data_parallel ×
+    # model_axis; ring attention's token axis on a ViT, its experts
+    # with MoE, and the class-dim heads on every arch
+    model_axis: int = 1
+    # nodes the data axis spans, each model group inside one (the JAX
+    # package's DCN slices); 0 = the world over LOCAL_WORLD_SIZE
+    dcn_slices: int = 0
+    # ArcFace's partial-FC CE over the model axis (ops/sharded_head.py):
+    # needs model_axis > 1 and the class count divisible by it
+    arcface_sharded_ce: bool = False
 
 
 @dataclass

@@ -6,11 +6,18 @@ it to them only, `factory.py:56-59`); on the other archs the BNs keep
 batch statistics and only the optimizer's filter applies
 (`train/schedule.py::param_groups`). `dropout` reaches the ViTs and
 VGG19-BN (`dropout or 0.5` there, so 0 means 0.5, JAX `factory.py:62`).
-Anything else is a ValueError (rc 2)."""
+Anything else is a ValueError (rc 2).
+
+A `mesh` (`parallel/mesh.py::Mesh`) with a model axis above 1 gives a ViT
+its one role (JAX `factory.py:66-80`): expert parallelism with MoE, ring
+attention over the token axis otherwise; and every arch its class-sharded
+heads (`class_shard_`). The model is built whole, so `init_weights_`
+draws what a one-shard run draws; `shard_params_` then keeps each rank's
+slice of the tensors `parallel/mesh.py::shard_dim` names."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -19,7 +26,9 @@ import torch.nn as nn
 from ..config import ModelConfig
 from . import vit as _vit
 from .resnet import DEPTHS as RESNET_DEPTHS
-from .heads import ArcEmbedding, ArcMarginHead, NetClassifier
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import Mesh, shard_dim
+from .heads import ArcEmbedding, ArcMarginHead, ClassShardedLinear, NetClassifier
 from .resnet import build_resnet
 from .tresnet import tresnet_m
 from .vgg import WIDTH as VGG_WIDTH
@@ -60,7 +69,8 @@ def feat_dim_for(arch: str) -> int:
 
 def build_backbone(cfg: ModelConfig, num_classes: int = 0,
                    image_size: int = 224,
-                   group: Optional[dist.ProcessGroup] = None) -> nn.Module:
+                   group: Optional[dist.ProcessGroup] = None,
+                   mesh: Optional[Mesh] = None) -> nn.Module:
     """Backbone emitting features (num_classes=0) or logits. `image_size`
     sizes the ViT position table (the flax model infers it at init).
     `group`: the process group whose ranks share the ResNet and VGG BNs'
@@ -84,12 +94,15 @@ def build_backbone(cfg: ModelConfig, num_classes: int = 0,
         # reference `--model timm` → tresnet_m_miil_in21k (BASELINE/main.py:141-144)
         return tresnet_m(num_classes=num_classes, dtype=compute_dtype(cfg.dtype))
     if cfg.arch in _vit.VIT_CONFIGS:
+        axis = mesh.model_group if mesh is not None and mesh.mp > 1 else None
         return _vit.build_vit(
             cfg.arch, num_classes=num_classes, image_size=image_size,
             dtype=compute_dtype(cfg.dtype), dropout=cfg.dropout,
             remat=cfg.remat, use_flash=cfg.flash_attention,
             moe_experts=cfg.moe_experts, moe_top_k=cfg.moe_top_k,
-            flash_min_tokens=cfg.flash_min_tokens, ln_bf16=cfg.ln_bf16)
+            flash_min_tokens=cfg.flash_min_tokens, ln_bf16=cfg.ln_bf16,
+            seq_group=None if cfg.moe_experts else axis,
+            moe_group=axis if cfg.moe_experts else None)
     raise ValueError(f"arch {cfg.arch!r} not yet ported to the torch package "
                      f"(ported: {', '.join(PORTED_ARCHS)})")
 
@@ -114,8 +127,12 @@ class ArcFaceModel(nn.Module):
         super().__init__()
         self.backbone, self.embedding, self.margin = backbone, embedding, margin
 
-    def forward(self, x: torch.Tensor,
-                labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
+                features_only: bool = False) -> torch.Tensor:
+        """`features_only`: the embedding alone (the partial-FC CE's input,
+        taken through DDP's forward)."""
+        if features_only:
+            return self.features(x)
         return self.margin(self.features(x), labels)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
@@ -150,27 +167,84 @@ class NestedModel(nn.Module):
 
     @property
     def classifier_weight(self) -> torch.Tensor:
-        """The classifier's (C, D) weight, for the all-K sweep."""
-        return self.classifier.fc.weight
+        """The classifier's (C, D) weight, for the all-K sweep (gathered
+        whole when it is class-sharded)."""
+        fc = self.classifier.fc
+        return all_gather(fc.weight, getattr(fc, "group", None), 0)
 
 
 HEADS = ("fc", "arcface", "nested")
 
 
 def build_model(cfg: ModelConfig, num_classes: int, image_size: int = 224,
-                group: Optional[dist.ProcessGroup] = None) -> nn.Module:
+                group: Optional[dist.ProcessGroup] = None,
+                mesh: Optional[Mesh] = None) -> nn.Module:
+    """The model of `cfg` under its head, built whole. `group`: the BNs'
+    group (the data group under a mesh); `mesh`: the model axis's roles
+    and the class-sharded heads (`class_shard_`)."""
     if cfg.head not in HEADS:
         raise ValueError(f"unknown head {cfg.head!r}; one of {HEADS}")
     if cfg.head == "fc":
-        return ClassifierModel(build_backbone(cfg, num_classes, image_size,
-                                              group))
-    backbone = build_backbone(cfg, 0, image_size, group)
-    feat = feat_dim_for(cfg.arch)
-    if cfg.head == "arcface":
-        return ArcFaceModel(
-            backbone,
-            ArcEmbedding(feat, (512, cfg.arc_embed_dim),
-                         cfg.arc_log_softmax_quirk),
-            ArcMarginHead(num_classes, cfg.arc_embed_dim, cfg.arc_s,
-                          cfg.arc_m, cfg.arc_easy_margin))
-    return NestedModel(backbone, NetClassifier(feat, num_classes))
+        model = ClassifierModel(build_backbone(cfg, num_classes, image_size,
+                                               group, mesh))
+    else:
+        backbone = build_backbone(cfg, 0, image_size, group, mesh)
+        feat = feat_dim_for(cfg.arch)
+        if cfg.head == "arcface":
+            model = ArcFaceModel(
+                backbone,
+                ArcEmbedding(feat, (512, cfg.arc_embed_dim),
+                             cfg.arc_log_softmax_quirk),
+                ArcMarginHead(num_classes, cfg.arc_embed_dim, cfg.arc_s,
+                              cfg.arc_m, cfg.arc_easy_margin))
+        else:
+            model = NestedModel(backbone, NetClassifier(feat, num_classes))
+    if mesh is not None and mesh.mp > 1:
+        class_shard_(model, mesh)
+    return model
+
+
+def class_shard_(model: nn.Module, mesh: Mesh) -> nn.Module:
+    """Give the class-dim heads of `model` the model group: each `fc`
+    Linear that `shard_dim` names becomes a `ClassShardedLinear` holding
+    the same parameters (its place among the modules kept), and the
+    margin head computes on its shard."""
+    for name, mod in list(model.named_modules()):
+        if isinstance(mod, ArcMarginHead):
+            mod.group = mesh.model_group
+        if not (isinstance(mod, nn.Linear)
+                and shard_dim(f"{name}.weight", mod.weight.shape, mesh.mp)
+                == 0):
+            continue
+        sharded = ClassShardedLinear(mod.in_features, mod.out_features,
+                                     bias=mod.bias is not None)
+        sharded.weight, sharded.bias = mod.weight, mod.bias
+        sharded.group = mesh.model_group
+        parent, _, attr = name.rpartition(".")
+        setattr(model.get_submodule(parent), attr, sharded)
+    return model
+
+
+def shard_params_(model: nn.Module, mesh: Optional[Mesh]) -> Dict[str, int]:
+    """Keep this rank's slice of every parameter `shard_dim` shards, in
+    place; returns {name: dim} of those parameters. A class dim the model
+    axis does not divide is a ValueError (JAX's placement error)."""
+    dims: Dict[str, int] = {}
+    if mesh is None or mesh.mp <= 1:
+        return dims
+    for name, p in model.named_parameters():
+        dim = shard_dim(name, p.shape, mesh.mp)
+        if dim is None:
+            continue
+        size = p.shape[dim]
+        if size % mesh.mp:
+            raise ValueError(
+                f"{name} {tuple(p.shape)} shards its dim {dim} over the "
+                f"model axis, which implies that the global size of its "
+                f"dimension {dim} should be divisible by {mesh.mp}, but it "
+                f"is equal to {size}")
+        n = size // mesh.mp
+        with torch.no_grad():
+            p.data = p.data.narrow(dim, mesh.model_index * n, n).clone()
+        dims[name] = dim
+    return dims

@@ -12,6 +12,17 @@ backbone's own classifier, `factory.py::ClassifierModel`.)
   `weight` (xavier-uniform at init, `train/state.py::init_weights_`).
 - `NetClassifier`: the bias-free linear classifier (NESTED/model/
   model.py:64-76).
+- `ClassShardedLinear`: an `nn.Linear` whose (C, D) weight holds this
+  rank's C/N class rows over a model group (the fc heads and the nested
+  classifier when `--mp` > 1, `models/factory.py::class_shard_`).
+
+Over a model group (`group`, set by `class_shard_`) the class-dim matrices
+hold their C/N shard, and a head's logits come whole through an
+all-gather, so the plain losses compute what JAX's GSPMD program
+computes: the features enter through `copy_to` (their gradient is the sum
+of every shard's), each rank forms its (B, C/N) block, `all_gather`
+concatenates the blocks (its backward hands each shard its own slice),
+and the replicated bias is added to the whole.
 """
 
 from __future__ import annotations
@@ -22,7 +33,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.arcface import arc_margin_logits, cosine_logits
+from ..ops.arcface import arc_margin_logits, cosine_logits, margin_splice
+from ..parallel.collectives import Group, all_gather, copy_to
 
 
 class ArcEmbedding(nn.Module):
@@ -52,9 +64,18 @@ class ArcMarginHead(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(num_classes, in_features))
         self.s, self.m, self.easy_margin = s, m, easy_margin
+        self.group: Group = None  # the class axis, when `weight` is sharded
 
     def forward(self, features: torch.Tensor,
                 labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.group is not None:
+            cosine = all_gather(cosine_logits(copy_to(features, self.group),
+                                              self.weight), self.group, 1)
+            if labels is None:
+                return cosine * self.s
+            one_hot = F.one_hot(labels.long(), cosine.shape[1]).float()
+            return margin_splice(cosine, one_hot, self.s, self.m,
+                                 self.easy_margin)
         if labels is None:
             return cosine_logits(features, self.weight) * self.s
         return arc_margin_logits(features, self.weight, labels, self.s,
@@ -70,3 +91,19 @@ class NetClassifier(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc(x.float())
+
+
+class ClassShardedLinear(nn.Linear):
+    """`nn.Linear` over a model group: `weight` (C/N, D) this rank's class
+    rows, `bias` (C,) whole; the logits (…, C) whole on every rank. Built
+    whole (so the init draws what a one-shard run draws) and sliced by
+    `models/factory.py::shard_params_`."""
+
+    group: Group = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.group is None:
+            return super().forward(x)
+        out = all_gather(F.linear(copy_to(x, self.group), self.weight),
+                         self.group, -1)
+        return out if self.bias is None else out + self.bias

@@ -37,8 +37,19 @@ The block options (JAX `vit.py:90-216`):
   followed by the cast to bf16 that every block already makes.
   `ln_final` is f32 either way, as in JAX.
 
-The pipeline and ring (token-sharded) paths and expert parallelism need
-the model axis, which the port has not yet (ROADMAP.md).
+The model axis (JAX `vit.py:39-72,90-216`, `factory.py:66-80`) serves one
+role a config. Without MoE, `seq_group` shards the tokens over the model
+group: after the position embedding each rank keeps its T/N tokens
+(`ops/attention.py::shard_tokens`, JAX's "not divisible by ring size"
+text otherwise), every attention layer runs ring attention over the group
+(the flash body under `use_flash`, whatever `flash_min_tokens` says: the
+ring path is exempt, as JAX's), a dropout mask is drawn for all T tokens
+and sliced, and the mean pool, which commutes with the shard, sums this
+rank's tokens and `psum`s over the group before ÷T. Every parameter
+before the pool then sees only this rank's tokens: its gradient is
+summed over the group after the backward (`token_sharded_params`). With
+MoE, `moe_group` shards the experts (`ops/moe.py::moe_mlp`); the tokens
+stay whole. The pipeline (GPipe) path is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -50,8 +61,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import ring_attention
+from ..ops.attention import ring_attention, shard_tokens
 from ..ops.moe import load_balance_loss, moe_mlp, router_logits, topk_gates
+from ..parallel.collectives import Group, axis_size, psum
 from .dropout import Dropout
 from .remat import remat_dots
 
@@ -94,10 +106,12 @@ class MHA(nn.Module):
     """Multi-head self-attention over (B, T, C) tokens."""
 
     def __init__(self, dim: int, heads: int, dtype: torch.dtype,
-                 use_flash: bool = False, flash_min_tokens: int = 0):
+                 use_flash: bool = False, flash_min_tokens: int = 0,
+                 group: Group = None):
         super().__init__()
         self.dim, self.heads = dim, heads
         self.use_flash, self.flash_min_tokens = use_flash, flash_min_tokens
+        self.group = group  # the token axis's ring, None when unsharded
         self.qkv = Dense(dim, 3 * dim, dtype)
         self.proj = Dense(dim, dim, dtype)
 
@@ -105,8 +119,9 @@ class MHA(nn.Module):
         b, t, _ = x.shape
         qkv = self.qkv(x).view(b, t, 3, self.heads, self.dim // self.heads)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        use_flash = self.use_flash and t >= self.flash_min_tokens
-        out = ring_attention(q, k, v, use_flash=use_flash)
+        use_flash = self.use_flash and (self.group is not None
+                                        or t >= self.flash_min_tokens)
+        out = ring_attention(q, k, v, self.group, use_flash=use_flash)
         return self.proj(out.reshape(b, t, self.dim))
 
 
@@ -136,11 +151,13 @@ class Block(nn.Module):
     def __init__(self, dim: int, heads: int, dtype: torch.dtype,
                  use_flash: bool = False, flash_min_tokens: int = 0,
                  dropout: float = 0.0, moe_experts: int = 0,
-                 moe_top_k: int = 2):
+                 moe_top_k: int = 2, seq_group: Group = None,
+                 moe_group: Group = None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.moe_group = dtype, moe_group
         self.ln1 = LayerNorm(dim)
-        self.attn = MHA(dim, heads, dtype, use_flash, flash_min_tokens)
+        self.attn = MHA(dim, heads, dtype, use_flash, flash_min_tokens,
+                        seq_group)
         self.ln2 = LayerNorm(dim)
         self.drop = Dropout(dropout)
         self.moe_experts, self.moe_top_k = moe_experts, moe_top_k
@@ -160,6 +177,10 @@ class Block(nn.Module):
         if not 1 <= moe_top_k <= e:
             raise ValueError(f"top_k={moe_top_k} must be in [1, "
                              f"num_experts={e}]")
+        n = axis_size(moe_group)
+        if e % n:  # moe_mlp's refusal, at build
+            raise ValueError(f"num experts {e} not divisible by axis size "
+                             f"{n}")
         hidden = (4 * dim) // e
         self.moe_router = nn.Parameter(torch.empty(dim, e))
         self.moe_w_in = nn.Parameter(torch.empty(e, dim, hidden))
@@ -179,7 +200,7 @@ class Block(nn.Module):
             aux = load_balance_loss(logits, self.moe_top_k)
             return x + moe_mlp(y, gates, self.moe_w_in, self.moe_b_in,
                                self.moe_w_out, self.moe_b_out,
-                               self.dtype), aux
+                               self.dtype, self.moe_group), aux
         y = self.drop(F.gelu(self.mlp_in(y), approximate="tanh"), keep)
         return x + self.mlp_out(y), None
 
@@ -195,18 +216,21 @@ class ViT(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, use_flash: bool = False,
                  flash_min_tokens: int = 0, dropout: float = 0.0,
                  remat: bool = False, moe_experts: int = 0,
-                 moe_top_k: int = 2, ln_bf16: bool = False):
+                 moe_top_k: int = 2, ln_bf16: bool = False,
+                 seq_group: Group = None, moe_group: Group = None):
         super().__init__()
         if image_size % patch:
             raise ValueError(f"image_size {image_size} is not a multiple of "
                              f"the patch size {patch}")
-        self.dtype, self.remat = dtype, remat
+        self.dtype, self.remat, self.seq_group = dtype, remat, seq_group
         self.patch_embed = nn.Conv2d(3, dim, patch, stride=patch)
         tokens = (image_size // patch) ** 2
+        if seq_group is not None:
+            shard_tokens(torch.empty(0, tokens), seq_group)  # divisible?
         self.pos_embed = nn.Parameter(torch.zeros(1, tokens, dim))
         self.blocks = nn.ModuleList(
             Block(dim, heads, dtype, use_flash, flash_min_tokens, dropout,
-                  moe_experts, moe_top_k)
+                  moe_experts, moe_top_k, seq_group, moe_group)
             for _ in range(depth))
         self.ln_final = LayerNorm(dim)
         self.fc = nn.Linear(dim, num_classes) if num_classes > 0 else None
@@ -219,17 +243,37 @@ class ViT(nn.Module):
                      stride=self.patch_embed.stride)
         x = x.flatten(2).transpose(1, 2)  # (B, h*w, C), row-major patches
         x = x + self.pos_embed.to(dt)
+        tokens = x.shape[1]
+        if self.seq_group is not None:
+            x = shard_tokens(x, self.seq_group)
         remat = self.remat and self.training and torch.is_grad_enabled()
         aux = None
         for block in self.blocks:
-            keep = (block.drop.draw((*x.shape[:2], 4 * x.shape[2]), x.device)
-                    if block.drop.active() else None)
+            keep = None
+            if block.drop.active():  # drawn for every token, then sliced
+                keep = block.drop.draw((x.shape[0], tokens, 4 * x.shape[2]),
+                                       x.device)
+                if self.seq_group is not None:
+                    keep = shard_tokens(keep, self.seq_group)
             x, a = remat_dots(block, x, keep) if remat else block(x, keep)
             if a is not None:
                 aux = a if aux is None else aux + a
         self.moe_aux = aux
-        x = self.ln_final(x).mean(dim=1)  # f32
+        x = self.ln_final(x)  # f32
+        if self.seq_group is not None:
+            x = psum(x.sum(dim=1), self.seq_group) / tokens
+        else:
+            x = x.mean(dim=1)
         return self.fc(x) if self.fc is not None else x
+
+    def token_sharded_params(self):
+        """The parameters whose gradient covers only this rank's tokens
+        (everything before the pool) when the tokens are sharded; none
+        otherwise."""
+        if self.seq_group is None:
+            return []
+        return [p for name, p in self.named_parameters()
+                if not name.startswith("fc.")]
 
 
 def pop_moe_aux(model: nn.Module) -> Optional[torch.Tensor]:
@@ -247,10 +291,12 @@ def build_vit(arch: str, num_classes: int = 0, image_size: int = 224,
               dtype: torch.dtype = torch.bfloat16, dropout: float = 0.0,
               remat: bool = False, use_flash: bool = False,
               moe_experts: int = 0, moe_top_k: int = 2,
-              flash_min_tokens: int = 0, ln_bf16: bool = False) -> ViT:
+              flash_min_tokens: int = 0, ln_bf16: bool = False,
+              seq_group: Group = None, moe_group: Group = None) -> ViT:
     patch, dim, depth, heads = VIT_CONFIGS[arch]
     return ViT(patch=patch, dim=dim, depth=depth, heads=heads,
                num_classes=num_classes, image_size=image_size, dtype=dtype,
                use_flash=use_flash, flash_min_tokens=flash_min_tokens,
                dropout=dropout, remat=remat, moe_experts=moe_experts,
-               moe_top_k=moe_top_k, ln_bf16=ln_bf16)
+               moe_top_k=moe_top_k, ln_bf16=ln_bf16, seq_group=seq_group,
+               moe_group=moe_group)

@@ -31,6 +31,15 @@ Pallas kernels do not tile (`_supported`) take the dense op, so both
 packages take the same path for every T. The (B, T, H, D) ↔ (BH, T, D)
 transposes are explicit copies. The Function looks the three wrappers up
 in this module at call time, so a caller can swap in the plain versions.
+
+`flash_attention_with_lse(q, k, v, scale=None, causal=False)` (JAX
+`:439-490`) also returns the rows' logsumexp (B, H, T) f32 — the statistic
+that merges attention over KV blocks held elsewhere. Its backward folds the
+lse cotangent into Δ (Δ − ḡ_lse: dS = P ⊙ (dP − (Δ − ḡ_lse))) before K3
+and K4. It refuses unequal shapes and a T the Pallas kernels do not tile,
+as JAX's does. It is the JAX package's API for these kernels: the port's
+ring (`ops/attention.py`) calls the three wrappers itself, with the merged
+rows' lse and Δ, and does not go through it.
 """
 
 from __future__ import annotations
@@ -307,3 +316,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
         return attention(q, k, v, causal=causal, scale=scale)
     return _Flash.apply(q, k, v, float(scale), bool(causal))
+
+
+class _FlashLse(torch.autograd.Function):
+    """Forward K2 returning (out, lse); backward Δ − ḡ_lse, then K3 and K4
+    (JAX `_fl_fwd` / `_fl_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, causal: bool):
+        b, _, h, _ = q.shape
+        q3, k3, v3 = _to3(q), _to3(k), _to3(v)
+        out3, lse = flash_forward(q3, k3, v3, scale, causal)
+        ctx.save_for_backward(q3, k3, v3, out3, lse)
+        ctx.scale, ctx.causal, ctx.bh = scale, causal, (b, h)
+        return _to4(out3, b, h), lse.view(b, h, -1)
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q3, k3, v3, out3, lse = ctx.saved_tensors
+        b, h = ctx.bh
+        do3 = _to3(g_out.to(q3.dtype))
+        # autograd hands an unused output's cotangent in as zeros
+        dsum = ((do3.float() * out3.float()).sum(dim=-1, keepdim=True)
+                - g_lse.float().reshape(b * h, -1, 1))
+        dq3 = flash_dq(q3, k3, v3, do3, lse, dsum, ctx.scale, ctx.causal)
+        dk3, dv3 = flash_dkv(q3, k3, v3, do3, lse, dsum, ctx.scale, ctx.causal)
+        return (_to4(dq3, b, h), _to4(dk3, b, h), _to4(dv3, b, h), None, None)
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, scale: Optional[float] = None,
+                             causal: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`flash_attention` that also returns the per-row logsumexp of the
+    scaled scores, (B, H, T) f32; both outputs differentiable. T must be
+    one the Pallas kernels tile (`_supported`); callers gate on it."""
+    if q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(
+            f"flash_attention_with_lse requires q/k/v of equal shape, got "
+            f"{tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)}")
+    if not _supported(q.shape[1]):
+        raise ValueError(
+            f"T={q.shape[1]} is not kernel-tileable (need T ≤ 512 or a "
+            "multiple of 128)")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _FlashLse.apply(q, k, v, float(scale), bool(causal))

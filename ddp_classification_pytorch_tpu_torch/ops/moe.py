@@ -12,7 +12,7 @@ top-k gates.
 - `load_balance_loss` (`:58-74`): E·Σ_e f_e·p_e, f_e the share of tokens
   whose top-k holds e (a detached count, JAX's stop-gradient) and p_e the
   mean full-softmax probability of e.
-- `moe_mlp` (`:93-143` at one expert shard): every expert runs every
+- `moe_mlp` (`:93-143`; one expert shard first): every expert runs every
   token, h = gelu(x·W_in + b_in) and y = h·W_out + b_out per expert, then
   the gate-weighted sum over the experts, returned in x's dtype. A gates
   width other than E is a ValueError.
@@ -30,14 +30,26 @@ the card the f32 cotangent is rounded to bf16 for the product (the bf16
 products of a TPU's default precision), on the CPU it is not (JAX's f32
 product on the CPU).
 
-Expert parallelism (the experts sharded over a model axis, `moe.py:
-125-143`) needs the model axis, which the port has not yet (ROADMAP.md).
+Expert parallelism (`moe.py:121-143`): with a model `group` of N ranks
+each rank holds E/N experts (its contiguous slice of the banks), slices
+its E/N gate columns, mixes its experts over every token, and one `psum`
+over the group completes the combine. The tokens and the gates enter
+through `copy_to`, so their gradients are the sum of every shard's
+(JAX's transpose of a replicated shard_map input); the combine's `psum`
+passes the replicated output's cotangent to each shard's partial. An E
+the group does not divide is JAX's ValueError. `moe_mlp_shards` runs the
+N shards' mixes in one process and sums them (the in-process seam that
+`chip_smoke.py` and the tests reach; no CLI path does).
 """
 
 from __future__ import annotations
 
+from typing import Optional, Sequence, Tuple
+
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import Group, axis_index, axis_size, copy_to, psum
 
 
 def router_logits(x: torch.Tensor, router_w: torch.Tensor) -> torch.Tensor:
@@ -102,24 +114,67 @@ class _MatmulF32(torch.autograd.Function):
         return ga, gb
 
 
-def moe_mlp(x: torch.Tensor, gates: torch.Tensor, w_in: torch.Tensor,
-            b_in: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
-            dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Mixture-of-experts FFN over (B, T, C) tokens: `gates` (B, T, E) from
-    `topk_gates`; w_in (E, C, H), b_in (E, H), w_out (E, H, C), b_out
-    (E, C), all f32. Returns (B, T, C) in x's dtype."""
+def _expert_mix(x: torch.Tensor, gates: torch.Tensor, w_in: torch.Tensor,
+                b_in: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Σ over the e experts of `w_in` (e, C, H) … of gate × FFN output, for
+    every token: (B, T, C) f32 (JAX `_expert_mix`)."""
     e, c, h = w_in.shape
-    if gates.shape[-1] != e:
-        raise ValueError(f"gates width {gates.shape[-1]} != num experts {e}")
     b, t = x.shape[:2]
     xc = x.to(dtype).reshape(b * t, c)
-    # every expert's first product as one (BT, C) × (C, E·H) product
+    # every expert's first product as one (BT, C) × (C, e·H) product
     w1 = w_in.to(dtype).permute(1, 0, 2).reshape(c, e * h)
     hid = _MatmulF32.apply(xc, w1).view(b * t, e, h) + b_in
     hid = F.gelu(hid, approximate="tanh")
-    # (E, BT, H) × (E, H, C) → (E, BT, C), f32
+    # (e, BT, H) × (e, H, C) → (e, BT, C), f32
     y = _MatmulF32.apply(hid.to(dtype).transpose(0, 1), w_out.to(dtype))
     y = y + b_out[:, None, :]
-    # Σ_e gate[bt, e]·y[e, bt, :] as (BT, 1, E) × (BT, E, C), in f32
+    # Σ_e gate[bt, e]·y[e, bt, :] as (BT, 1, e) × (BT, e, C), in f32
     out = torch.bmm(gates.reshape(b * t, 1, e).float(), y.transpose(0, 1))
-    return out.view(b, t, c).to(x.dtype)
+    return out.view(b, t, c)
+
+
+def _check_experts(gates: torch.Tensor, e_local: int, n: int) -> None:
+    e = gates.shape[-1]
+    if n > 1 and e % n:
+        raise ValueError(f"num experts {e} not divisible by axis size {n}")
+    if e != e_local * n:
+        raise ValueError(f"gates width {e} != num experts {e_local * n}")
+
+
+def moe_mlp(x: torch.Tensor, gates: torch.Tensor, w_in: torch.Tensor,
+            b_in: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
+            dtype: torch.dtype = torch.bfloat16,
+            group: Group = None) -> torch.Tensor:
+    """Mixture-of-experts FFN over (B, T, C) tokens: `gates` (B, T, E) from
+    `topk_gates`; the banks w_in (E/N, C, H), b_in (E/N, H), w_out
+    (E/N, H, C), b_out (E/N, C), f32, this rank's experts of the model
+    `group` (N = 1 without one). Returns (B, T, C) in x's dtype."""
+    n = axis_size(group)
+    _check_experts(gates, w_in.shape[0], n)
+    if n == 1:
+        return _expert_mix(x, gates, w_in, b_in, w_out, b_out,
+                           dtype).to(x.dtype)
+    e_local = w_in.shape[0]
+    lo = axis_index(group) * e_local
+    g_local = copy_to(gates, group)[..., lo:lo + e_local]
+    part = _expert_mix(copy_to(x, group), g_local, w_in, b_in, w_out, b_out,
+                       dtype)
+    return psum(part, group).to(x.dtype)  # the EP combine
+
+
+def moe_mlp_shards(x: torch.Tensor, gates: torch.Tensor,
+                   banks: Sequence[Tuple[torch.Tensor, ...]],
+                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """`moe_mlp` over N expert shards held by this one process: each
+    shard's (w_in, b_in, w_out, b_out) mixes its gate columns over every
+    token, and the partial combines are summed in shard order."""
+    n = len(banks)
+    e_local = banks[0][0].shape[0]
+    _check_experts(gates, e_local, n)
+    total: Optional[torch.Tensor] = None
+    for i, bank in enumerate(banks):
+        part = _expert_mix(x, gates[..., i * e_local:(i + 1) * e_local],
+                           *bank, dtype)
+        total = part if total is None else total + part
+    return total.to(x.dtype)

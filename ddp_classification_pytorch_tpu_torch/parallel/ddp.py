@@ -27,8 +27,15 @@ gloo on the card). A process that torchrun did not start (no
   more than one rank: at world 1 the JAX wire is the identity, and a
   hook there would round the gradients.
 - `sum_across` sums a tensor of counts (or of per-rank means, divided
-  afterwards) across the ranks: the train step's loss and top-k counts,
-  the eval's sums.
+  afterwards) across the ranks (or the ranks of a group: the data group
+  under a model axis): the train step's loss and top-k counts, the
+  eval's sums.
+- Under a model axis (`parallel/mesh.py`) DDP, ZeRO-1 and the bf16 wire
+  run over the data group only; `sum_model_partials` sums, over the
+  model group, the gradients of the replicated parameters whose shards
+  saw different tokens (a token-sharded ViT's, everything before its
+  pool). The other replicated parameters saw the same values on every
+  model rank and hold the whole gradient already.
 - Explicit pods (`cli/train.py --multihost`) do not come from torchrun:
   `parallel/fleet.py::initialize_with_retry` rendezvouses from the
   ``FLEET_*`` variables and brings the group up through `init_group`.
@@ -192,23 +199,49 @@ def bf16_wire_hook(group, bucket):
 
 
 def wrap(model: nn.Module, device: torch.device,
-         grad_reduce_dtype: str = "float32") -> nn.Module:
-    """`model` under DistributedDataParallel over the world group (the
-    gradient all-reduce), with `broadcast_buffers=False`; with
-    `grad_reduce_dtype` bfloat16 over more than one rank, the all-reduce
-    goes through `bf16_wire_hook`."""
+         grad_reduce_dtype: str = "float32",
+         group: Optional[dist.ProcessGroup] = None) -> nn.Module:
+    """`model` under DistributedDataParallel over `group` (the world by
+    default; the data group under a model axis: the gradient
+    all-reduce), with `broadcast_buffers=False`; with `grad_reduce_dtype`
+    bfloat16 over more than one rank of it, the all-reduce goes through
+    `bf16_wire_hook`."""
     from torch.nn.parallel import DistributedDataParallel
 
     net = DistributedDataParallel(
         model, device_ids=[device] if device.type == "cuda" else None,
-        broadcast_buffers=False)
-    if grad_reduce_dtype == "bfloat16" and world_size() > 1:
-        net.register_comm_hook(None, bf16_wire_hook)
+        broadcast_buffers=False, process_group=group)
+    ranks = dist.get_world_size(group) if group is not None else world_size()
+    if grad_reduce_dtype == "bfloat16" and ranks > 1:
+        net.register_comm_hook(group, bf16_wire_hook)
     return net
 
 
-def sum_across(t: torch.Tensor) -> torch.Tensor:
-    """`t` summed over the ranks, in place (`t` itself without a group)."""
+def sum_across(t: torch.Tensor, group: Optional[dist.ProcessGroup] = None,
+               ) -> torch.Tensor:
+    """`t` summed over the ranks of `group` (the world by default), in
+    place (`t` itself without a process group)."""
     if initialized():
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
     return t
+
+
+def sum_model_partials(model: nn.Module, mesh) -> None:
+    """Sum over the model group, in place, the gradients of `model`'s
+    token-sharded parameters (`models/vit.py::ViT.token_sharded_params`)
+    — one all-reduce of their flattened gradients. A no-op without a
+    model axis."""
+    if mesh is None or mesh.mp <= 1:
+        return
+    grads = [p.grad for m in model.modules()
+             if hasattr(m, "token_sharded_params")
+             for p in m.token_sharded_params() if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.model_group)
+    offset = 0
+    for g in grads:
+        n = g.numel()
+        g.copy_(flat[offset:offset + n].view_as(g))
+        offset += n

@@ -1,17 +1,184 @@
-"""The serving engine's devices — the port's counterpart of the JAX
-package's `parallel/mesh.py::serve_mesh`.
+"""The device mesh of the port — the counterpart of the JAX package's
+`parallel/mesh.py`.
+
+Training: the ranks of a torchrun world (one process a card) laid out as
+a (data, model) mesh. `MeshSpec` resolves its axes against the world with
+JAX's rule and text; `make_mesh` gives every rank its data group (the
+ranks holding the same model shard: DDP, ZeRO-1, the BN statistics, the
+metrics) and its model group (the ranks of one data shard: ring
+attention's token axis, expert parallelism, the class-sharded heads).
+Model groups are contiguous ranks, so on a node they ride NVLink, as JAX
+keeps the model axis on ICI neighbours (`mesh.py:76-95`);
+`make_hybrid_mesh` spans the data axis across nodes and keeps every model
+group inside one (`:140-196`). `shard_dim` is JAX's `_spec_for_param`
+(`:231-270`) in the port's parameter names.
 
 Serving is pure data parallelism: a padded bucket splits into equal row
 blocks, one a device, each device holding its own replica of the model
 (`serve/engine.py`). There is no model axis to feed, so a list of devices
-is the whole mesh.
+is the whole mesh (`serve_devices`).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import dataclasses
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """data_parallel=0 → every rank left over goes on the data axis.
+    `pipeline_parallel` is kept for JAX's arithmetic and texts; the port
+    builds no pipe axis yet."""
+
+    data_parallel: int = 0
+    model_parallel: int = 1
+    pipeline_parallel: int = 1
+
+    def resolve(self, n_devices: int) -> Tuple[int, int, int]:
+        mp = max(self.model_parallel, 1)
+        pp = max(self.pipeline_parallel, 1)
+        dp = self.data_parallel or n_devices // (mp * pp)
+        if dp * mp * pp != n_devices:
+            raise ValueError(
+                f"mesh {dp}×{mp}×{pp} does not cover {n_devices} devices")
+        return dp, mp, pp
+
+
+def viable_world(spec: MeshSpec, n_devices: int) -> bool:
+    """Whether `spec` resolves over `n_devices` (the elastic membership
+    round's viability gate, `parallel/fleet.py::check_viable`)."""
+    if n_devices < 1:
+        return False
+    try:
+        spec.resolve(n_devices)
+    except ValueError:
+        return False
+    return True
+
+
+def rank_table(dp: int, mp: int) -> List[Tuple[int, int]]:
+    """(data index, model index) of each rank: rank = d·mp + m, so the
+    ranks of one model group are contiguous."""
+    return [(r // mp, r % mp) for r in range(dp * mp)]
+
+
+@dataclasses.dataclass
+class Mesh:
+    """This rank's place in the (data, model) mesh and its two groups.
+    A group is None where its axis is this rank alone (no collective)."""
+
+    dp: int = 1
+    mp: int = 1
+    data_index: int = 0
+    model_index: int = 0
+    data_group: Optional[dist.ProcessGroup] = None
+    model_group: Optional[dist.ProcessGroup] = None
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {DATA_AXIS: self.dp, MODEL_AXIS: self.mp}
+
+
+def _groups(dp: int, mp: int, rank: int) -> Tuple[Optional[dist.ProcessGroup],
+                                                   Optional[dist.ProcessGroup]]:
+    """This rank's data and model groups. Every rank creates every group,
+    in one order (model groups, then data groups), as `new_group` asks."""
+    model = data = None
+    for d in range(dp):
+        g = dist.new_group([d * mp + m for m in range(mp)]) if mp > 1 else None
+        if rank // mp == d:
+            model = g
+    if mp == 1:
+        return dist.group.WORLD if dp > 1 else None, None
+    for m in range(mp):
+        g = dist.new_group([d * mp + m for d in range(dp)]) if dp > 1 else None
+        if rank % mp == m:
+            data = g
+    return data, model
+
+
+def make_mesh(spec: MeshSpec = MeshSpec(), world: Optional[int] = None,
+              rank: Optional[int] = None) -> Mesh:
+    """The (data, model) mesh over the process group's `world` ranks (the
+    whole group by default; one rank without a group). ValueError with
+    JAX's text when the spec does not cover the world."""
+    up = dist.is_available() and dist.is_initialized()
+    world = world if world is not None else (dist.get_world_size() if up else 1)
+    rank = rank if rank is not None else (dist.get_rank() if up else 0)
+    dp, mp, _ = spec.resolve(world)
+    data, model = _groups(dp, mp, rank) if up else (None, None)
+    return Mesh(dp, mp, *rank_table(dp, mp)[rank], data, model)
+
+
+def make_hybrid_mesh(spec: MeshSpec = MeshSpec(), *,
+                     dcn_data_parallel: int = 0,
+                     world: Optional[int] = None,
+                     rank: Optional[int] = None) -> Mesh:
+    """Several nodes: the data axis spans them, every model group stays
+    inside one (its ranks on one node's NVLink), JAX's two-tier layout.
+    `dcn_data_parallel` is the node count (0 = world / LOCAL_WORLD_SIZE).
+    Rank r sits on node r // per_node, so the slice-major data axis of JAX
+    is the plain rank order: model groups of contiguous ranks, each inside
+    a node because the model axis divides the node's ranks. So this is a
+    validation step over `make_mesh`'s own layout: it refuses a spec that
+    one node cannot hold (JAX's texts), then builds `make_mesh`'s
+    groups."""
+    if max(spec.pipeline_parallel, 1) > 1:
+        raise ValueError(
+            "dcn_slices does not compose with pipeline_stages yet: the "
+            "hybrid mesh is two-axis (data, model) — drop --pp_stages "
+            "(stages ride the model axis) or --dcn_slices")
+    up = dist.is_available() and dist.is_initialized()
+    world = world if world is not None else (dist.get_world_size() if up else 1)
+    n_slices = dcn_data_parallel
+    if not n_slices:
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world) or world)
+        n_slices = max(world // max(local, 1), 1)
+    if n_slices <= 1:
+        return make_mesh(spec, world, rank)
+    per_slice = world // n_slices
+    dp_ici, mp, _ = MeshSpec(
+        spec.data_parallel // n_slices if spec.data_parallel else 0,
+        spec.model_parallel).resolve(per_slice)
+    return make_mesh(MeshSpec(n_slices * dp_ici, mp), world, rank)
+
+
+# --------------------------------------------------------------- parameters --
+
+MOE_BANKS = ("moe_w_in", "moe_b_in", "moe_w_out", "moe_b_out")
+
+
+def shard_dim(name: str, shape: Sequence[int], model_axis_size: int
+              ) -> Optional[int]:
+    """The dim on which the parameter `name` of `shape` shards over the
+    model axis, None where it is replicated — JAX's `_spec_for_param` in
+    the port's names. Above one model shard:
+
+    - the ArcFace margin's `weight` (C, D) on C;
+    - the MoE expert banks (E, ...), matched by exact name, on E where the
+      axis divides E (the router stays replicated);
+    - the class-dim classifiers on C: a backbone's `fc` and the nested
+      head's `classifier.fc` — torch's (C, D) layout of JAX's (D, C)
+      kernel; their biases stay replicated, as JAX's.
+    """
+    if model_axis_size <= 1:
+        return None
+    parts = name.split(".")
+    if parts[-1] == "weight" and "margin" in parts[:-1] and len(shape) == 2:
+        return 0
+    if parts[-1] in MOE_BANKS and shape[0] % model_axis_size == 0:
+        return 0
+    if name.endswith("fc.weight") and parts[-2] == "fc" and len(shape) == 2:
+        return 0
+    return None
 
 
 def visible_devices(device: torch.device) -> List[torch.device]:

@@ -85,6 +85,7 @@ from ..obs.registry import Registry
 from ..obs.trace import STEP_MARKER
 from ..parallel import ddp
 from ..parallel import fleet as fleetlib
+from ..parallel import mesh as meshlib
 from ..utils import chaos as chaoslib
 from ..utils.backend_probe import StepHeartbeat
 from ..utils.logging import EtaLogger, RecordWriter, host0_print
@@ -93,7 +94,8 @@ from .checkpoint import CheckpointManager
 from .sentinel import SentinelDiverged, StepSentinel
 from . import schedule
 from .state import TRESNET_ARCHS, create_train_state, param_count
-from .steps import make_eval_step, make_nested_eval_step, make_train_step
+from .steps import (make_eval_step, make_nested_eval_step,
+                    make_train_step, sum_over_data)
 
 
 def build_datasets(cfg: Config) -> Tuple[Any, Any]:
@@ -181,27 +183,38 @@ def _sum_into(totals: Optional[Dict[str, torch.Tensor]],
     return totals
 
 
-def check_world(cfg: Config, world: int) -> None:
-    """ValueError (rc 2) unless `parallel.data_parallel` fits the world
-    size and the arch trains over it: TResNet-M's fused ABNs do not share
-    their statistics across ranks yet (ROADMAP.md)."""
-    dp = cfg.parallel.data_parallel
-    if dp and dp != world:
+def check_world(cfg: Config, world: int) -> Tuple[int, int]:
+    """(dp, mp): the mesh `parallel.data_parallel` × `model_axis`
+    resolved over the world, or ValueError (rc 2): a mesh that does not
+    cover the world (JAX's `MeshSpec.resolve` text; without a model axis
+    the port's --dp text), TResNet-M over more than one data rank (its
+    fused ABNs do not share their statistics across ranks yet,
+    ROADMAP.md), and the PLC trainer with a model axis."""
+    dp, mp = cfg.parallel.data_parallel, max(cfg.parallel.model_axis, 1)
+    if mp > 1:
+        dp = meshlib.MeshSpec(dp, mp).resolve(world)[0]
+    elif dp and dp != world:
         raise ValueError(f"--dp {dp} but the process group has {world} "
                          "rank(s): one process drives one card, so --dp "
                          "must equal torchrun's --nproc_per_node × nodes "
                          "(or be 0)")
-    if world > 1 and cfg.model.arch in TRESNET_ARCHS:
-        raise ValueError(f"{cfg.model.arch} trains on one rank only: its "
-                         "fused ABNs do not share batch statistics across "
-                         f"ranks yet, and the world has {world} "
+    dp = dp or world
+    if dp > 1 and cfg.model.arch in TRESNET_ARCHS:
+        raise ValueError(f"{cfg.model.arch} trains on one data rank only: "
+                         "its fused ABNs do not share batch statistics "
+                         f"across ranks yet, and the data axis has {dp} "
                          "(ROADMAP.md)")
+    if mp > 1 and cfg.workload == "plc":
+        raise ValueError("the PLC trainer runs over the data axis only in "
+                         "the port: --mp above 1 is not ported for plc "
+                         "(ROADMAP.md)")
+    return dp, mp
 
 
 def eval_totals(state, eval_step, batches) -> Dict[str, float]:
     """{loss_sum, top1, top3, n} of `eval_step` over this rank's `batches`
     (tuples of device tensors ending in the valid mask), summed on the
-    device, then across the ranks in one all-reduce: the exact global
+    device, then across the data axis in one all-reduce: the exact global
     sums, wrap padding masked on every rank (JAX `make_eval_step`)."""
     totals = None
     for batch in batches:
@@ -209,7 +222,8 @@ def eval_totals(state, eval_step, batches) -> Dict[str, float]:
     keys = ("loss_sum", "top1", "top3", "n")
     if totals is None:  # every rank holds as many batches: none has one
         return dict.fromkeys(keys, 0.0)
-    packed = ddp.sum_across(torch.stack([totals[k].float() for k in keys]))
+    packed = sum_over_data(state, torch.stack([totals[k].float()
+                                               for k in keys]))
     return dict(zip(keys, packed.tolist()))
 
 
@@ -224,7 +238,7 @@ def nested_eval(state, eval_step, batches) -> Dict[str, float]:
     if totals is None:  # every rank holds as many batches: none has one
         return {"val_top1": 0.0, "val_top3": 0.0, "best_k": 0}
     d = totals["top1_k"].shape[0]
-    packed = ddp.sum_across(torch.cat([
+    packed = sum_over_data(state, torch.cat([
         totals["top1_k"], totals["top3_k"], totals["n"].float()[None]])).cpu()
     n = max(float(packed[-1]), 1.0)
     acc, k = best_k(packed[:d], n)
@@ -260,7 +274,13 @@ class Trainer:
         self.chaos = chaoslib.plan_for_run(cfg.run.fault_spec, cfg.run.out_dir)
         if self.chaos:
             host0_print(f"[chaos] fault plan active: {self.chaos}")
-        check_world(cfg, world)
+        dp, mp = check_world(cfg, world)
+        # the (data, model) mesh: every rank makes every group, in order
+        spec = meshlib.MeshSpec(cfg.parallel.data_parallel, mp)
+        self.mesh = (meshlib.make_hybrid_mesh(
+            spec, dcn_data_parallel=cfg.parallel.dcn_slices)
+            if cfg.parallel.dcn_slices else meshlib.make_mesh(spec))
+        data_group = self.mesh.data_group if mp > 1 else ddp.group()
         self.obs = Registry()
         # the pod's epoch-boundary exchange and SIGTERM deferral over more
         # than one rank; an elastic pod keeps the coordinator at world 1,
@@ -293,7 +313,8 @@ class Trainer:
             host0_print(f"[trainer] native decoder active (item route, "
                         f"transform {preset})")
         d = cfg.data
-        shard = dict(host_id=ddp.rank(), num_hosts=world)
+        # the model ranks of a data shard read the same batches
+        shard = dict(host_id=self.mesh.data_index, num_hosts=dp)
         self.train_loader = Loader(
             self.train_ds, d.batch_size, shuffle=True, seed=cfg.run.seed,
             num_workers=d.num_workers, prefetch=d.prefetch,
@@ -311,12 +332,14 @@ class Trainer:
             assemble=lambda b, hb: (*hb, self.val_loader.valid_mask(b)),
             overlap=d.h2d_overlap)
         self.steps_per_epoch = max(len(self.train_loader), 1)
-        self.state = create_train_state(cfg, device, self.steps_per_epoch,
-                                        group=ddp.group())
-        self.train_step = make_train_step(cfg, chaos=self.chaos or None)
+        self.state = create_train_state(
+            cfg, device, self.steps_per_epoch, group=data_group,
+            mesh=self.mesh if mp > 1 else None)
+        self.train_step = make_train_step(cfg, chaos=self.chaos or None,
+                                          mesh=self.mesh)
         self.eval_step = (make_nested_eval_step(cfg)
                           if cfg.model.head == "nested"
-                          else make_eval_step(cfg))
+                          else make_eval_step(cfg, mesh=self.mesh))
         self.records = (RecordWriter(cfg.run.out_dir)
                         if cfg.run.write_records and primary else None)
         self.tb = None
@@ -350,9 +373,12 @@ class Trainer:
         if self.start_epoch and self.records is not None:
             # keep the curve before the stop: the resumed run appends
             self.records.resume_at(self.start_epoch)
-        if ddp.initialized():  # after the restore: every rank starts equal
+        # after the restore: every rank starts equal. DDP spans the data
+        # axis: under a model axis with one data shard there is none
+        if ddp.initialized() and (mp == 1 or dp > 1):
             self.state.ddp = ddp.wrap(self.state.model, device,
-                                      cfg.parallel.grad_reduce_dtype)
+                                      cfg.parallel.grad_reduce_dtype,
+                                      data_group)
         if self.records is not None and self.native_dataplane:
             self.records.append_txt("# native C++ dataplane active")
         # the global step counter, the chaos step hooks' coordinate
@@ -362,7 +388,7 @@ class Trainer:
             f"[trainer] workload={cfg.workload} arch={cfg.model.arch} "
             f"params={param_count(self.state):,} device={device} "
             f"world={world} ddp={ddp.backend()} "
-            f"global_batch={d.batch_size * world} "
+            f"global_batch={d.batch_size * dp} mesh={self.mesh.shape} "
             f"grad_accum={cfg.parallel.grad_accum} "
             f"zero={schedule.is_zero(self.state.optimizer)} "
             f"wire={cfg.parallel.grad_reduce_dtype} "

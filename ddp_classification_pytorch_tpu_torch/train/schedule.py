@@ -56,7 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
-from typing import Callable, Dict, Iterable, List
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -114,11 +114,13 @@ def build_schedule(cfg: OptimConfig, steps_per_epoch: int,
 
 
 def build_optimizer(cfg: OptimConfig, params: Iterable,
-                    zero: bool = False) -> torch.optim.Optimizer:
+                    zero: bool = False,
+                    group: Optional[Any] = None) -> torch.optim.Optimizer:
     """The optimizer over `params` (parameters, or the groups of
     `param_groups`); each group's lr is set per update from its schedule
     (the value given here is the schedule's start). `zero` wraps it in
-    ZeRO-1 over the world group (needs one)."""
+    ZeRO-1 over `group` (the world by default; needs one): the data group
+    under a model axis."""
     if cfg.optimizer == "sgd":
         cls, kw = torch.optim.SGD, dict(momentum=cfg.momentum)
     elif cfg.optimizer == "adam":
@@ -130,7 +132,8 @@ def build_optimizer(cfg: OptimConfig, params: Iterable,
         return cls(params, **kw)
     from torch.distributed.optim import ZeroRedundancyOptimizer
 
-    return ZeroRedundancyOptimizer(list(params), optimizer_class=cls, **kw)
+    return ZeroRedundancyOptimizer(list(params), optimizer_class=cls,
+                                   process_group=group, **kw)
 
 
 def is_zero(opt: torch.optim.Optimizer) -> bool:

@@ -16,7 +16,7 @@ import torch.distributed as dist
 import torch.nn as nn
 
 from ..config import Config
-from ..models.factory import build_model
+from ..models.factory import build_model, shard_params_
 from ..models.heads import ArcMarginHead
 from ..models.import_torch import import_state_dict, load_torch_checkpoint
 from ..models.resnet import DEPTHS as RESNET_DEPTHS
@@ -24,6 +24,8 @@ from ..models.resnet import ResNet
 from ..models.tresnet import TResNet
 from ..models.vgg import CFG_E, VGG
 from ..models.vit import MOE_WEIGHTS, VIT_CONFIGS, xavier_uniform_
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import Mesh
 from .schedule import (
     Schedule,
     build_optimizer,
@@ -136,6 +138,48 @@ class TrainState:
     head_schedule: Optional[Schedule] = None
     # the loader's steps an epoch (CDR's live clip schedule is per epoch)
     steps_per_epoch: int = 1
+    # the (data, model) mesh (parallel/mesh.py), None for one rank; and
+    # {name: dim} of the parameters that hold their model-axis shard
+    mesh: Optional[Mesh] = None
+    shard_dims: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # the whole train state a model axis's `consolidate` gathered
+    _gathered: Optional[Dict[str, Any]] = None
+
+    @property
+    def model_sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.mp > 1
+
+    def _opt_shard_dims(self) -> Dict[int, int]:
+        """{index in the optimizer's state: shard dim} of the sharded
+        params (the plain optimizer's index over its groups)."""
+        name_of = {id(p): n for n, p in self.model.named_parameters()}
+        return {i: self.shard_dims[name_of[id(p)]]
+                for i, p in enumerate(self.params)
+                if name_of.get(id(p)) in self.shard_dims}
+
+    def _reshard(self, sd: Mapping[str, Any], gather: bool
+                 ) -> Dict[str, Any]:
+        """`sd` (`state_dict`'s layout) with every model-axis shard
+        gathered whole over the model group (`gather`, a collective) or
+        a whole tensor cut to this rank's shard."""
+        mesh = self.mesh
+
+        def fix(t: Any, dim: int) -> Any:
+            if not isinstance(t, torch.Tensor) or t.dim() <= dim:
+                return t
+            if gather:
+                return all_gather(t.detach(), mesh.model_group, dim)
+            n = t.shape[dim] // mesh.mp
+            return t.narrow(dim, mesh.model_index * n, n).clone()
+
+        model = {k: fix(v, self.shard_dims[k]) if k in self.shard_dims else v
+                 for k, v in sd["model"].items()}
+        osd = dict(sd["optimizer"])
+        dims = self._opt_shard_dims()
+        osd["state"] = {i: ({k: fix(v, dims[i]) for k, v in st.items()}
+                            if i in dims else st)
+                        for i, st in osd["state"].items()}
+        return {**sd, "model": model, "optimizer": osd}
 
     @property
     def params(self) -> List[nn.Parameter]:
@@ -145,11 +189,16 @@ class TrainState:
                 for p in group["params"]]
 
     def consolidate(self) -> None:
-        """Under ZeRO-1, gather every rank's share of the optimizer state
-        on rank 0, where `state_dict` then reads it: a collective, every
-        rank calls it. A no-op otherwise."""
+        """Gather the train state where rank 0's `state_dict` reads it: a
+        collective, every rank calls it. Under ZeRO-1 every rank's share
+        of the optimizer state goes to the data group's first rank; over
+        a model axis the ranks of data index 0 then gather each sharded
+        tensor (weights and their optimizer state) whole over their model
+        group, so the file holds the one-rank format. A no-op otherwise."""
         if is_zero(self.optimizer):
             self.optimizer.consolidate_state_dict(to=0)
+        if self.model_sharded and self.mesh.data_index == 0:
+            self._gathered = self._reshard(self._local_state_dict(), True)
 
     def optimizer_state_dict(self) -> Dict[str, Any]:
         """The optimizer's state in the plain optimizer's format (`state`
@@ -180,7 +229,17 @@ class TrainState:
         """What resuming needs: the model's f32 master weights and buffers
         (BN running statistics), the optimizer's state (momentum buffers;
         `optimizer_state_dict`), `step` and `opt_count` (the count the
-        schedule reads). The tensors are the live ones, not copies."""
+        schedule reads). The tensors are the live ones, not copies. Over
+        a model axis, the whole state `consolidate` gathered (once)."""
+        if self.model_sharded:
+            if self._gathered is None:
+                raise RuntimeError("a model-sharded state is read whole "
+                                   "after consolidate() on every rank")
+            sd, self._gathered = self._gathered, None
+            return sd
+        return self._local_state_dict()
+
+    def _local_state_dict(self) -> Dict[str, Any]:
         return {"model": self.model.state_dict(),
                 "optimizer": self.optimizer_state_dict(),
                 "step": self.step, "opt_count": self.opt_count}
@@ -196,6 +255,8 @@ class TrainState:
             raise ValueError(f"not a train-state checkpoint (no "
                              f"{', '.join(missing)}): it holds weights only "
                              "and cannot be resumed from")
+        if self.model_sharded:  # whole tensors → this rank's shards
+            sd = self._reshard(sd, False)
         osd = sd["optimizer"]
         if is_zero(self.optimizer):  # it clears the other ranks' entries
             osd = {**osd, "state": dict(osd["state"])}
@@ -216,8 +277,8 @@ TRAIN_ARCHS = (*CONV_ARCHS, *VIT_CONFIGS)
 
 def create_train_state(cfg: Config, device: torch.device,
                        steps_per_epoch: int,
-                       group: Optional[dist.ProcessGroup] = None
-                       ) -> TrainState:
+                       group: Optional[dist.ProcessGroup] = None,
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """Model with fresh f32 master weights from `run.seed` (or, with
     `model.pretrained`, its backbone overlaid with `pretrained_path`'s
     torchvision or timm weights) on `device`, its optimizer
@@ -229,13 +290,15 @@ def create_train_state(cfg: Config, device: torch.device,
     schedules count optimizer updates (`parallel.grad_accum`). The conv
     nets go to the device in channels_last, as K1 and its training passes
     take their activations (weights in NCHW could lead cuDNN to hand back
-    NCHW outputs)."""
+    NCHW outputs). A `mesh` with a model axis (`group` is then its data
+    group) builds the model whole, draws its init, and keeps this rank's
+    shards (`models/factory.py::shard_params_`)."""
     if cfg.model.arch not in TRAIN_ARCHS:
         raise ValueError(f"training arch {cfg.model.arch!r} not yet ported "
                          f"to the torch package (ported: "
                          f"{', '.join(TRAIN_ARCHS)}; ROADMAP.md)")
     model = build_model(cfg.model, cfg.data.num_classes, cfg.data.image_size,
-                        group)
+                        group, mesh)
     init_weights_(model, torch.Generator().manual_seed(cfg.run.seed))
     if cfg.model.pretrained:
         if not cfg.model.pretrained_path:
@@ -245,6 +308,7 @@ def create_train_state(cfg: Config, device: torch.device,
                              "reference's NESTED format) with "
                              "--pretrained_path")
         load_pretrained_(model.backbone, cfg.model.pretrained_path)
+    shard_dims = shard_params_(model, mesh)
     if cfg.model.arch in CONV_ARCHS:
         model.to(device=device, memory_format=torch.channels_last)
     else:
@@ -256,12 +320,12 @@ def create_train_state(cfg: Config, device: torch.device,
         model=model,
         optimizer=build_optimizer(
             opt, param_groups(opt, model, cfg.model.freeze_bn),
-            zero=zero_enabled(cfg.parallel.zero_opt, world)),
+            zero=zero_enabled(cfg.parallel.zero_opt, world), group=group),
         schedule=build_schedule(opt, steps_per_epoch, accum),
         head_schedule=(build_schedule(head_config(opt), steps_per_epoch,
                                       accum)
                        if two_groups(opt) else None),
-        steps_per_epoch=steps_per_epoch)
+        steps_per_epoch=steps_per_epoch, mesh=mesh, shard_dims=shard_dims)
 
 
 def param_count(state: TrainState) -> int:

@@ -13,6 +13,18 @@ it to: the dense step, each microbatch and the phase probes. Every
 active Dropout draws its masks from one generator a step, seeded from
 the run seed, the step and the rank (`seed_dropout`).
 
+Under a model axis (`state.mesh` with mp > 1, `parallel/mesh.py`) every
+model rank of a data shard reads the same batch and holds the same loss:
+the metrics and the eval sums go over the data group, each replicated
+parameter whose shards saw different tokens has its gradient summed over
+the model group (`parallel/ddp.py::sum_model_partials`), and the grad
+norm and CDR's threshold cover the whole of each class-sharded gradient,
+as JAX's global arrays do. `parallel.arcface_sharded_ce` (`--sharded_ce`)
+trains and evaluates ArcFace through the partial-FC CE
+(`ops/sharded_head.py`: JAX `_arcface_sharded_loss` and
+`_make_arcface_sharded_eval`); it needs a model axis
+(`require_sharded_ce_mesh`, JAX's text).
+
 PyTorch runs eagerly, so a "step" here is a plain function over the state
 and device tensors; there is nothing to trace or compile.
 """
@@ -33,7 +45,9 @@ from ..models.dropout import Dropout
 from ..models.vit import pop_moe_aux
 from ..ops.cdr import cdr_clip, cdr_mask_
 from ..ops.nested import nested_all_k_counts, nested_k, prefix_mask
+from ..ops.sharded_head import arc_margin_ce_sharded
 from ..parallel import ddp
+from ..parallel.collectives import all_gather, psum
 from ..utils.metrics import topk_correct, topk_hits
 from .schedule import zero_enabled
 
@@ -98,16 +112,18 @@ def dropout_seed(seed: int, step: int, rank: int = 0) -> int:
 
 
 def seed_dropout(model: nn.Module, seed: int, step: int,
-                 device: torch.device) -> None:
+                 device: torch.device, rank: Optional[int] = None) -> None:
     """Give every active Dropout of `model` one generator on `device`,
     seeded with `dropout_seed(seed, step, rank)`: the step's masks, drawn
     in the order the forward reaches them (microbatch after microbatch
-    under accumulation)."""
+    under accumulation). `rank` is the data index (default the process's
+    rank): the model ranks of a data shard draw the same masks."""
     drops = [m for m in model.modules() if isinstance(m, Dropout) and m.p > 0]
     if not drops:
         return
     gen = torch.Generator(device=device)
-    gen.manual_seed(dropout_seed(seed, step, ddp.rank()))
+    gen.manual_seed(dropout_seed(seed, step,
+                                 ddp.rank() if rank is None else rank))
     for m in drops:
         m.generator = gen
 
@@ -174,19 +190,67 @@ def _loss(cfg: Config, model: nn.Module, logits: torch.Tensor,
     return loss
 
 
-def _global_metrics(loss: torch.Tensor, logits: torch.Tensor,
+def data_axis(state: "TrainState") -> Tuple[Any, int]:
+    """(group, size) of the data axis: the mesh's data group under a model
+    axis, else the world."""
+    mesh = state.mesh
+    if mesh is not None and mesh.mp > 1:
+        return mesh.data_group, mesh.dp
+    return ddp.group(), ddp.world_size()
+
+
+def sum_over_data(state: "TrainState", t: torch.Tensor) -> torch.Tensor:
+    """`t` summed over the data axis, in place (itself on one data
+    shard)."""
+    group, size = data_axis(state)
+    return ddp.sum_across(t, group) if size > 1 else t
+
+
+def _global_metrics(state: "TrainState", loss: torch.Tensor,
+                    logits: torch.Tensor,
                     labels: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The global batch's mean loss and top-1/top-3 shares: this rank's
-    loss and counts summed across the ranks in one all-reduce (the JAX
-    `pmean(loss)` and `psum` of the counts, `collectives.py:79,86-88`);
+    loss and counts summed across the data axis in one all-reduce (the
+    JAX `pmean(loss)` and `psum` of the counts, `collectives.py:79,86-88`);
     this rank's own without a group."""
-    world = ddp.world_size()
+    world = data_axis(state)[1]
     n = labels.shape[0] * world
-    packed = ddp.sum_across(torch.stack([
+    packed = sum_over_data(state, torch.stack([
         loss.detach().float(), topk_correct(logits, labels, 1).float(),
         topk_correct(logits, labels, 3).float()]))
     return {"loss": packed[0] / world, "top1": packed[1] / n,
             "top3": packed[2] / n}
+
+
+def require_sharded_ce_mesh(mesh) -> None:
+    """The partial-FC CE exists to avoid (B, C) logits: without a model
+    axis above 1 it is refused, never run densely (JAX
+    `_require_sharded_ce_mesh`, its text)."""
+    if mesh is None or mesh.mp <= 1:
+        raise ValueError(
+            "arcface_sharded_ce requires a mesh with a model axis > 1 "
+            "(--mp N); got "
+            + ("no mesh" if mesh is None else f"mesh {mesh.shape}"))
+
+
+def _sharded_ce(cfg: Config, state: "TrainState", net: nn.Module,
+                x: torch.Tensor, labels: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The partial-FC train loss (JAX `_arcface_sharded_loss`): the
+    embeddings through the (DDP) forward, then `arc_margin_ce_sharded`
+    with this rank's margin shard over the global batch; the MoE penalty
+    as in `_loss`. Returns (loss, metrics)."""
+    mc, mesh = cfg.model, state.mesh
+    emb = net(x, features_only=True)
+    loss, t1, t3 = arc_margin_ce_sharded(
+        emb, state.model.margin.weight, labels, mesh.model_group,
+        mesh.data_group, s=mc.arc_s, m=mc.arc_m, easy_margin=mc.arc_easy_margin)
+    if mc.moe_experts:
+        aux = pop_moe_aux(state.model)
+        if aux is not None and mc.moe_aux_weight:
+            loss = loss + mc.moe_aux_weight * aux
+    n = labels.shape[0] * mesh.dp
+    return loss, {"loss": loss.detach(), "top1": t1 / n, "top3": t3 / n}
 
 
 def _forward(cfg: Config, net: nn.Module, x: torch.Tensor,
@@ -204,24 +268,70 @@ def _forward(cfg: Config, net: nn.Module, x: torch.Tensor,
     return net(x)
 
 
-def _grad_norm(params) -> torch.Tensor:
-    """The global norm of the params' gradients, in f32."""
-    return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(p.grad.float()) for p in params]))
+def _grad_norm(params, state: Optional["TrainState"] = None) -> torch.Tensor:
+    """The global norm of the params' gradients, in f32; a class-sharded
+    gradient counts whole (its shards' squares summed over the model
+    group)."""
+    if state is None or not state.model_sharded:
+        return torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(p.grad.float()) for p in params]))
+    ids = {id(p) for name, p in state.model.named_parameters()
+           if name in state.shard_dims}
+    sq = [torch.linalg.vector_norm(p.grad.float()) ** 2 for p in params]
+    whole = sum(s for p, s in zip(params, sq) if id(p) not in ids)
+    shards = sum(s for p, s in zip(params, sq) if id(p) in ids)
+    return torch.sqrt(whole + psum(torch.as_tensor(shards, dtype=torch.float32,
+                                                   device=sq[0].device),
+                                   state.mesh.model_group))
 
 
-def check_scaling(cfg: Config, world: int = 1) -> None:
+def _cdr_mask(state: "TrainState", params, nonzero_ratio: float,
+              clip: float) -> None:
+    """CDR's mask over every gradient entry: a class-sharded parameter and
+    its gradient take part whole (gathered over the model group), and
+    this rank keeps its slice of the masked gradient."""
+    if not state.model_sharded:
+        cdr_mask_([(p, p.grad) for p in params], nonzero_ratio, clip)
+        return
+    dims = {id(p): state.shard_dims[n]
+            for n, p in state.model.named_parameters()
+            if n in state.shard_dims}
+    group, index = state.mesh.model_group, state.mesh.model_index
+    pairs, back = [], []
+    for p in params:
+        if id(p) not in dims:
+            pairs.append((p, p.grad))
+            continue
+        d = dims[id(p)]
+        g = all_gather(p.grad, group, d)
+        pairs.append((all_gather(p.detach(), group, d), g))
+        back.append((p.grad, g, d))
+    cdr_mask_(pairs, nonzero_ratio, clip)
+    for local, whole, d in back:
+        n = local.shape[d]
+        local.copy_(whole.narrow(d, index * n, n))
+
+
+def check_scaling(cfg: Config, world: int = 1, mp: int = 1) -> None:
     """The scaling levers' rejections (ValueError: rc 2), the JAX
     package's (`steps.py:174-212,230-258`, `mesh.py:292-300`): a wire dtype
     or ZeRO setting outside its choices; `grad-accum-indivisible`, a
     per-process batch that K does not split into K equal microbatches (a
     ragged one would re-weight its samples); the bf16 wire under the
     nested head over more than one rank (JAX draws that head's k per
-    shard in its bf16 section; the check there does not look at K)."""
+    shard in its bf16 section; the check there does not look at K); the
+    bf16 wire over more than one data rank with the partial-FC CE or a
+    model axis above 1. `world` is the data axis's size."""
     p = cfg.parallel
     if p.grad_reduce_dtype not in ("float32", "bfloat16"):
         raise ValueError("parallel.grad_reduce_dtype must be "
                          f"float32|bfloat16, got {p.grad_reduce_dtype!r}")
+    want_bf16 = p.grad_reduce_dtype == "bfloat16" and world > 1
+    if want_bf16 and p.arcface_sharded_ce and cfg.model.head == "arcface":
+        raise ValueError(
+            "grad_reduce_dtype=bfloat16 does not compose with "
+            "arcface_sharded_ce (the partial-FC loss is its own "
+            "shard_map program) — drop one of the two")
     zero_enabled(p.zero_opt, world)
     k = grad_accum(cfg)
     if k > 1 and cfg.data.batch_size % k:
@@ -235,6 +345,11 @@ def check_scaling(cfg: Config, world: int = 1) -> None:
         raise ValueError(
             "grad_reduce_dtype=bfloat16 does not support the nested "
             "workload (per-batch mask k must be sampled globally)")
+    if want_bf16 and mp > 1:
+        raise ValueError(
+            "grad_reduce_dtype=bfloat16 is the pure-DP fast path; it "
+            "does not compose with a model/pipe axis — use float32 "
+            "reduction there")
 
 
 def grad_accum(cfg: Config) -> int:
@@ -274,7 +389,8 @@ def _step_inputs(cfg: Config) -> Callable[..., Tuple]:
         elif k is None and accum > 1:
             k = [None] * accum
         model.train()
-        seed_dropout(model, seed, state.step, x.device)
+        seed_dropout(model, seed, state.step, x.device,
+                     state.mesh.data_index if state.mesh is not None else None)
         # every parameter's, not only the optimizer's: freeze-BN's params
         # are in no group but still get (and must not accumulate) gradients
         model.zero_grad(set_to_none=True)
@@ -340,7 +456,8 @@ def _mean_of_sums(model: nn.Module, k: int) -> None:
         torch._foreach_div_(grads, float(k))
 
 
-def make_train_step(cfg: Config, chaos: Optional[Any] = None
+def make_train_step(cfg: Config, chaos: Optional[Any] = None,
+                    mesh: Optional[Any] = None
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """`(state, images (B, H, W, 3), labels (B,)) -> metrics`, updating
     `state` in place — the JAX `_build_step` for every ported head.
@@ -391,11 +508,17 @@ def make_train_step(cfg: Config, chaos: Optional[Any] = None
     CDR and the update run once, at this optimizer boundary: one
     `step_ok` a step, one sentinel observation. A skipped step puts the
     buffers back as they were before microbatch 0. K = 1 is the plain
-    step above, call for call. `check_scaling` rejects what JAX does."""
+    step above, call for call. `check_scaling` rejects what JAX does.
+
+    `mesh` (`parallel/mesh.py::Mesh`) is the state's; with
+    `parallel.arcface_sharded_ce` under the arcface head the loss and its
+    metrics are the partial-FC CE's (`_sharded_ce`)."""
     if cfg.optim.grad_transform not in ("none", "cdr"):
         raise ValueError(f"unknown optim.grad_transform "
                          f"{cfg.optim.grad_transform!r}; one of none, cdr")
-    check_scaling(cfg, ddp.world_size())
+    mp = mesh.mp if mesh is not None else 1
+    check_scaling(cfg, mesh.dp if mp > 1 else ddp.world_size(), mp)
+    sharded_ce = _sharded_ce_on(cfg, mesh)
     o = cfg.optim
     cdr = o.grad_transform == "cdr"
     nan_windows = list(chaos.windows("nan_loss", "step")) if chaos else []
@@ -413,32 +536,43 @@ def make_train_step(cfg: Config, chaos: Optional[Any] = None
                                          backward=True)
             _mean_of_sums(model, accum)
             return finish(state, loss, logits, labels, buffers, kept)
+        net = model if state.ddp is None else state.ddp
         with _phase("fwd"):
             x, k, buffers, kept = prepare(state, images, flip, k)
-            logits = _forward(cfg, model if state.ddp is None else state.ddp,
-                              x, labels, k)
-            loss = _loss(cfg, model, logits, labels)
+            if sharded_ce:
+                loss, metrics = _sharded_ce(cfg, state, net, x, labels)
+            else:
+                logits = _forward(cfg, net, x, labels, k)
+                loss = _loss(cfg, model, logits, labels)
         with _phase("bwd"):
             loss.backward()
+        if sharded_ce:
+            return finish(state, loss, None, labels, buffers, kept, metrics)
         return finish(state, loss, logits.detach(), labels, buffers, kept)
 
-    def finish(state: "TrainState", loss: torch.Tensor, logits: torch.Tensor,
-               labels: torch.Tensor, buffers, kept) -> Dict[str, torch.Tensor]:
+    def finish(state: "TrainState", loss: torch.Tensor,
+               logits: Optional[torch.Tensor], labels: torch.Tensor, buffers,
+               kept, metrics: Optional[Dict[str, torch.Tensor]] = None
+               ) -> Dict[str, torch.Tensor]:
         """The optimizer boundary, once a step however many microbatches
-        fed it: chaos, the global gate, CDR, the update or the skip."""
+        fed it: chaos, the global gate, CDR, the update or the skip.
+        `metrics` are the partial-FC CE's, already global."""
         model, opt = state.model, state.optimizer
         with _phase("optimizer"):
+            ddp.sum_model_partials(model, state.mesh)
             if any(state.step >= lo and (hi is None or state.step <= hi)
                    for lo, hi in nan_windows):
                 loss = torch.full_like(loss, float("nan"))
-            metrics = _global_metrics(loss, logits, labels)
+                if metrics is not None:
+                    metrics["loss"] = loss.detach()
+            if metrics is None:
+                metrics = _global_metrics(state, loss, logits, labels)
             params = [p for p in model.parameters() if p.grad is not None]
-            grad_norm = _grad_norm(params)
+            grad_norm = _grad_norm(params, state)
             ok = torch.isfinite(metrics["loss"]) & torch.isfinite(grad_norm)
             if bool(ok):  # the one host read of the step
                 if cdr:
-                    cdr_mask_([(p, p.grad) for p in params],
-                              1.0 - o.noise_rate,
+                    _cdr_mask(state, params, 1.0 - o.noise_rate,
                               cdr_clip(o.noise_rate, o.num_gradual,
                                        o.cdr_dead_schedule, state.opt_count,
                                        state.steps_per_epoch))
@@ -456,7 +590,17 @@ def make_train_step(cfg: Config, chaos: Optional[Any] = None
     return step
 
 
-def make_phase_probes(cfg: Config) -> Dict[str, Callable]:
+def _sharded_ce_on(cfg: Config, mesh: Optional[Any]) -> bool:
+    """Whether the arcface head runs the partial-FC CE (refused without a
+    model axis)."""
+    if not (cfg.parallel.arcface_sharded_ce and cfg.model.head == "arcface"):
+        return False
+    require_sharded_ce_mesh(mesh)
+    return True
+
+
+def make_phase_probes(cfg: Config, mesh: Optional[Any] = None
+                      ) -> Dict[str, Callable]:
     """Sub-steps of the train step for a host-timed step breakdown (JAX
     `make_phase_probes`, `steps.py:298-340`):
     `{"fwd": (state, images, labels) -> loss,
@@ -475,12 +619,25 @@ def make_phase_probes(cfg: Config) -> Dict[str, Callable]:
     ÷K before their norm."""
     prepare = _step_inputs(cfg)
     accum = grad_accum(cfg)
+    sharded_ce = _sharded_ce_on(cfg, mesh)
+
+    def norm(state: "TrainState") -> torch.Tensor:
+        ddp.sum_model_partials(state.model, state.mesh)
+        return _grad_norm([p for p in state.model.parameters()
+                           if p.grad is not None], state)
 
     def run(state: "TrainState", images: torch.Tensor, labels: torch.Tensor,
             backward: bool):
         x, k, buffers, kept = prepare(state, images, None, None)
         net = state.model if state.ddp is None else state.ddp
         try:
+            if sharded_ce:
+                with torch.set_grad_enabled(backward):
+                    loss = _sharded_ce(cfg, state, net, x, labels)[0]
+                if not backward:
+                    return loss.detach()
+                loss.backward()
+                return loss.detach(), norm(state)
             if accum > 1:
                 with torch.set_grad_enabled(backward):
                     loss, _ = _microbatches(cfg, state, x, labels, k,
@@ -488,8 +645,7 @@ def make_phase_probes(cfg: Config) -> Dict[str, Callable]:
                 if not backward:
                     return loss
                 _mean_of_sums(state.model, accum)
-                return loss, _grad_norm([p for p in state.model.parameters()
-                                         if p.grad is not None])
+                return loss, norm(state)
             if not backward:
                 with torch.no_grad():
                     return _loss(cfg, state.model,
@@ -497,8 +653,7 @@ def make_phase_probes(cfg: Config) -> Dict[str, Callable]:
             loss = _loss(cfg, state.model, _forward(cfg, net, x, labels, k),
                          labels)
             loss.backward()
-            return loss.detach(), _grad_norm(
-                [p for p in state.model.parameters() if p.grad is not None])
+            return loss.detach(), norm(state)
         finally:
             state.model.zero_grad(set_to_none=True)
             if buffers:
@@ -511,14 +666,18 @@ def make_phase_probes(cfg: Config) -> Dict[str, Callable]:
                                                          labels, True)}
 
 
-def make_eval_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
+def make_eval_step(cfg: Config, mesh: Optional[Any] = None
+                   ) -> Callable[..., Dict[str, torch.Tensor]]:
     """`(state, images, labels, valid) -> {loss_sum, top1, top3, n}`:
     per-batch counts over this rank's rows where `valid` is 1 (the
     loader's wrap-padding is 0), summed across batches and then across the
-    ranks by `train/loop.py::eval_totals`. The arcface head is scored on
-    s·cosθ and the nested head on its unmasked logits (`labels` / `mask`
-    None; JAX `steps.py:727-745`)."""
+    data axis by `train/loop.py::eval_totals`. The arcface head is scored
+    on s·cosθ and the nested head on its unmasked logits (`labels` /
+    `mask` None; JAX `steps.py:727-745`); with the partial-FC CE the
+    arcface scores go through `arc_margin_ce_sharded` with m 0 and the
+    valid mask, no (B, C) logits (JAX `_make_arcface_sharded_eval`)."""
     consts: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+    sharded_ce = _sharded_ce_on(cfg, mesh)
 
     def step(state: "TrainState", images: torch.Tensor, labels: torch.Tensor,
              valid: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -526,6 +685,13 @@ def make_eval_step(cfg: Config) -> Callable[..., Dict[str, torch.Tensor]]:
         with torch.no_grad():
             x = device_input_epilogue(images.permute(0, 3, 1, 2),
                                       *_cached_consts(consts, images.device))
+            if sharded_ce:
+                loss, t1, t3 = arc_margin_ce_sharded(
+                    state.model.features(x), state.model.margin.weight,
+                    labels, state.mesh.model_group, s=cfg.model.arc_s, m=0.0,
+                    valid=valid)
+                n = valid.sum()
+                return {"loss_sum": loss * n, "top1": t1, "top3": t3, "n": n}
             logits = state.model(x)
             ce = F.cross_entropy(logits.float(), labels.long(),
                                  reduction="none")

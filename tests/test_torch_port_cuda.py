@@ -10,7 +10,11 @@ geometry and of any other they do not take, the ABN and flash autograd Functions
 versions' autograd, the served model on the card against the same
 model on the CPU, and the serving engine's CUDA graphs (one a bucket at
 warmup, replays bitwise the eager predict, the hot swap into the
-captured weights, `--strict_compile` on a steady-state capture).
+captured weights, `--strict_compile` on a steady-state capture), and
+the model axis's bodies over N shards in one process (chip_smoke.py's
+phase 35 at reduced shapes): `flash_attention_with_lse` with an lse
+cotangent, the flash ring against `flash_attention` on the whole T, the
+EP combine against one shard, the partial-FC CE against the dense one.
 
 Marked `cuda`; each test skips (inside a fixture, never at import) where
 `torch.cuda.is_available()` is false. On the card, without JAX installed:
@@ -954,3 +958,169 @@ def test_graph_engine_strict_compile_on_a_steady_state_capture(cuda):
     assert engine.fatal_error is not None and engine.closed
     assert all(f.result(timeout=0).indices.shape == (5,) for f in futures)
     engine.drain()
+
+
+# -------------------------------------------------- the model axis (35) --
+# the ring against flash_attention on the whole T: each rounds its output
+# and gradients to bf16 once, at different points of the sum (chip_smoke.py
+# RING_TOL): (atol, RMS share)
+RING_TOL = {torch.float32: ((1e-4, 1e-5), (1e-4, 1e-5)),
+            torch.bfloat16: ((1e-2, 5e-3), (2e-2, 5e-3))}
+# the gradients against the plain versions forwards included, bf16: the
+# plain forward's own out feeds Δ, and the bf16 roundings of dS that the
+# two sides' f32 dS straddle spread to an RMS share near 1.2e-3
+# (chip_smoke.py LSE_GRAD_TOL); against K2 with the plain backwards they
+# keep FLASH_RMS_TOL's 1e-3; f32 keeps FLASH_RMS_TOL's
+LSE_GRAD_RMS = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_with_lse_matches_the_plain_versions_autograd(cuda, monkeypatch,
+                                                            dtype):
+    """`flash_attention_with_lse` through K2-K4 under nonzero out and lse
+    cotangents against the same Function on the plain versions, (2, 256,
+    3, 64); its out bitwise `flash_attention`'s."""
+    from ddp_classification_pytorch_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(35)
+    base = [torch.randn(2, 256, 3, 64, device=cuda, generator=g).to(dtype)
+            for _ in range(3)]
+    w_out = torch.randn(2, 256, 3, 64, device=cuda, generator=g)
+    w_lse = torch.randn(2, 3, 256, device=cuda, generator=g)
+
+    def run():
+        q, k, v = (x.clone().requires_grad_() for x in base)
+        out, lse = fa.flash_attention_with_lse(q, k, v)
+        ((out.float() * w_out).sum() + (lse * w_lse).sum()).backward()
+        return [out.detach(), lse.detach()] + [x.grad for x in (q, k, v)]
+
+    before = fa.flash_forward.launches, fa.flash_dq.launches, fa.flash_dkv.launches
+    got = run()
+    assert (fa.flash_forward.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == tuple(n + 1 for n in before)
+    assert torch.equal(got[0], fa.flash_attention(*base))
+    o_tol, g_tol, rtol = FLASH_TOL[dtype]
+    # K2 with the plain backwards: K3/K4 and theirs on the same out, lse, Δ
+    monkeypatch.setattr(fa, "flash_dq", fa.flash_dq_ref)
+    monkeypatch.setattr(fa, "flash_dkv", fa.flash_dkv_ref)
+    plain_bwd = run()
+    assert torch.equal(got[0], plain_bwd[0])
+    for a, b in zip(got[2:], plain_bwd[2:]):
+        _assert_flash_close(a, b, g_tol, rtol, FLASH_RMS_TOL[dtype][1])
+    monkeypatch.setattr(fa, "flash_forward", fa.flash_forward_ref)
+    want = run()
+    _assert_flash_close(got[0], want[0], o_tol, rtol, FLASH_RMS_TOL[dtype][0])
+    torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-4)
+    for a, b in zip(got[2:], want[2:]):
+        _assert_flash_close(a, b, g_tol, rtol, LSE_GRAD_RMS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_ring_shards_match_flash_attention(cuda, monkeypatch, n, causal,
+                                                 dtype):
+    """The flash ring's forward and backward over N token shards in one
+    process (K2 N² times, K3 and K4 N² times; the causal ring skips the
+    N(N−1)/2 future visits) against the same ring on the plain versions
+    within the kernels' own limits (FLASH_TOL, FLASH_RMS_TOL: out against
+    the plain forwards, the gradients against K2 with the plain
+    backwards), and
+    against `flash_attention` on the whole T (RING_TOL), (2, 512, 3,
+    64)."""
+    from ddp_classification_pytorch_tpu_torch.ops import attention as att
+    from ddp_classification_pytorch_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(36)
+    q, k, v, do = (torch.randn(2, 512, 3, 64, device=cuda, generator=g)
+                   .to(dtype) for _ in range(4))
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*xs, causal=causal)
+    out.backward(do)
+    want = [out.detach()] + [x.grad for x in xs]
+    before = fa.flash_forward.launches, fa.flash_dq.launches, fa.flash_dkv.launches
+
+    def ring():
+        outs, grads = att.ring_attention_shards(
+            *(list(x.chunk(n, dim=1)) for x in (q, k, v, do)), causal=causal,
+            use_flash=True)
+        return [torch.cat(outs, 1)] + [torch.cat(x, 1) for x in grads]
+
+    got = ring()
+    visits = n * (n + 1) // 2 if causal else n * n
+    assert (fa.flash_forward.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == tuple(b + visits for b in before)
+    # the gradients against K2 with the plain backwards (K3/K4 and theirs
+    # on the same out, lse and Δ), out against the plain forwards
+    monkeypatch.setattr(fa, "flash_dq", fa.flash_dq_ref)
+    monkeypatch.setattr(fa, "flash_dkv", fa.flash_dkv_ref)
+    plain = ring()[1:]
+    monkeypatch.setattr(fa, "flash_forward", fa.flash_forward_ref)
+    plain = ring()[:1] + plain
+    o_tol, g_tol, rtol = FLASH_TOL[dtype]
+    for i, (a, b, c) in enumerate(zip(got, plain, want)):
+        _assert_flash_close(a, b, g_tol if i else o_tol, rtol,
+                            FLASH_RMS_TOL[dtype][i > 0])
+        atol, rms = RING_TOL[dtype][i > 0]
+        _assert_flash_close(a, c, atol, rtol, rms)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_expert_shards_match_one_shard(cuda, n):
+    """The EP combine over N expert shards in one process against the
+    one-shard `moe_mlp`, bf16 (8 experts of 96, top-2, (2, 64, 192)):
+    within 1e-2 of the largest output (chip_smoke.py MOE_ROUTE_TOL)."""
+    from ddp_classification_pytorch_tpu_torch.models.vit import xavier_uniform_
+    from ddp_classification_pytorch_tpu_torch.ops import moe
+
+    g = torch.Generator(device=cuda).manual_seed(37)
+    x = torch.randn(2, 64, 192, device=cuda, generator=g).to(torch.bfloat16)
+    banks = [xavier_uniform_(torch.empty(8, 192, 96, device=cuda)),
+             torch.randn(8, 96, device=cuda, generator=g) * 0.1,
+             xavier_uniform_(torch.empty(8, 96, 192, device=cuda)),
+             torch.randn(8, 192, device=cuda, generator=g) * 0.1]
+    gates = moe.topk_gates(torch.randn(2, 64, 8, device=cuda, generator=g), 2)
+    one = moe.moe_mlp(x, gates, *banks).float()
+    got = moe.moe_mlp_shards(
+        x, gates, [tuple(b.chunk(n)[i] for b in banks) for i in range(n)])
+    assert got.dtype == torch.bfloat16
+    assert (got.float() - one).abs().max() <= 1e-2 * one.abs().max()
+
+
+def test_partial_fc_shards_match_the_dense_margin_ce(cuda):
+    """The partial-FC CE over 4 class shards in one process against the
+    dense margin + CE in f32 (B 64, D 64, C 1000; each feature near its
+    label's weight row, so that the top-1 and top-3 counts are nonzero
+    and differ): loss, counts, and the features' and weight's gradients
+    within 1e-4, their RMS shares (and that of the weight rows no label
+    names) within 1e-5 (chip_smoke.py CE_RMS_TOL)."""
+    from ddp_classification_pytorch_tpu_torch.ops import arcface
+    from ddp_classification_pytorch_tpu_torch.ops import sharded_head as sh
+
+    g = torch.Generator(device=cuda).manual_seed(38)
+    weight = torch.randn(1000, 64, device=cuda, generator=g)
+    labels = torch.randint(0, 1000, (64,), device=cuda, generator=g)
+    sigma = torch.linspace(0.5, 1.5, 64, device=cuda)[:, None]
+    feats = (torch.nn.functional.normalize(weight[labels], dim=1)
+             + sigma * torch.randn(64, 64, device=cuda, generator=g) / 8)
+    f, w = feats.clone().requires_grad_(), weight.clone().requires_grad_()
+    logits = arcface.arc_margin_logits(f, w, labels)
+    loss = torch.nn.functional.cross_entropy(logits, labels)
+    loss.backward()
+    top = torch.topk(logits.detach(), 3, dim=1).indices == labels[:, None]
+    f2, w2 = feats.clone().requires_grad_(), weight.clone().requires_grad_()
+    got, t1, t3 = sh.arc_margin_ce_shards(f2, list(w2.chunk(4)), labels)
+    got.backward()
+    torch.testing.assert_close(got, loss.detach(), atol=1e-4, rtol=1e-4)
+    want_t1, want_t3 = int(top[:, 0].sum()), int(top.any(1).sum())
+    assert 0 < want_t1 < want_t3 < 64, (want_t1, want_t3)
+    assert (int(t1), int(t3)) == (want_t1, want_t3)
+    other = torch.ones(1000, dtype=torch.bool, device=cuda)
+    other[labels] = False
+    for a, b in ((f2.grad, f.grad), (w2.grad, w.grad),
+                 (w2.grad[other], w.grad[other])):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        err = (a - b).pow(2).mean().sqrt().item()
+        assert err <= 1e-5 * b.pow(2).mean().sqrt().item(), err

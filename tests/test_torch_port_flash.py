@@ -146,12 +146,20 @@ def test_dense_attention_matches_jax(causal):
 
 
 def test_ring_dispatch_and_refusals():
+    """One shard: the flash kernels; two token shards (the ring's bodies
+    in one process, the einsum and the flash one): the dense op on the
+    whole T (tests/test_torch_port_ring.py holds the ring against JAX's
+    over gloo ranks)."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(t=16, seed=6))
     torch.testing.assert_close(
         port_attention.ring_attention(q, k, v, use_flash=True),
         port_attention.attention(q, k, v), atol=1e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ring attention not yet ported"):
-        port_attention.ring_attention(q, k, v, axis_size=2)
+    for flash in (False, True):
+        outs = port_attention.ring_attention_shards(
+            *(list(x.chunk(2, dim=1)) for x in (q, k, v)), use_flash=flash)
+        torch.testing.assert_close(torch.cat(outs, 1),
+                                   port_attention.attention(q, k, v),
+                                   atol=1e-5, rtol=1e-5)
     with pytest.raises(ValueError, match="equal shape"):
         port_fa.flash_attention(q, k[:, :8], v[:, :8])
 

@@ -24,7 +24,8 @@ and the train CLI's model options (`--moe_*`, `--dropout`, `--remat`,
     does; the expert banks' init is flax's xavier-uniform with the expert
     count in both fans (U(±0.0884) at (8, 64, 32)).
 (e) The CLI: the flags map as JAX's; every rejection exits rc 2 where the
-    JAX package raises too; `--mp 2` exits rc 2; VGG19-BN's `--dropout 0`
+    JAX package raises too; `--mp 2` on one rank exits rc 2 with the mesh
+    text (JAX's 8-device mesh takes it); VGG19-BN's `--dropout 0`
     is 0.5 (JAX `factory.py:62`).
 """
 
@@ -386,7 +387,7 @@ def _jax_refuses(argv) -> bool:
      "top_k=5 must be in"),
     (["--model", "vit_t16", "--moe_experts", "4", "--moe_aux_weight", "-1"],
      "must be >= 0"),
-    (["--mp", "2"], "ROADMAP.md"),
+    (["--mp", "2"], "mesh 0×2×1 does not cover 1 devices"),
 ], ids=["moe-resnet", "moe-divide", "moe-dropout", "moe-top-k",
         "aux-negative", "mp2"])
 def test_rejections_exit_2(tmp_path, capsys, extra, words):

@@ -289,13 +289,17 @@ def test_cli_unported_or_bad_config_exits_2(tmp_path, extra):
                + extra) == 2
 
 
-def test_cli_unported_workload_exits_2(tmp_path):
-    """ArcFace's partial-FC CE (`--sharded_ce`) is not ported: rc 2 (the
-    dense arcface head trains on every arch, TINY's ViT too). PLC trains
-    the ViT (its head is the plain fc): rc 0, with the correction
-    record."""
-    assert _rc(["arcface"] + TINY[1:] + ["--device", "cpu",
+def test_cli_unported_workload_exits_2(tmp_path, capsys):
+    """ArcFace's partial-FC CE (`--sharded_ce`) without a model axis is
+    rc 2 with JAX's `_require_sharded_ce_mesh` text (the dense arcface
+    head trains on every arch, TINY's ViT too). PLC trains the ViT (its
+    head is the plain fc): rc 0, with the correction record."""
+    assert _rc(["arcface"] + TINY[1:] + ["--device", "cpu", "--out",
+                                         str(tmp_path / "sce"),
                                          "--sharded_ce"]) == 2
+    assert ("arcface_sharded_ce requires a mesh with a model axis > 1 "
+            "(--mp N); got mesh {'data': 1, 'model': 1}"
+            in capsys.readouterr().err)
     assert _rc(["plc"] + TINY[1:] + ["--device", "cpu", "--plc_warmup_epochs",
                                      "0", "--out", str(tmp_path / "plc")]) == 0
     assert (tmp_path / "plc" / "plc_labels.npy").exists()
@@ -307,7 +311,7 @@ def test_cli_exits_8_after_max_bad_steps_consecutive_skips(monkeypatch, tmp_path
     rc 8; no epoch after the divergence is checkpointed."""
     from ddp_classification_pytorch_tpu_torch.train import loop
 
-    def nan_step(cfg, chaos=None):
+    def nan_step(cfg, chaos=None, mesh=None):
         def step(state, images, labels):
             state.step += 1
             nan = torch.tensor(float("nan"))
