@@ -315,7 +315,8 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    `tresnet_nested_path_launches`, `vit_arcface_path_launches`,
    `debug_nans_path_launches`, `profile_window_path_launches`) and on
    phase 32 (b)'s (`grad_accum_path_launches`: the K1 family 36 × 4 a
-   step) and on phase 35's (`model_axis_path_launches`), then `{"ok":
+   step) and on phase 35's (`model_axis_path_launches`) and phase 36's
+   (`pipeline_path_launches`: 0), then `{"ok":
    true, "device": {...}}` last;
 29. (run before the summary line) the recovery chain on the card —
    (a) `Trainer` on TResNet-M at full width (224 px, 2173 classes, bf16,
@@ -480,7 +481,27 @@ Phases (any failure exits non-zero; no phase is caught and ignored):
    gradients' RMS shares (and that of the weight rows no label names)
    within CE_RMS_TOL, the peak allocated memory of one shard's block
    beside the dense path's, and both times; (e) `cli/train.py --mp 2` on
-   the one card exits rc 2 with the mesh text, `--mp 1` trains (rc 0).
+   the one card exits rc 2 with the mesh text, `--mp 1` trains (rc 0);
+36. (run before the summary line) GPipe on the one card, ViT-B/16 (12
+   blocks, dim 768, 12 heads) at 224 px (196 tokens), batch 32, bf16 —
+   every launch count set to 0 first, read after (d) (the kernels line's
+   `pipeline_path_launches`: 0 for every kernel, since JAX's pipelined
+   blocks run dense attention, no flash): (a) the executor's S stages in
+   one process (`ops/pipeline.py::gpipe_shards`, the seam no CLI path
+   reaches) at (S, M) = (2, 4) and (4, 8), forward and backward, against
+   the sequential 12-block stack on the same weights and input: out, the
+   input's and every block parameter's gradient within PIPE_TOL
+   (microbatching changes cuBLAS's shapes, so not bitwise), the tick
+   count M + S − 1, device ms (CUDA events) and peak allocated memory
+   beside the sequential stack's; (b) `cli/train.py baseline --model
+   vit_b16 --pp_microbatches 4` at world 1 (JAX's S = 1 fallback): 8
+   steps and 2 eval batches, its checkpoint, then `--auto_resume
+   --epochs 2` continues from it, the losses finite; (c) `arcface
+   --pp_microbatches 2`: 2 steps, then the eval scores (labels=None)
+   against the dense margin head on the model's own embedding; (d) the
+   rc-2 legs, each with JAX's text: `--pp_stages 2` on one card,
+   `--pp_stages` without `--pp_microbatches`, `--model resnet50
+   --pp_microbatches 2`, `--grad_accum 2 --pp_microbatches 2`.
 
 Numerics on the card: `torch.backends.cudnn.allow_tf32 = False` and
 `torch.backends.cuda.matmul.allow_tf32 = False` (f32 convolutions and
@@ -504,6 +525,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from datetime import datetime
 
 import numpy as np
 
@@ -634,7 +656,11 @@ RECOVERY_ARGV = [a if b != "--epochs" else "2" for b, a in
     "--log_every", "4", "--fault_spec", "nan_loss@step=2..3,ckpt_io@epoch=1"]
 RECOVERY_SPEC = ("nan_loss@step=2..3,loader_io@batch=5,peer_slow@step=12,"
                  "ckpt_io@epoch=1,sigterm@step=19")
-RECOVERY_T_MIN_S = 20.0  # the hang timeout's floor, seconds
+# the hang timeout's floor, seconds. (a)'s stretch is a warm process's;
+# each of (b)'s children starts cold (CUDA context, allocator, the
+# restore of a 270-MB checkpoint) before its first touch, and a
+# restarted child has taken more than 20 s to it on the card's host
+RECOVERY_T_MIN_S = 60.0
 RECOVERY_RCS = [1, 7, 143, 0]  # loader_io, peer_slow, sigterm, done
 # phase 30: JAX drills 8 and 9 merged onto one trainer host (NCCL refuses
 # two ranks on one card, so host 1's faults moved to host 0) at the serving
@@ -3301,7 +3327,7 @@ def recovery_supervised(hang_s: float, card: str) -> dict:
                FLEET_ELASTIC="1", CHAOS_PEER_SLOW_S=str(hang_s * 1.25 + 5),
                RUNTIME_BACKOFF_S="0", OUTAGE_BACKOFF_S="0",
                REFORM_BACKOFF_S="0", MAX_RESTARTS="5")
-    t0 = time.perf_counter()
+    t0, launched = time.perf_counter(), time.time()
     try:
         proc = subprocess.Popen(
             [sys.executable, "-m",
@@ -3322,6 +3348,13 @@ def recovery_supervised(hang_s: float, card: str) -> dict:
             lines = f.read().splitlines()
         fields = [dict(t.split("=", 1) for t in line.split()[1:])
                   for line in lines]
+        # each child's wall, launch (after the backoff) to exit: the first
+        # is a cold start and 5 steps, which bounds its first silent stretch
+        ended = [datetime.fromisoformat(line.split()[0]).timestamp()
+                 for line in lines]
+        starts = [launched] + [e + float(f["backoff"].rstrip("s"))
+                               for e, f in zip(ended, fields)]
+        run_walls = [e - b for b, e in zip(starts, ended)]
         check([int(f["rc"]) for f in fields] == RECOVERY_RCS
               and [f["action"] for f in fields] == ["restart"] * 3 + ["exit"],
               f"restarts.log: {lines}{tail}")
@@ -3349,7 +3382,8 @@ def recovery_supervised(hang_s: float, card: str) -> dict:
     rec = {"argv": argv, "hang_timeout_s": hang_s,
            "peer_slow_s": hang_s * 1.25 + 5, "restarts_log": lines,
            "chaos": chaos_lines, "membership": membership,
-           "generation": int(generation), "wall_s": wall, "card": card}
+           "generation": int(generation), "run_walls_s": run_walls,
+           "wall_s": wall, "card": card}
     log(f"[recovery] (b) {json.dumps(rec)}")
     return rec
 
@@ -5307,6 +5341,227 @@ def model_axis_phase(torch, device, train_cli, counters, card) -> dict:
     return rec
 
 
+PIPE_SHAPE = (32, 196, 768)  # ViT-B/16 at 224 px: B, T, C
+PIPE_SCHEDULES = ((2, 4), (4, 8))  # (stages, microbatches)
+# (max |err| / max |ref|, RMS err / RMS ref) of the pipelined stack
+# against the sequential one, bf16: each microbatch's products run at
+# another cuBLAS shape, so a block's outputs may round one bf16 ulp (2^-8)
+# apart and the 12 blocks carry it on; the parameter gradients also sum
+# M microbatch products in another order
+PIPE_TOL = {"out": (3e-2, 5e-3), "grad": (6e-2, 1e-2)}
+PIPE_ARGV = ["baseline", "--dataset", "synthetic", "--synthetic_size", "256",
+             "--model", "vit_b16", "--image_size", "224", "--num_classes",
+             "1000", "--batchsize", "32", "--dtype", "bfloat16", "--epochs",
+             "1", "--pp_microbatches", "4", "--device", "cuda"]
+PIPE_ARC_ARGV = ["arcface", "--dataset", "synthetic", "--synthetic_size",
+                 "64", "--model", "vit_b16", "--image_size", "224",
+                 "--num_classes", "100", "--batchsize", "32", "--dtype",
+                 "bfloat16", "--epochs", "1", "--pp_microbatches", "2",
+                 "--device", "cuda"]
+PIPE_ARC_STEPS = 2
+PIPE_TINY = ["--dataset", "synthetic", "--synthetic_size", "8",
+             "--image_size", "32", "--num_classes", "4", "--batchsize", "4",
+             "--epochs", "1", "--device", "cuda"]
+PIPE_REJECTIONS = [  # (argv, JAX's text)
+    (["baseline", "--model", "vit_b16", "--pp_stages", "2",
+      "--pp_microbatches", "2"], "mesh 0×1×2 does not cover 1 devices"),
+    (["baseline", "--model", "vit_b16", "--pp_stages", "2"],
+     "--pp_stages requires --pp_microbatches"),
+    (["baseline", "--model", "resnet50", "--pp_microbatches", "2"],
+     "pipeline parallelism (--pp_microbatches) requires a ViT arch with a "
+     "homogeneous block stack; got 'resnet50'"),
+    (["baseline", "--model", "vit_b16", "--grad_accum", "2",
+      "--pp_microbatches", "2"],
+     "grad-accum-indivisible: grad_accum > 1 does not compose with the "
+     "pipeline schedule")]
+
+
+def _cli_rc(train_cli, argv) -> dict:
+    """`cli/train.py` in process: its rc and the end of its stderr."""
+    import contextlib
+    import io
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            train_cli.main(argv + ["--out", tmp])
+        rc = 0
+    except SystemExit as e:
+        rc = e.code
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"rc": rc, "stderr": err.getvalue().strip()[-300:]}
+
+
+def pipeline_executor_leg(torch, device, card) -> dict:
+    """Phase 36 (a): `gpipe_shards` at (S, M) in PIPE_SCHEDULES against
+    the sequential stack of ViT-B/16's 12 blocks, forward and backward."""
+    from ddp_classification_pytorch_tpu_torch.models.pipeline_vit import GPipeViT
+    from ddp_classification_pytorch_tpu_torch.ops import pipeline
+    from ddp_classification_pytorch_tpu_torch.train.state import init_weights_
+
+    model = GPipeViT("vit_b16", 0, 224, 1, torch.bfloat16)
+    init_weights_(model, torch.Generator().manual_seed(36))
+    model.to(device)
+    blocks = [model.blocks[str(i)] for i in range(model.depth)]
+    params = [p for b in blocks for p in b.parameters()]
+    gen = torch.Generator(device=device).manual_seed(36)
+    x = torch.randn(PIPE_SHAPE, device=device, generator=gen).to(torch.bfloat16)
+    g = torch.randn(PIPE_SHAPE, device=device, generator=gen).to(torch.bfloat16)
+
+    def block_fn(block, h):
+        return block(h)[0]
+
+    def sequential():
+        for p in params:
+            p.grad = None
+        h = x.clone().requires_grad_()
+        out = pipeline.stage_apply(block_fn, blocks, h)
+        out.backward(g)
+        return out.detach(), h.grad, [p.grad for p in params]
+
+    def piped(s, m):
+        n = len(blocks) // s
+        return pipeline.gpipe_shards(
+            block_fn, [blocks[i * n:(i + 1) * n] for i in range(s)], x, m, g)
+
+    def peak(fn):
+        _free()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated(device) - base) / 1e6
+
+    (want_out, want_dx, want_grads), seq_mb = peak(sequential)
+    rec = {"shape": list(PIPE_SHAPE), "blocks": len(blocks),
+           "sequential": {"fwd_bwd_ms": event_step_ms(torch, sequential),
+                          "peak_mb": seq_mb}}
+
+    def close(tag, got, want, tol):
+        e = _rel(got, want)
+        check(e["max_abs_err"] <= tol[0] * max(e["max_abs_ref"], 1e-30)
+              and e["rms_ratio"] <= tol[1],
+              f"pipeline {tag}: {json.dumps(e)} (tol {tol})")
+        return e
+
+    for s, m in PIPE_SCHEDULES:
+        run, mb = peak(lambda: piped(s, m))
+        check(run.ticks == pipeline.ticks(s, m) == m + s - 1,
+              f"(S, M) = ({s}, {m}): {run.ticks} ticks")
+        errs = {"out": close(f"({s},{m}) out", run.out, want_out,
+                             PIPE_TOL["out"]),
+                "dx": close(f"({s},{m}) dx", run.dx, want_dx,
+                            PIPE_TOL["grad"])}
+        grads = [gr for stage in run.grads for gr in stage]
+        check(len(grads) == len(want_grads), "gradient count")
+        worst = None
+        for i, (gp, wp) in enumerate(zip(grads, want_grads)):
+            e = close(f"({s},{m}) grad {i}", gp, wp, PIPE_TOL["grad"])
+            if worst is None or e["rms_ratio"] > worst["rms_ratio"]:
+                worst = e | {"param": i}
+        errs["worst_param_grad"] = worst
+        rec[f"S{s}_M{m}"] = {"ticks": run.ticks, "errors": errs,
+                             "fwd_bwd_ms": event_step_ms(
+                                 torch, lambda: piped(s, m)),
+                             "peak_mb": mb}
+        del run
+        log(f"[pipeline] (a) gpipe_shards S={s} M={m} {list(PIPE_SHAPE)} "
+            f"bf16 vs the sequential {len(blocks)} blocks: "
+            f"{json.dumps(rec[f'S{s}_M{m}'])} ({card})")
+    log(f"[pipeline] (a) sequential {len(blocks)} blocks: "
+        f"{json.dumps(rec['sequential'])} ({card})")
+    del model, blocks, params, x, g, want_out, want_dx, want_grads
+    _free()
+    return rec
+
+
+def pipeline_arcface_leg(torch, device, train_cli, card) -> dict:
+    """Phase 36 (c): `arcface --pp_microbatches 2` on one card, 2 steps;
+    its labels=None scores against the dense margin head on the model's
+    own embedding."""
+    from ddp_classification_pytorch_tpu_torch.models.heads import ArcMarginHead
+
+    tr, tmp = _trainer(train_cli, PIPE_ARC_ARGV, device)
+    try:
+        tr.train_loader.set_epoch(0)
+        it = iter(tr.train_prefetch)
+        try:
+            batches = [next(it) for _ in range(PIPE_ARC_STEPS)]
+        finally:
+            it.close()
+        losses = [float(tr.train_step(tr.state, im, lb)["loss"])
+                  for im, lb in batches]
+        check(all(np.isfinite(losses)), f"arcface pipeline losses {losses}")
+        model = tr.state.model.eval()
+        images = batches[0][0]
+        with torch.no_grad():
+            x = images.permute(0, 3, 1, 2).float() / 255.0
+            scores = model(x)
+            emb = model.features(x)
+            dense = ArcMarginHead(*model.margin.weight.shape,
+                                  s=model.margin.s).to(device)
+            dense.weight.copy_(model.margin.weight)
+            want = dense(emb)
+        e = _rel(scores, want)
+        check(e["max_abs_err"] <= 1e-5 * max(1.0, e["max_abs_ref"]),
+              f"arcface pipeline scores vs the dense head: {json.dumps(e)}")
+        rec = {"losses": losses, "scores_vs_dense": e,
+               "shape": list(scores.shape)}
+    finally:
+        tr._close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[pipeline] (c) arcface --pp_microbatches 2, {PIPE_ARC_STEPS} "
+        f"steps: {json.dumps(rec)} ({card})")
+    return rec
+
+
+def pipeline_phase(torch, device, train_cli, checkpoint, counters,
+                   card) -> dict:
+    """Phase 36 (a)-(d); the counts, set to 0 before (a) and read after
+    (d), are the kernels line's `pipeline_path_launches` (all 0)."""
+    t0 = time.perf_counter()
+    _reset(counters)
+    rec = {"executor": pipeline_executor_leg(torch, device, card)}
+
+    def resume(tr, ckpt):
+        out = os.path.dirname(ckpt)
+        cfg = train_cli.config_from_args(train_cli.build_parser().parse_args(
+            PIPE_ARGV + ["--out", out, "--epochs", "2", "--auto_resume"]))
+        from ddp_classification_pytorch_tpu_torch.train.loop import Trainer
+
+        again = Trainer(cfg, device)
+        check(again.start_epoch == 1, f"auto_resume starts at epoch "
+              f"{again.start_epoch}, not 1")
+        last = again.run()
+        check(all(np.isfinite(v) for k, v in last.items()
+                  if k == "loss" or k.startswith("val_")),
+              f"resumed epoch not finite: {last}")
+        return {"resumed": last, "resumed_step": again.state.step}
+
+    trainer, _, rec["train"] = train_main_path(
+        torch, device, train_cli, checkpoint, PIPE_ARGV, counters,
+        dict.fromkeys(counters, 0), "pipeline-train", resume)
+    del trainer
+    _free()
+    rec["arcface"] = pipeline_arcface_leg(torch, device, train_cli, card)
+    _free()
+    rec["rejections"] = {}
+    for argv, text in PIPE_REJECTIONS:
+        got = _cli_rc(train_cli, argv + PIPE_TINY)
+        check(got["rc"] == 2 and text in got["stderr"],
+              f"{' '.join(argv)}: {got}, want rc 2 with {text!r}")
+        rec["rejections"][" ".join(argv[1:])] = got
+    log(f"[pipeline] (d) {json.dumps(rec['rejections'])}")
+    rec["launches"] = {k: f.launches for k, f in counters.items()}
+    check(all(v == 0 for v in rec["launches"].values()),
+          f"pipeline path launches {rec['launches']}, want 0 each")
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -6073,6 +6328,14 @@ def main() -> int:
     log(f"[slice19] phase 35 took {axis_rec['phase_s']:.1f} s ({card})")
     report["slice19"] = axis_rec
 
+    # ------------------------------------------------------ 36. GPipe --
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe_rec = pipeline_phase(torch, device, train_cli, checkpoint, counters,
+                              card)
+    log(f"[slice20] phase 36 took {pipe_rec['phase_s']:.1f} s ({card})")
+    report["slice20"] = pipe_rec
+
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "chip_smoke.json"), "w") as f:
@@ -6097,7 +6360,8 @@ def main() -> int:
                 options["vit_remat"]["remat"]["launches"][kind],
             "vit_moe_path_launches": options["moe"]["launches"][kind],
             "serve_graph_path_launches": serving18["launches"][kind],
-            "model_axis_path_launches": axis_rec["launches"][kind]}
+            "model_axis_path_launches": axis_rec["launches"][kind],
+            "pipeline_path_launches": pipe_rec["launches"][kind]}
 
     log(json.dumps({"kernels": [{
         "name": "fused_bn_leaky_relu",

@@ -8,7 +8,9 @@ profiler window and `--debug_nans`; the scaling levers `--grad_accum`,
 checkpoints; the model options `--remat`, `--dropout`, `--ln_bf16` and
 the ViT's mixture of experts `--moe_experts` / `--moe_top_k` /
 `--moe_aux_weight`; the compile sentinel's `--strict_compile` and the
-JAX spelling `--platform`), on the card.
+JAX spelling `--platform`; the model axis `--mp`, `--sharded_ce` and
+`--dcn_slices`; GPipe over the ViT's blocks `--pp_microbatches` and the
+(data, model, pipe) mesh `--pp_stages`), on the card.
 
     torchrun --nproc_per_node 4 -m ddp_classification_pytorch_tpu_torch.cli.train \
         baseline --dataset imagefolder --train_dir T --val_dir V \
@@ -44,6 +46,10 @@ JAX spelling `--platform`), on the card.
         # microbatches of 32, one bf16 all-reduce a step, ZeRO-1 (auto)
     python -m ddp_classification_pytorch_tpu_torch.cli.train plc \
         --dataset plc --train_dir C1M --out runs/plc  # Clothing1M layout
+    torchrun --nproc_per_node 8 -m ddp_classification_pytorch_tpu_torch.cli.train \
+        arcface --dataset synthetic --model vit_b16 --mp 2 --pp_stages 2 \
+        --pp_microbatches 4 --sharded_ce --out runs/dp_tp_pp
+        # (data 2, model 2, pipe 2): 6 blocks a stage, partial-FC CE
 
 Under torchrun each process drives the card `LOCAL_RANK` names and joins
 the process group over NCCL (gloo with `--device cpu`); `--batchsize` is
@@ -81,8 +87,14 @@ Exit codes, as the JAX CLI's:
   without a margin head, `--pretrained` on a ViT), a flag this CLI does not take (argparse), bad values, a
   missing data directory, a `--resume` file that fails its sha256, a
   native dataplane (or its decoder) that does not build on this machine, a mesh
-  `--dp` × `--mp` that does not cover the world (JAX's "mesh D×M×1 does not
-  cover N devices"), TResNet-M over more than one data rank, a malformed
+  `--dp` × `--mp` × `--pp_stages` that does not cover the world (JAX's
+  "mesh D×M×P does not cover N devices"), TResNet-M over more than one
+  data rank, `--pp_stages` without `--pp_microbatches`, the pipeline on
+  an arch other than a ViT, under the nested head, with `--dropout`
+  above 0, with `--moe_experts`, with `--grad_accum` above 1, with the
+  bf16 wire over more than one data rank, a depth its stages do not
+  divide, a batch its microbatches × the mesh's other axes do not divide
+  (each with JAX's text), `--pp_stages` with `--dcn_slices`, a malformed
   `--fault_spec`, malformed ``FLEET_*`` variables (`FleetConfigError`);
   `grad-accum-indivisible` (a `--batchsize` that `--grad_accum` K does
   not split into K equal microbatches, or K > 1 with `--sharded_ce`), and
@@ -280,8 +292,16 @@ def build_parser() -> argparse.ArgumentParser:
     par.add_argument("--mp", type=int, default=0,
                      help="model-parallel axis (class-dim sharding of wide "
                           "heads; ring-attention seq sharding for ViT; "
-                          "expert parallelism with --moe_experts); the "
-                          "world is --dp × --mp ranks")
+                          "expert parallelism with --moe_experts; "
+                          "pipeline stages with --pp_microbatches); the "
+                          "world is --dp × --mp × --pp_stages ranks")
+    par.add_argument("--pp_microbatches", type=int, default=0,
+                     help="enable GPipe pipelining of the ViT block stack "
+                          "over the model axis with N microbatches")
+    par.add_argument("--pp_stages", type=int, default=0,
+                     help="give the pipeline its OWN mesh axis with N "
+                          "stages (3-axis dp×tp×pp mesh), composing with "
+                          "--mp class-dim TP; devices = dp×mp×N")
     par.add_argument("--dcn_slices", type=int, default=0,
                      help="several nodes: two-tier mesh with DP across N "
                           "nodes, model axis inside a node (NVLink); 0 = "
@@ -458,6 +478,12 @@ def config_from_args(args: argparse.Namespace) -> Config:
     cfg.parallel.data_parallel = args.dp
     if args.mp:
         cfg.parallel.model_axis = args.mp
+    if args.pp_microbatches:
+        cfg.parallel.pipeline_microbatches = args.pp_microbatches
+    if args.pp_stages:
+        if not args.pp_microbatches:
+            raise ValueError("--pp_stages requires --pp_microbatches")
+        cfg.parallel.pipeline_stages = args.pp_stages
     if args.dcn_slices:
         cfg.parallel.dcn_slices = args.dcn_slices
     if args.sharded_ce:
@@ -590,7 +616,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         def rendezvous(dev):
             initialize_with_retry(out_dir=cfg.run.out_dir, device=dev,
                                   data_parallel=cfg.parallel.data_parallel,
-                                  model_parallel=cfg.parallel.model_axis)
+                                  model_parallel=cfg.parallel.model_axis,
+                                  pipeline_parallel=max(
+                                      cfg.parallel.pipeline_stages, 1))
     try:
         # the process group (torchrun's or the pod's), torn down on every
         # way out; the rc 2 and rc 8 exits included

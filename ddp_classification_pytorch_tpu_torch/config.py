@@ -133,9 +133,9 @@ class OptimConfig:
 
 @dataclass
 class ParallelConfig:
-    """Data and model parallelism over torch.distributed: one process per
-    card, launched by torchrun (the JAX package's `data` and `model` mesh
-    axes, `--dp` and `--mp`)."""
+    """Data, model and pipeline parallelism over torch.distributed: one
+    process per card, launched by torchrun (the JAX package's `data`,
+    `model` and `pipe` mesh axes, `--dp`, `--mp` and `--pp_stages`)."""
 
     data_parallel: int = 0  # × model_axis = the world; 0 = the rest
     # K equal microbatches a step, their gradients summed and averaged
@@ -158,6 +158,13 @@ class ParallelConfig:
     # ArcFace's partial-FC CE over the model axis (ops/sharded_head.py):
     # needs model_axis > 1 and the class count divisible by it
     arcface_sharded_ce: bool = False
+    # > 0: GPipe over the ViT's block stack (ops/pipeline.py,
+    # models/pipeline_vit.py) with this many microbatches; the stages ride
+    # the model axis unless pipeline_stages gives them their own
+    pipeline_microbatches: int = 0
+    # > 1: the pipe axis of a (data, model, pipe) mesh with this many
+    # stages; ranks = data_parallel × model_axis × pipeline_stages
+    pipeline_stages: int = 0
 
 
 @dataclass

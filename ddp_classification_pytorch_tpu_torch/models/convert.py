@@ -2,7 +2,9 @@
 → the port's TResNet `state_dict` (timm's key layout, models/tresnet.py),
 its flax ResNet and VGG19-BN variables → the port's (torchvision's key
 layout, models/resnet.py, models/vgg.py), its flax ViT params → the
-port's ViT `state_dict` (models/vit.py), and its ArcFace and Nested
+port's ViT `state_dict` (models/vit.py), its flax pipelined ViTs → the
+port's (models/pipeline_vit.py, the stacked blocks split per block), and
+its ArcFace and Nested
 models (any of these backbones under the heads of models/heads.py) →
 the port's `ArcFaceModel` / `NestedModel` `state_dict`s. `flax_path`
 names the flax leaf of a port parameter (the freeze-BN matcher reads it,
@@ -144,6 +146,57 @@ def vit_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     ln("ln_final", params["ln_final"])
     if "fc" in params:
         _dense(sd, "fc", params["fc"])
+    return sd
+
+
+def gpipe_vit_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax `GPipeViT` params (JAX `models/pipeline_vit.py`) → the port
+    `GPipeViT`'s `state_dict` (every block): the patch conv HWIO → OIHW,
+    the stacked `blocks` leaves (L, ...) split into `blocks.<i>`, each
+    Dense (I, O) → Linear (O, I) and LayerNorm `scale`/`bias` →
+    `weight`/`bias`; `pos_embed`, `ln_f` and `fc` (absent headless) as
+    the dense ViT's."""
+    sd: Dict[str, torch.Tensor] = {
+        "pos_embed": _t(params["pos_embed"]),
+        "patch.weight": _conv(params["patch"]["kernel"]),
+        "patch.bias": _t(params["patch"]["bias"]),
+    }
+    blocks = params["blocks"]
+    depth = int(np.shape(blocks["ln1"]["scale"])[0])
+    for i in range(depth):
+        def leaf(*path):
+            node = blocks
+            for key in path:
+                node = node[key]
+            return np.asarray(node)[i]
+
+        pre = f"blocks.{i}"
+        for ln in ("ln1", "ln2"):
+            sd[f"{pre}.{ln}.weight"] = _t(leaf(ln, "scale"))
+            sd[f"{pre}.{ln}.bias"] = _t(leaf(ln, "bias"))
+        for name, path in (("attn.qkv", ("attn", "qkv")),
+                           ("attn.proj", ("attn", "proj")),
+                           ("mlp_in", ("mlp_in",)),
+                           ("mlp_out", ("mlp_out",))):
+            sd[f"{pre}.{name}.weight"] = _t(leaf(*path, "kernel").T)
+            sd[f"{pre}.{name}.bias"] = _t(leaf(*path, "bias"))
+    sd["ln_f.weight"] = _t(params["ln_f"]["scale"])
+    sd["ln_f.bias"] = _t(params["ln_f"]["bias"])
+    if "fc" in params:
+        _dense(sd, "fc", params["fc"])
+    return sd
+
+
+def gpipe_arcface_from_jax(params: Mapping[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """flax `GPipeArcFaceViT` params → the port `GPipeArcFaceViT`'s
+    `state_dict`: the headless backbone through `gpipe_vit_from_jax`,
+    the embedding and the margin as `arcface_from_jax` maps them."""
+    sd = {f"backbone.{k}": v
+          for k, v in gpipe_vit_from_jax(params["backbone"]).items()}
+    for fc in ("fc1", "fc2"):
+        _dense(sd, f"embedding.{fc}", params["embedding"][fc])
+    sd["margin.weight"] = _t(params["margin"]["weight"])
     return sd
 
 
@@ -379,7 +432,20 @@ def _vgg_path(rest: List[str], leaf: str, cfg: Sequence[Any]) -> str:
     return f"{name}/{(_LEAF if is_conv else _BN_LEAF)[leaf]}"
 
 
-def flax_path(name: str, vgg_cfg: Sequence[Any] = CFG_E) -> str:
+def _gpipe_path(rest: List[str], leaf: str) -> str:
+    """The port `GPipeViT`'s names → the JAX one's: a block's param names
+    its stacked leaf (`blocks/attn/qkv/kernel`, the block the leading
+    index)."""
+    if not rest:  # pos_embed
+        return leaf
+    mods = rest[2:] if rest[0] == "blocks" else rest
+    ln = mods[-1].startswith("ln")
+    return "/".join(([rest[0]] if rest[0] == "blocks" else [])
+                    + mods + [(_BN_LEAF if ln else _LEAF)[leaf]])
+
+
+def flax_path(name: str, vgg_cfg: Sequence[Any] = CFG_E,
+              gpipe: bool = False) -> str:
     """The flax param path ("/"-joined) of a port parameter of a
     `ClassifierModel`, `ArcFaceModel` or `NestedModel` over any ported
     backbone — the inverse of the maps above:
@@ -387,10 +453,17 @@ def flax_path(name: str, vgg_cfg: Sequence[Any] = CFG_E) -> str:
     `backbone.body.layer3.0.conv3.1.bias` → `backbone/stage3_block0/bn3/bias`,
     `backbone.features.1.weight` → `backbone/bn0/scale` (under `vgg_cfg`),
     `backbone.blocks.0.ln1.weight` → `backbone/block0/ln1/scale`,
-    `margin.weight` → `margin/weight`."""
+    `margin.weight` → `margin/weight`. With `gpipe`, the names of a
+    `GPipeViT` (its fc head at the top) or `GPipeArcFaceViT`:
+    `blocks.3.attn.qkv.weight` → `blocks/attn/qkv/kernel`, `ln_f.weight`
+    → `ln_f/scale`, `backbone.patch.weight` → `backbone/patch/kernel`."""
     parts = name.split(".")
     if parts[0] == "margin":
         return "margin/weight"
+    if gpipe and parts[0] != "embedding":
+        if parts[0] == "backbone":
+            return f"backbone/{_gpipe_path(parts[1:-1], parts[-1])}"
+        return _gpipe_path(parts[:-1], parts[-1])
     if parts[0] != "backbone":  # embedding.fc1.weight, classifier.fc.weight
         return "/".join(parts[:-1] + [_LEAF[parts[-1]]])
     rest, leaf = parts[1:-1], parts[-1]

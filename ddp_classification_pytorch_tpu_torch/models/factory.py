@@ -13,7 +13,13 @@ its one role (JAX `factory.py:66-80`): expert parallelism with MoE, ring
 attention over the token axis otherwise; and every arch its class-sharded
 heads (`class_shard_`). The model is built whole, so `init_weights_`
 draws what a one-shard run draws; `shard_params_` then keeps each rank's
-slice of the tensors `parallel/mesh.py::shard_dim` names."""
+slice of the tensors `parallel/mesh.py::shard_dim` names.
+
+`pipeline_microbatches` > 0 builds the pipelined ViT
+(`models/pipeline_vit.py`, JAX `factory.py:135-176`): its stages on the
+mesh's pipe axis when it is above 1 (`--pp_stages`), else on the model
+axis, with JAX's refusals and texts; `shard_params_` keeps this stage's
+blocks."""
 
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from .resnet import DEPTHS as RESNET_DEPTHS
 from ..parallel.collectives import all_gather
 from ..parallel.mesh import Mesh, shard_dim
 from .heads import ArcEmbedding, ArcMarginHead, ClassShardedLinear, NetClassifier
+from .pipeline_vit import GPipeArcFaceViT, GPipeViT, gpipe_vit
 from .resnet import build_resnet
 from .tresnet import tresnet_m
 from .vgg import WIDTH as VGG_WIDTH
@@ -176,12 +183,66 @@ class NestedModel(nn.Module):
 HEADS = ("fc", "arcface", "nested")
 
 
+def build_pipeline_model(cfg: ModelConfig, num_classes: int,
+                         image_size: int, mesh: Optional[Mesh],
+                         microbatches: int) -> nn.Module:
+    """The pipelined ViT under the fc or arcface head (JAX
+    `factory.py:135-176`, its refusals and texts in its order). The stage
+    axis: pipe when it is above 1, else model (`Mesh.stage_axis`). The
+    batch splits over the mesh's other axes above 1 in JAX's check; the
+    port computes a data shard's batch whole on each of its model ranks."""
+    if cfg.arch not in _vit.VIT_CONFIGS:
+        raise ValueError(
+            f"pipeline parallelism (--pp_microbatches) requires a ViT "
+            f"arch with a homogeneous block stack; got {cfg.arch!r}")
+    if mesh is None:
+        raise ValueError("pipeline parallelism requires a device mesh")
+    if cfg.dropout:
+        raise ValueError(
+            "pipeline parallelism does not support dropout (the tick "
+            "loop carries no per-tick rng); set --dropout 0")
+    if cfg.moe_experts:
+        raise ValueError(
+            "pipeline parallelism and moe_experts both claim the model "
+            "axis — one role per config (drop --pp_microbatches or "
+            "--moe_experts)")
+    group = mesh.stage_axis()[3]
+
+    def backbone(classes: int) -> GPipeViT:
+        return GPipeViT(cfg.arch, classes, image_size, microbatches,
+                        compute_dtype(cfg.dtype), group, cfg.remat,
+                        cfg.ln_bf16, mesh.batch_shards(), mesh.dp)
+
+    if cfg.head == "arcface":
+        features = backbone(0)
+        return GPipeArcFaceViT(
+            features,
+            ArcEmbedding(features.dim, (512, cfg.arc_embed_dim),
+                         cfg.arc_log_softmax_quirk),
+            ArcMarginHead(num_classes, cfg.arc_embed_dim, cfg.arc_s,
+                          cfg.arc_m, cfg.arc_easy_margin))
+    if cfg.head != "fc":
+        raise ValueError(
+            f"pipeline parallelism supports head='fc' or 'arcface' "
+            f"(got {cfg.head!r})")
+    return backbone(num_classes)
+
+
 def build_model(cfg: ModelConfig, num_classes: int, image_size: int = 224,
                 group: Optional[dist.ProcessGroup] = None,
-                mesh: Optional[Mesh] = None) -> nn.Module:
+                mesh: Optional[Mesh] = None,
+                pipeline_microbatches: int = 0) -> nn.Module:
     """The model of `cfg` under its head, built whole. `group`: the BNs'
     group (the data group under a mesh); `mesh`: the model axis's roles
-    and the class-sharded heads (`class_shard_`)."""
+    and the class-sharded heads (`class_shard_`);
+    `pipeline_microbatches` > 0: the pipelined ViT
+    (`build_pipeline_model`)."""
+    if pipeline_microbatches > 0:
+        model = build_pipeline_model(cfg, num_classes, image_size, mesh,
+                                     pipeline_microbatches)
+        if mesh.mp > 1:
+            class_shard_(model, mesh)
+        return model
     if cfg.head not in HEADS:
         raise ValueError(f"unknown head {cfg.head!r}; one of {HEADS}")
     if cfg.head == "fc":
@@ -227,9 +288,14 @@ def class_shard_(model: nn.Module, mesh: Mesh) -> nn.Module:
 
 def shard_params_(model: nn.Module, mesh: Optional[Mesh]) -> Dict[str, int]:
     """Keep this rank's slice of every parameter `shard_dim` shards, in
-    place; returns {name: dim} of those parameters. A class dim the model
-    axis does not divide is a ValueError (JAX's placement error)."""
+    place, and of a pipelined ViT this stage's blocks; returns {name:
+    dim} of the class- or expert-sharded parameters. A class dim the
+    model axis does not divide is a ValueError (JAX's placement
+    error)."""
     dims: Dict[str, int] = {}
+    pipe = gpipe_vit(model)
+    if pipe is not None:
+        pipe.keep_stage_()
     if mesh is None or mesh.mp <= 1:
         return dims
     for name, p in model.named_parameters():

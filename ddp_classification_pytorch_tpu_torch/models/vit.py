@@ -49,7 +49,7 @@ rank's tokens and `psum`s over the group before ÷T. Every parameter
 before the pool then sees only this rank's tokens: its gradient is
 summed over the group after the backward (`token_sharded_params`). With
 MoE, `moe_group` shards the experts (`ops/moe.py::moe_mlp`); the tokens
-stay whole. The pipeline (GPipe) path is not ported yet (ROADMAP.md).
+stay whole. The pipeline (GPipe) path is `models/pipeline_vit.py`.
 """
 
 from __future__ import annotations

@@ -25,7 +25,14 @@ every rank. Hence
   average over the batch group gives the global batch's gradient;
 - `pmax` carries no gradient (JAX's `stop_gradient` before its `pmax`);
 - `ppermute` is a plain exchange (torch's point-to-point ops have no
-  gradient): the ring's own `autograd.Function` runs its backward ring.
+  gradient): the ring's own `autograd.Function` runs its backward ring;
+- `hop` is the GPipe stages' one-way exchange (JAX's `ppermute` with
+  perm i → i + 1, which does not wrap), and with `reverse` the backward's
+  i → i − 1; the pipeline's own `autograd.Function` runs its backward
+  ticks over it. The pipeline's republish of the last stage's outputs is
+  `psum` (forward sum, identity backward): every stage's loss is the
+  whole loss, so the last stage's outputs take the total's cotangent
+  once.
 """
 
 from __future__ import annotations
@@ -151,4 +158,34 @@ def ppermute(tensors: Sequence[torch.Tensor], group: Group
         ops.append(dist.P2POp(dist.irecv, o, src, group))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
+    return out
+
+
+def hop(t: Optional[torch.Tensor], like: Optional[torch.Tensor],
+        group: Group, reverse: bool = False) -> Optional[torch.Tensor]:
+    """One neighbour hop along the axis that does not wrap: `t` goes to
+    rank i + 1 (i − 1 under `reverse`), and what rank i − 1 (i + 1) sent
+    in the same hop is received into a tensor shaped like `like`. None
+    sends or expects nothing; the first rank (the last under `reverse`)
+    has no sender and must expect nothing. The sends and receives of a hop
+    are posted together and waited for; no gradient."""
+    n, me = axis_size(group), axis_index(group)
+    step = -1 if reverse else 1
+    ops, out = [], None
+    if t is not None:
+        if not 0 <= me + step < n:
+            raise ValueError(f"rank {me} of {n} has no neighbour at "
+                             f"{me + step}: the hop does not wrap")
+        ops.append(dist.P2POp(dist.isend, t.contiguous(),
+                              dist.get_global_rank(group, me + step), group))
+    if like is not None:
+        if not 0 <= me - step < n:
+            raise ValueError(f"rank {me} of {n} has no neighbour at "
+                             f"{me - step}: the hop does not wrap")
+        out = torch.empty_like(like)
+        ops.append(dist.P2POp(dist.irecv, out,
+                              dist.get_global_rank(group, me - step), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
     return out

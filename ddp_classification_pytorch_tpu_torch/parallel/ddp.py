@@ -36,6 +36,15 @@ gloo on the card). A process that torchrun did not start (no
   saw different tokens (a token-sharded ViT's, everything before its
   pool). The other replicated parameters saw the same values on every
   model rank and hold the whole gradient already.
+- A pipelined ViT's stages (`ops/pipeline.py`, on the pipe group or, on
+  a (data, model) mesh, the model group) hand DDP each block parameter's
+  gradient once a backward (the schedule's `autograd.Function` returns
+  the M microbatches' sum), so DDP and ZeRO-1 run over the data group as
+  above. `sum_stage_partials` then sums over the stage group the
+  gradients of the tensors that only stage 0 consumes (the patch
+  embedding and the position table; the other stages' are zeros); the
+  final LayerNorm, `fc`, the embedding and the margin take the
+  republished outputs on every stage and hold the whole gradient.
 - Explicit pods (`cli/train.py --multihost`) do not come from torchrun:
   `parallel/fleet.py::initialize_with_retry` rendezvouses from the
   ``FLEET_*`` variables and brings the group up through `init_group`.
@@ -55,6 +64,8 @@ from typing import Callable, Iterator, Optional, Tuple
 import torch
 import torch.distributed as dist
 import torch.nn as nn
+
+from ..models.pipeline_vit import gpipe_vit
 
 
 def env_world() -> Tuple[int, int, int]:
@@ -233,15 +244,33 @@ def sum_model_partials(model: nn.Module, mesh) -> None:
     model axis."""
     if mesh is None or mesh.mp <= 1:
         return
-    grads = [p.grad for m in model.modules()
-             if hasattr(m, "token_sharded_params")
-             for p in m.token_sharded_params() if p.grad is not None]
+    _sum_grads([p.grad for m in model.modules()
+                if hasattr(m, "token_sharded_params")
+                for p in m.token_sharded_params() if p.grad is not None],
+               mesh.model_group)
+
+
+def _sum_grads(grads, group: dist.ProcessGroup) -> None:
+    """`grads` summed over `group` in place: one all-reduce of their
+    concatenation (nothing without a gradient)."""
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=mesh.model_group)
+    dist.all_reduce(flat, group=group)
     offset = 0
     for g in grads:
         n = g.numel()
         g.copy_(flat[offset:offset + n].view_as(g))
         offset += n
+
+
+def sum_stage_partials(model: nn.Module) -> None:
+    """Sum over the stage group, in place, the gradients of a pipelined
+    ViT's stage-0 inputs (`patch`, `pos_embed`) — one all-reduce. A
+    no-op without a pipelined ViT split over stages."""
+    pipe = gpipe_vit(model)
+    if pipe is None or pipe.group is None or dist.get_world_size(
+            pipe.group) <= 1:
+        return
+    _sum_grads([p.grad for p in pipe.stage_inputs() if p.grad is not None],
+               pipe.group)

@@ -332,6 +332,7 @@ def initialize_with_retry(
     device: Any = None,
     data_parallel: Optional[int] = None,
     model_parallel: int = 1,
+    pipeline_parallel: int = 1,
 ) -> int:
     """`init_process_group` with bounded exponential backoff and a hard
     deadline. Returns the generation this attempt belongs to (from the
@@ -359,8 +360,8 @@ def initialize_with_retry(
     joined world (`PodInconsistent` rc 9 on split-brain). The injected
     ``initialize`` receives ``(coordinator, num_processes, process_id)``;
     by default it joins the group on `device` (`parallel/ddp.py`), and
-    `data_parallel` (``--dp``) and `model_parallel` (``--mp``) gate
-    viability.
+    `data_parallel` (``--dp``), `model_parallel` (``--mp``) and
+    `pipeline_parallel` (``--pp_stages``) gate viability.
 
     Terminal failure raises `RendezvousFailed` (rc 6): outage-shaped —
     the peers may simply not have restarted yet — so the supervisor backs
@@ -409,7 +410,8 @@ def initialize_with_retry(
                 world = sorted(leases)
                 check_viable(world, min_processes=knobs["min_processes"],
                              data_parallel=data_parallel,
-                             model_parallel=model_parallel)
+                             model_parallel=model_parallel,
+                             pipeline_parallel=pipeline_parallel)
                 stored_gen, stored_world = read_membership(out_dir)
                 reform = bool(stored_world) and stored_world != world
                 if (reform and host_id not in stored_world
@@ -730,11 +732,12 @@ def read_membership(out_dir: str) -> Tuple[int, list]:
 
 def check_viable(world, *, min_processes: int = 1,
                  data_parallel: Optional[int] = None,
-                 model_parallel: int = 1) -> None:
+                 model_parallel: int = 1,
+                 pipeline_parallel: int = 1) -> None:
     """Deterministic viability gate for a derived survivor world —
     raises `PodUnviable` (rc 10) instead of letting an impossible pod
     rendezvous and hang (or crash into rc 6 retries forever). One card a
-    process: the world must resolve the configured (data, model) mesh
+    process: the world must resolve the configured (data, model, pipe) mesh
     (`parallel/mesh.py::viable_world`, JAX's `check_viable`) — without a
     model axis a `data_parallel` (``--dp``) other than 0 must equal the
     world's size; None skips it."""
@@ -745,16 +748,17 @@ def check_viable(world, *, min_processes: int = 1,
             f"FLEET_MIN_PROCESSES={min_processes} — rc 10: waiting for "
             "lost hosts to rejoin (the supervisor backs off and retries "
             "within its restart budget)")
-    if model_parallel > 1:
+    pp = max(pipeline_parallel, 1)
+    if model_parallel > 1 or pp > 1:
         from .mesh import MeshSpec, viable_world
 
-        if not viable_world(MeshSpec(data_parallel or 0, model_parallel),
+        if not viable_world(MeshSpec(data_parallel or 0, model_parallel, pp),
                             len(world)):
             raise PodUnviable(
                 f"survivor world {world} contributes {len(world)} "
                 f"device(s), which does not divide into the configured "
                 f"mesh (dp={data_parallel or 'auto'}×mp={model_parallel}"
-                f"×pp=1) — rc 10: shrink the mesh axes or wait for lost "
+                f"×pp={pp}) — rc 10: shrink the mesh axes or wait for lost "
                 "hosts")
     elif data_parallel and data_parallel != len(world):
         raise PodUnviable(

@@ -22,7 +22,10 @@ through — the JAX package's `train/checkpoint.py` for one process
   on rank 0 (`TrainState.consolidate`, a collective), so the file holds
   the plain optimizer's full state and resumes with ZeRO-1 or without,
   at any world size, and under `cli/serve.py` (JAX
-  `checkpoint.py:526-559`).
+  `checkpoint.py:526-559`). Over a model axis the class shards, and over
+  GPipe stages every stage's blocks, are gathered the same way before
+  rank 0 writes (and before the async writer's host copy), so the file
+  holds the one-rank model, which resumes at any (dp, mp, pp).
 - Async writes (`async_save`, `run.async_checkpoint`, JAX
   `checkpoint.py:169-183,255-334`): the host copy of the state is taken
   synchronously — a real copy, since SGD updates the live tensors in

@@ -6,7 +6,9 @@ once in DistributedDataParallel under a process group, parallel/ddp.py)
 records, tensorboard scalars and verified checkpoints of the whole train
 state, written by rank 0, which `--resume` and `--auto_resume` pick up on
 every rank. Trains the ResNets and VGG19-BN (over any number of ranks,
-with global batch statistics), TResNet-M (one rank) and the ViT family,
+with global batch statistics), TResNet-M (one rank) and the ViT family
+(pipelined over GPipe stages with `parallel.pipeline_microbatches`, on a
+(data, model, pipe) mesh with `pipeline_stages`),
 each under the heads fc, arcface and nested (CDR's gradient transform
 too), on synthetic data, image folders and CIFAR pickles; `cli/serve.py
 --ckpt` serves their checkpoints. The nested head's eval is the all-K sweep
@@ -183,16 +185,18 @@ def _sum_into(totals: Optional[Dict[str, torch.Tensor]],
     return totals
 
 
-def check_world(cfg: Config, world: int) -> Tuple[int, int]:
-    """(dp, mp): the mesh `parallel.data_parallel` × `model_axis`
-    resolved over the world, or ValueError (rc 2): a mesh that does not
-    cover the world (JAX's `MeshSpec.resolve` text; without a model axis
+def check_world(cfg: Config, world: int) -> Tuple[int, int, int]:
+    """(dp, mp, pp): the mesh `parallel.data_parallel` × `model_axis` ×
+    `pipeline_stages` resolved over the world, or ValueError (rc 2): a
+    mesh that does not cover the world (JAX's `MeshSpec.resolve` text,
+    "mesh D×M×P does not cover N devices"; without a model or pipe axis
     the port's --dp text), TResNet-M over more than one data rank (its
     fused ABNs do not share their statistics across ranks yet,
-    ROADMAP.md), and the PLC trainer with a model axis."""
+    ROADMAP.md), and the PLC trainer with a model or pipe axis."""
     dp, mp = cfg.parallel.data_parallel, max(cfg.parallel.model_axis, 1)
-    if mp > 1:
-        dp = meshlib.MeshSpec(dp, mp).resolve(world)[0]
+    pp = max(cfg.parallel.pipeline_stages, 1)
+    if mp > 1 or pp > 1:
+        dp = meshlib.MeshSpec(dp, mp, pp).resolve(world)[0]
     elif dp and dp != world:
         raise ValueError(f"--dp {dp} but the process group has {world} "
                          "rank(s): one process drives one card, so --dp "
@@ -204,11 +208,11 @@ def check_world(cfg: Config, world: int) -> Tuple[int, int]:
                          "its fused ABNs do not share batch statistics "
                          f"across ranks yet, and the data axis has {dp} "
                          "(ROADMAP.md)")
-    if mp > 1 and cfg.workload == "plc":
+    if (mp > 1 or pp > 1) and cfg.workload == "plc":
         raise ValueError("the PLC trainer runs over the data axis only in "
-                         "the port: --mp above 1 is not ported for plc "
-                         "(ROADMAP.md)")
-    return dp, mp
+                         "the port: --mp or --pp_stages above 1 is not "
+                         "ported for plc (ROADMAP.md)")
+    return dp, mp, pp
 
 
 def eval_totals(state, eval_step, batches) -> Dict[str, float]:
@@ -274,13 +278,15 @@ class Trainer:
         self.chaos = chaoslib.plan_for_run(cfg.run.fault_spec, cfg.run.out_dir)
         if self.chaos:
             host0_print(f"[chaos] fault plan active: {self.chaos}")
-        dp, mp = check_world(cfg, world)
-        # the (data, model) mesh: every rank makes every group, in order
-        spec = meshlib.MeshSpec(cfg.parallel.data_parallel, mp)
+        dp, mp, pp = check_world(cfg, world)
+        # the (data, model[, pipe]) mesh: every rank makes every group, in
+        # order; make_hybrid_mesh refuses pipe stages with JAX's text
+        spec = meshlib.MeshSpec(cfg.parallel.data_parallel, mp, pp)
         self.mesh = (meshlib.make_hybrid_mesh(
             spec, dcn_data_parallel=cfg.parallel.dcn_slices)
             if cfg.parallel.dcn_slices else meshlib.make_mesh(spec))
-        data_group = self.mesh.data_group if mp > 1 else ddp.group()
+        split = self.mesh.sharded
+        data_group = self.mesh.data_group if split else ddp.group()
         self.obs = Registry()
         # the pod's epoch-boundary exchange and SIGTERM deferral over more
         # than one rank; an elastic pod keeps the coordinator at world 1,
@@ -313,7 +319,7 @@ class Trainer:
             host0_print(f"[trainer] native decoder active (item route, "
                         f"transform {preset})")
         d = cfg.data
-        # the model ranks of a data shard read the same batches
+        # the model and pipe ranks of a data shard read the same batches
         shard = dict(host_id=self.mesh.data_index, num_hosts=dp)
         self.train_loader = Loader(
             self.train_ds, d.batch_size, shuffle=True, seed=cfg.run.seed,
@@ -334,7 +340,8 @@ class Trainer:
         self.steps_per_epoch = max(len(self.train_loader), 1)
         self.state = create_train_state(
             cfg, device, self.steps_per_epoch, group=data_group,
-            mesh=self.mesh if mp > 1 else None)
+            mesh=(self.mesh if split or cfg.parallel.pipeline_microbatches
+                  else None))
         self.train_step = make_train_step(cfg, chaos=self.chaos or None,
                                           mesh=self.mesh)
         self.eval_step = (make_nested_eval_step(cfg)
@@ -374,8 +381,8 @@ class Trainer:
             # keep the curve before the stop: the resumed run appends
             self.records.resume_at(self.start_epoch)
         # after the restore: every rank starts equal. DDP spans the data
-        # axis: under a model axis with one data shard there is none
-        if ddp.initialized() and (mp == 1 or dp > 1):
+        # axis: under a model or pipe axis with one data shard there is none
+        if ddp.initialized() and (not split or dp > 1):
             self.state.ddp = ddp.wrap(self.state.model, device,
                                       cfg.parallel.grad_reduce_dtype,
                                       data_group)
@@ -393,6 +400,7 @@ class Trainer:
             f"zero={schedule.is_zero(self.state.optimizer)} "
             f"wire={cfg.parallel.grad_reduce_dtype} "
             f"dtype={cfg.model.dtype} flash={cfg.model.flash_attention} "
+            f"pp_microbatches={cfg.parallel.pipeline_microbatches} "
             f"steps/epoch={self.steps_per_epoch}")
 
     # ---------------------------------------------------------------- fleet --

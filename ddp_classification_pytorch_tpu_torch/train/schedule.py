@@ -64,6 +64,7 @@ import torch.nn as nn
 
 from ..config import OptimConfig
 from ..models.convert import flax_path
+from ..models.pipeline_vit import gpipe_vit
 from ..models.vgg import CFG_E, VGG
 
 Schedule = Callable[[int], float]
@@ -174,8 +175,9 @@ def frozen_bn_names(model: nn.Module) -> List[str]:
     VGG19-BN all 16 BNs' γ/β, on a ViT none."""
     vgg_cfg = next((m.cfg for m in model.modules() if isinstance(m, VGG)),
                    CFG_E)
+    gpipe = gpipe_vit(model) is not None
     return [n for n, _ in model.named_parameters()
-            if is_bn_param(flax_path(n, vgg_cfg))]
+            if is_bn_param(flax_path(n, vgg_cfg, gpipe))]
 
 
 def head_config(cfg: OptimConfig) -> OptimConfig:

@@ -9,7 +9,7 @@ module (f32 master weights) with its optimizer, LR schedule and counters.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -19,12 +19,13 @@ from ..config import Config
 from ..models.factory import build_model, shard_params_
 from ..models.heads import ArcMarginHead
 from ..models.import_torch import import_state_dict, load_torch_checkpoint
+from ..models.pipeline_vit import gpipe_vit
 from ..models.resnet import DEPTHS as RESNET_DEPTHS
 from ..models.resnet import ResNet
 from ..models.tresnet import TResNet
 from ..models.vgg import CFG_E, VGG
 from ..models.vit import MOE_WEIGHTS, VIT_CONFIGS, xavier_uniform_
-from ..parallel.collectives import all_gather
+from ..parallel.collectives import all_gather, axis_index, axis_size
 from ..parallel.mesh import Mesh
 from .schedule import (
     Schedule,
@@ -62,10 +63,14 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     U(±sqrt(6 / (C + D))) (JAX `models/heads.py:68-73`). The other archs'
     conv and linear weights are N(0, 1/fan_in); a MoE ViT's router and
     expert banks flax's xavier-uniform with the expert count in both fans
-    (JAX `models/vit.py:128-132`), its expert biases zero. `torch.Generator` and
+    (JAX `models/vit.py:128-132`), its expert biases zero. A pipelined
+    ViT's patch conv, Dense layers and fc (and its arcface embedding's)
+    take flax's truncated normal of fan_in, as the ResNet's Dense layers
+    (JAX `models/pipeline_vit.py:58-87`). `torch.Generator` and
     `jax.random` give different numbers from one seed; parity tests carry
     weights across with `models/convert.py`."""
     resnet = any(isinstance(m, ResNet) for m in model.modules())
+    lecun = resnet or gpipe_vit(model) is not None
     with torch.no_grad():
         for m in model.modules():
             if not isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -74,7 +79,7 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if resnet and isinstance(m, nn.Conv2d):
                 fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
                 _variance_scaling_(m.weight, 2.0, fan_out, generator)
-            elif resnet:
+            elif lecun:
                 _variance_scaling_(m.weight, 1.0, fan_in, generator)
             else:
                 m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
@@ -116,6 +121,27 @@ def load_pretrained_(backbone: nn.Module, path: str) -> nn.Module:
     return backbone
 
 
+class _Stages(NamedTuple):
+    """A stage-split pipelined ViT as its checkpoints see it: the stage
+    group, the blocks' name prefix, the stage count, this stage and the
+    blocks a stage."""
+
+    group: Any
+    prefix: str
+    size: int
+    index: int
+    per_stage: int
+
+    def is_block(self, name: str) -> bool:
+        return name.startswith(self.prefix)
+
+    def renamed(self, name: str, stage: int) -> str:
+        """This stage's block param `name` as `stage`'s same block's."""
+        i, rest = name[len(self.prefix):].split(".", 1)
+        return (f"{self.prefix}{(stage - self.index) * self.per_stage + int(i)}"
+                f".{rest}")
+
+
 @dataclasses.dataclass
 class TrainState:
     """Everything a train step reads and updates.
@@ -148,6 +174,117 @@ class TrainState:
     @property
     def model_sharded(self) -> bool:
         return self.mesh is not None and self.mesh.mp > 1
+
+    @property
+    def stage_sharded(self) -> bool:
+        """Whether a pipelined ViT's blocks are split over stages."""
+        pipe = gpipe_vit(self.model)
+        return pipe is not None and axis_size(pipe.group) > 1
+
+    def _opt_names(self) -> List[str]:
+        """The names of the optimizer's params in its index order."""
+        name_of = {id(p): n for n, p in self.model.named_parameters()}
+        return [name_of[id(p)] for p in self.params]
+
+    def _stages(self) -> "_Stages":
+        pipe = gpipe_vit(self.model)
+        prefix = next(n for n, m in self.model.named_modules() if m is pipe)
+        size = axis_size(pipe.group)
+        return _Stages(pipe.group, f"{prefix}.blocks." if prefix else
+                       "blocks.", size, axis_index(pipe.group),
+                       pipe.depth // size)
+
+    def _whole_names(self, names: List[str]) -> List[str]:
+        """`names` (this stage's, in order) with the run of its blocks'
+        names replaced by every stage's, block after block: the order of
+        the one-rank model's."""
+        st = self._stages()
+        run = [i for i, nm in enumerate(names) if st.is_block(nm)]
+        if not run:
+            return list(names)
+        lo, hi = run[0], run[-1] + 1
+        return (names[:lo] + [st.renamed(nm, p) for p in range(st.size)
+                              for nm in names[lo:hi]] + names[hi:])
+
+    def _gather_stages(self, sd: Dict[str, Any]) -> Dict[str, Any]:
+        """`sd` (this stage's, `state_dict`'s layout) with every stage's
+        blocks and their optimizer state: one all-gather over the stage
+        group a tensor, in the order every stage walks alike; the
+        optimizer's indices those of the one-rank model."""
+        st = self._stages()
+
+        def gather(v: Any) -> List[Any]:
+            if not isinstance(v, torch.Tensor):
+                return [v] * st.size  # a block's non-tensor entry, alike
+            return list(all_gather(v.detach()[None], st.group, 0).unbind(0))
+
+        model: Dict[str, Any] = {}
+        for k, v in sd["model"].items():
+            if not st.is_block(k):
+                model[k] = v
+                continue
+            for p, part in enumerate(gather(v)):
+                model[st.renamed(k, p)] = part
+        names = self._opt_names()
+        whole = self._whole_names(names)
+        index = {nm: i for i, nm in enumerate(whole)}
+        osd = dict(sd["optimizer"])
+        state: Dict[int, Any] = {}
+        for i, nm in enumerate(names):
+            entry = osd["state"].get(i)
+            if entry is None:
+                continue
+            if not st.is_block(nm):
+                state[index[nm]] = entry
+                continue
+            parts = {key: gather(v) for key, v in sorted(entry.items())}
+            for p in range(st.size):
+                state[index[st.renamed(nm, p)]] = {
+                    key: v[p] for key, v in parts.items()}
+        osd["state"] = dict(sorted(state.items()))
+        osd["param_groups"] = self._index_groups(osd["param_groups"], names,
+                                                 whole)
+        return {**sd, "model": model, "optimizer": osd}
+
+    def _index_groups(self, groups: List[Dict[str, Any]], names: List[str],
+                      to: List[str]) -> List[Dict[str, Any]]:
+        """`groups` (indices into `names`) re-indexed into `to`: a block's
+        group is that of this stage's blocks."""
+        st = self._stages()
+
+        def key(nm: str) -> str:
+            return st.prefix if st.is_block(nm) else nm
+
+        of = {key(names[i]): g for g, group in enumerate(groups)
+              for i in group["params"]}
+        out = [{**group, "params": []} for group in groups]
+        for j, nm in enumerate(to):
+            out[of[key(nm)]]["params"].append(j)
+        return out
+
+    def _cut_stages(self, sd: Mapping[str, Any]) -> Dict[str, Any]:
+        """A whole state (the one-rank model's) cut to this stage's
+        blocks, its optimizer indices this model's."""
+        st = self._stages()
+        own = {k for k in self.model.state_dict() if st.is_block(k)}
+        model = {k: v for k, v in sd["model"].items()
+                 if not st.is_block(k) or k in own}
+        names = self._opt_names()
+        whole = self._whole_names(names)
+        index = {nm: i for i, nm in enumerate(whole)}
+        osd = dict(sd["optimizer"])
+        if len(whole) != sum(len(g["params"]) for g in osd["param_groups"]):
+            raise ValueError(
+                f"checkpoint does not fit this model and optimizer: its "
+                f"optimizer holds "
+                f"{sum(len(g['params']) for g in osd['param_groups'])} "
+                f"params, the model {len(whole)}")
+        state = {i: osd["state"][index[nm]] for i, nm in enumerate(names)
+                 if index[nm] in osd["state"]}
+        osd["state"] = state
+        osd["param_groups"] = self._index_groups(osd["param_groups"], whole,
+                                                 names)
+        return {**sd, "model": model, "optimizer": osd}
 
     def _opt_shard_dims(self) -> Dict[int, int]:
         """{index in the optimizer's state: shard dim} of the sharded
@@ -194,11 +331,24 @@ class TrainState:
         of the optimizer state goes to the data group's first rank; over
         a model axis the ranks of data index 0 then gather each sharded
         tensor (weights and their optimizer state) whole over their model
-        group, so the file holds the one-rank format. A no-op otherwise."""
+        group, and a pipelined ViT's stages gather every stage's blocks
+        (and their optimizer state) over their stage group, so the file
+        holds the one-rank format with all L blocks; the async writer's
+        host copy is taken after. A no-op otherwise."""
         if is_zero(self.optimizer):
             self.optimizer.consolidate_state_dict(to=0)
-        if self.model_sharded and self.mesh.data_index == 0:
-            self._gathered = self._reshard(self._local_state_dict(), True)
+        if self._split and self.mesh.data_index == 0:
+            sd = self._local_state_dict()
+            if self.model_sharded:
+                sd = self._reshard(sd, True)
+            if self.stage_sharded:
+                sd = self._gather_stages(sd)
+            self._gathered = sd
+
+    @property
+    def _split(self) -> bool:
+        """Whether this rank holds only part of the model."""
+        return self.model_sharded or self.stage_sharded
 
     def optimizer_state_dict(self) -> Dict[str, Any]:
         """The optimizer's state in the plain optimizer's format (`state`
@@ -230,8 +380,9 @@ class TrainState:
         (BN running statistics), the optimizer's state (momentum buffers;
         `optimizer_state_dict`), `step` and `opt_count` (the count the
         schedule reads). The tensors are the live ones, not copies. Over
-        a model axis, the whole state `consolidate` gathered (once)."""
-        if self.model_sharded:
+        a model axis or stages, the whole state `consolidate` gathered
+        (once)."""
+        if self._split:
             if self._gathered is None:
                 raise RuntimeError("a model-sharded state is read whole "
                                    "after consolidate() on every rank")
@@ -248,13 +399,17 @@ class TrainState:
         """Restore `state_dict()`'s output in place: tensors are copied into
         the model's own, and the optimizer's state is moved to each
         parameter's device and dtype. Raises ValueError when `sd` is not
-        a train state or does not fit the model."""
+        a train state or does not fit the model. A whole state is cut to
+        this rank's class shards and stage blocks, so a run resumes at any
+        (dp, mp, pp)."""
         missing = [k for k in ("model", "optimizer", "step", "opt_count")
                    if k not in sd]
         if missing:
             raise ValueError(f"not a train-state checkpoint (no "
                              f"{', '.join(missing)}): it holds weights only "
                              "and cannot be resumed from")
+        if self.stage_sharded:  # every block → this stage's
+            sd = self._cut_stages(sd)
         if self.model_sharded:  # whole tensors → this rank's shards
             sd = self._reshard(sd, False)
         osd = sd["optimizer"]
@@ -292,13 +447,15 @@ def create_train_state(cfg: Config, device: torch.device,
     take their activations (weights in NCHW could lead cuDNN to hand back
     NCHW outputs). A `mesh` with a model axis (`group` is then its data
     group) builds the model whole, draws its init, and keeps this rank's
-    shards (`models/factory.py::shard_params_`)."""
+    shards (`models/factory.py::shard_params_`); with
+    `parallel.pipeline_microbatches` the pipelined ViT, whose stage keeps
+    its own blocks the same way."""
     if cfg.model.arch not in TRAIN_ARCHS:
         raise ValueError(f"training arch {cfg.model.arch!r} not yet ported "
                          f"to the torch package (ported: "
                          f"{', '.join(TRAIN_ARCHS)}; ROADMAP.md)")
     model = build_model(cfg.model, cfg.data.num_classes, cfg.data.image_size,
-                        group, mesh)
+                        group, mesh, cfg.parallel.pipeline_microbatches)
     init_weights_(model, torch.Generator().manual_seed(cfg.run.seed))
     if cfg.model.pretrained:
         if not cfg.model.pretrained_path:

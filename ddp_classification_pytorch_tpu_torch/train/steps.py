@@ -25,6 +25,19 @@ trains and evaluates ArcFace through the partial-FC CE
 `_make_arcface_sharded_eval`); it needs a model axis
 (`require_sharded_ce_mesh`, JAX's text).
 
+A pipelined ViT (`parallel.pipeline_microbatches`, `models/pipeline_vit.py`)
+trains and evaluates through the same steps: its forward runs the GPipe
+ticks over its stage group and every stage holds the whole loss. After
+the backward the patch embedding's and the position table's gradients,
+which arise on stage 0 alone, are summed over the stage group
+(`parallel/ddp.py::sum_stage_partials`); the grad norm sums every
+stage's blocks' squares over the stage group, and CDR ranks the whole
+gradient with the blocks stacked (L, ...) as JAX's tree holds them
+(`_cdr_mask`). `check_scaling` refuses what JAX refuses with it:
+`grad_accum` above 1, the bf16 wire over more than one data rank, and a
+batch the microbatches × the mesh's other axes do not divide
+(`check_pipeline`, refused when the step is built).
+
 PyTorch runs eagerly, so a "step" here is a plain function over the state
 and device tensors; there is nothing to trace or compile.
 """
@@ -42,12 +55,14 @@ import torch.nn.functional as F
 from ..config import Config
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD, preset_for_dataset
 from ..models.dropout import Dropout
+from ..models.pipeline_vit import gpipe_vit
 from ..models.vit import pop_moe_aux
 from ..ops.cdr import cdr_clip, cdr_mask_
 from ..ops.nested import nested_all_k_counts, nested_k, prefix_mask
+from ..ops.pipeline import check_batch
 from ..ops.sharded_head import arc_margin_ce_sharded
 from ..parallel import ddp
-from ..parallel.collectives import all_gather, psum
+from ..parallel.collectives import all_gather, axis_index, psum
 from ..utils.metrics import topk_correct, topk_hits
 from .schedule import zero_enabled
 
@@ -192,9 +207,9 @@ def _loss(cfg: Config, model: nn.Module, logits: torch.Tensor,
 
 def data_axis(state: "TrainState") -> Tuple[Any, int]:
     """(group, size) of the data axis: the mesh's data group under a model
-    axis, else the world."""
+    or pipe axis, else the world."""
     mesh = state.mesh
-    if mesh is not None and mesh.mp > 1:
+    if mesh is not None and mesh.sharded:
         return mesh.data_group, mesh.dp
     return ddp.group(), ddp.world_size()
 
@@ -271,45 +286,112 @@ def _forward(cfg: Config, net: nn.Module, x: torch.Tensor,
 def _grad_norm(params, state: Optional["TrainState"] = None) -> torch.Tensor:
     """The global norm of the params' gradients, in f32; a class-sharded
     gradient counts whole (its shards' squares summed over the model
-    group)."""
-    if state is None or not state.model_sharded:
+    group), and so do a pipelined ViT's blocks (every stage's squares
+    summed over the stage group)."""
+    pipe = (gpipe_vit(state.model)
+            if state is not None and state.stage_sharded else None)
+    if state is None or not (state.model_sharded or pipe is not None):
         return torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(p.grad.float()) for p in params]))
     ids = {id(p) for name, p in state.model.named_parameters()
            if name in state.shard_dims}
+    staged = ({id(p) for p in pipe.blocks.parameters()} if pipe is not None
+              else set())
     sq = [torch.linalg.vector_norm(p.grad.float()) ** 2 for p in params]
-    whole = sum(s for p, s in zip(params, sq) if id(p) not in ids)
-    shards = sum(s for p, s in zip(params, sq) if id(p) in ids)
-    return torch.sqrt(whole + psum(torch.as_tensor(shards, dtype=torch.float32,
-                                                   device=sq[0].device),
-                                   state.mesh.model_group))
+    dev = sq[0].device
+
+    def total(keep) -> torch.Tensor:
+        return torch.as_tensor(sum(x for p, x in zip(params, sq) if keep(p)),
+                               dtype=torch.float32, device=dev)
+
+    out = total(lambda p: id(p) not in ids and id(p) not in staged)
+    if state.model_sharded:
+        out = out + psum(total(lambda p: id(p) in ids),
+                         state.mesh.model_group)
+    if pipe is not None:
+        out = out + psum(total(lambda p: id(p) in staged), pipe.group)
+    return torch.sqrt(out)
+
+
+def _stacked_blocks(pipe, params):
+    """A pipelined ViT's block params as JAX's tree holds them: for each
+    of a block's params, the (L, ...) stack of every block's (gathered
+    over the stage group), with its gradient; and for each stack, this
+    stage's rows and the grads they go back to."""
+    own = sorted(pipe.blocks, key=int)
+    keep = {id(p) for p in params}
+    stacks, back = [], []
+    for rest, _ in pipe.blocks[own[0]].named_parameters():
+        ps = [pipe.blocks[k].get_parameter(rest) for k in own]
+        if not all(id(p) in keep for p in ps):
+            continue
+        w = all_gather(torch.stack([p.detach() for p in ps]), pipe.group, 0)
+        g = all_gather(torch.stack([p.grad for p in ps]), pipe.group, 0)
+        stacks.append((w, g))
+        back.append((g, [p.grad for p in ps],
+                     axis_index(pipe.group) * len(own)))
+    return stacks, back
 
 
 def _cdr_mask(state: "TrainState", params, nonzero_ratio: float,
               clip: float) -> None:
     """CDR's mask over every gradient entry: a class-sharded parameter and
     its gradient take part whole (gathered over the model group), and
-    this rank keeps its slice of the masked gradient."""
-    if not state.model_sharded:
+    this rank keeps its slice of the masked gradient. A pipelined ViT's
+    blocks take part as JAX's stacked (L, ...) leaves (gathered over the
+    stage group): JAX selects a leaf by its rank, so a block's
+    LayerNorm affines and biases ((L, C), 2-D) are ranked and its Dense
+    kernels ((L, I, O), 3-D) are not."""
+    pipe = gpipe_vit(state.model)
+    if not state.model_sharded and pipe is None:
         cdr_mask_([(p, p.grad) for p in params], nonzero_ratio, clip)
         return
     dims = {id(p): state.shard_dims[n]
             for n, p in state.model.named_parameters()
             if n in state.shard_dims}
-    group, index = state.mesh.model_group, state.mesh.model_index
+    staged = ({id(p) for p in pipe.blocks.parameters()} if pipe is not None
+              else set())
     pairs, back = [], []
     for p in params:
+        if id(p) in staged:
+            continue
         if id(p) not in dims:
             pairs.append((p, p.grad))
             continue
         d = dims[id(p)]
+        group = state.mesh.model_group
         g = all_gather(p.grad, group, d)
         pairs.append((all_gather(p.detach(), group, d), g))
         back.append((p.grad, g, d))
-    cdr_mask_(pairs, nonzero_ratio, clip)
+    stacks, stacked_back = (_stacked_blocks(pipe, params) if pipe is not None
+                            else ([], []))
+    cdr_mask_(pairs + stacks, nonzero_ratio, clip)
     for local, whole, d in back:
         n = local.shape[d]
-        local.copy_(whole.narrow(d, index * n, n))
+        local.copy_(whole.narrow(d, state.mesh.model_index * n, n))
+    for whole, grads, start in stacked_back:
+        for j, local in enumerate(grads):
+            local.copy_(whole[start + j])
+
+
+def pipelined(cfg: Config) -> bool:
+    """Whether the config asks for the GPipe schedule (JAX's test:
+    `pipeline_stages` above 1 or `pipeline_microbatches` above 0)."""
+    p = cfg.parallel
+    return max(p.pipeline_stages, 1) > 1 or p.pipeline_microbatches > 0
+
+
+def check_pipeline(cfg: Config, mesh: Optional[Any]) -> None:
+    """JAX's executor's batch check (`ops/pipeline.py:75-80`), made when
+    the step is built: the global batch (`--batchsize` × the data axis)
+    over the microbatches × the product of the mesh's other axes above 1
+    (data, and model on a (data, model, pipe) mesh). A single stage runs
+    the blocks in order and checks nothing."""
+    if (cfg.parallel.pipeline_microbatches <= 0 or mesh is None
+            or mesh.stage_axis()[1] <= 1):
+        return
+    check_batch(cfg.data.batch_size * mesh.dp,
+                cfg.parallel.pipeline_microbatches, mesh.batch_shards())
 
 
 def check_scaling(cfg: Config, world: int = 1, mp: int = 1) -> None:
@@ -320,8 +402,10 @@ def check_scaling(cfg: Config, world: int = 1, mp: int = 1) -> None:
     ragged one would re-weight its samples); the bf16 wire under the
     nested head over more than one rank (JAX draws that head's k per
     shard in its bf16 section; the check there does not look at K); the
-    bf16 wire over more than one data rank with the partial-FC CE or a
-    model axis above 1. `world` is the data axis's size."""
+    bf16 wire over more than one data rank with the partial-FC CE, a
+    model axis above 1 or the pipeline; `grad_accum` above 1 with the
+    pipeline (its microbatch loop is GPipe's). `world` is the data
+    axis's size, `mp` the product of the other axes."""
     p = cfg.parallel
     if p.grad_reduce_dtype not in ("float32", "bfloat16"):
         raise ValueError("parallel.grad_reduce_dtype must be "
@@ -334,6 +418,11 @@ def check_scaling(cfg: Config, world: int = 1, mp: int = 1) -> None:
             "shard_map program) — drop one of the two")
     zero_enabled(p.zero_opt, world)
     k = grad_accum(cfg)
+    if k > 1 and pipelined(cfg):
+        raise ValueError(
+            "grad-accum-indivisible: grad_accum > 1 does not compose with "
+            "the pipeline schedule (pipeline_microbatches already owns the "
+            "microbatch loop) — pick one microbatching scheme")
     if k > 1 and cfg.data.batch_size % k:
         raise ValueError(
             f"grad-accum-indivisible: per-process batch "
@@ -345,7 +434,7 @@ def check_scaling(cfg: Config, world: int = 1, mp: int = 1) -> None:
         raise ValueError(
             "grad_reduce_dtype=bfloat16 does not support the nested "
             "workload (per-batch mask k must be sampled globally)")
-    if want_bf16 and mp > 1:
+    if want_bf16 and (mp > 1 or pipelined(cfg)):
         raise ValueError(
             "grad_reduce_dtype=bfloat16 is the pure-DP fast path; it "
             "does not compose with a model/pipe axis — use float32 "
@@ -516,8 +605,10 @@ def make_train_step(cfg: Config, chaos: Optional[Any] = None,
     if cfg.optim.grad_transform not in ("none", "cdr"):
         raise ValueError(f"unknown optim.grad_transform "
                          f"{cfg.optim.grad_transform!r}; one of none, cdr")
-    mp = mesh.mp if mesh is not None else 1
-    check_scaling(cfg, mesh.dp if mp > 1 else ddp.world_size(), mp)
+    split = mesh is not None and mesh.sharded
+    check_scaling(cfg, mesh.dp if split else ddp.world_size(),
+                  mesh.mp * mesh.pp if split else 1)
+    check_pipeline(cfg, mesh)
     sharded_ce = _sharded_ce_on(cfg, mesh)
     o = cfg.optim
     cdr = o.grad_transform == "cdr"
@@ -560,6 +651,7 @@ def make_train_step(cfg: Config, chaos: Optional[Any] = None,
         model, opt = state.model, state.optimizer
         with _phase("optimizer"):
             ddp.sum_model_partials(model, state.mesh)
+            ddp.sum_stage_partials(model)
             if any(state.step >= lo and (hi is None or state.step <= hi)
                    for lo, hi in nan_windows):
                 loss = torch.full_like(loss, float("nan"))
@@ -623,6 +715,7 @@ def make_phase_probes(cfg: Config, mesh: Optional[Any] = None
 
     def norm(state: "TrainState") -> torch.Tensor:
         ddp.sum_model_partials(state.model, state.mesh)
+        ddp.sum_stage_partials(state.model)
         return _grad_norm([p for p in state.model.parameters()
                            if p.grad is not None], state)
 

@@ -14,7 +14,9 @@ captured weights, `--strict_compile` on a steady-state capture), and
 the model axis's bodies over N shards in one process (chip_smoke.py's
 phase 35 at reduced shapes): `flash_attention_with_lse` with an lse
 cotangent, the flash ring against `flash_attention` on the whole T, the
-EP combine against one shard, the partial-FC CE against the dense one.
+EP combine against one shard, the partial-FC CE against the dense one;
+and GPipe's stages in one process (chip_smoke.py's phase 36 (a) at a
+reduced shape) against the sequential stack.
 
 Marked `cuda`; each test skips (inside a fixture, never at import) where
 `torch.cuda.is_available()` is false. On the card, without JAX installed:
@@ -1124,3 +1126,44 @@ def test_partial_fc_shards_match_the_dense_margin_ce(cuda):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
         err = (a - b).pow(2).mean().sqrt().item()
         assert err <= 1e-5 * b.pow(2).mean().sqrt().item(), err
+
+
+@pytest.mark.parametrize("stages,micro", [(2, 4), (4, 8)])
+def test_gpipe_shards_match_the_sequential_stack(cuda, stages, micro):
+    """`gpipe_shards` over S stages of ViT-B/16-width blocks (depth 4,
+    dim 768, 12 heads, 196 tokens, batch 8, bf16) against the same blocks
+    in order, forward and backward: out, the input's gradient and every
+    parameter's within chip_smoke.py's PIPE_TOL (max |err| ≤ 6e-2 of the
+    largest, RMS ≤ 1e-2 of the RMS; out 3e-2 / 5e-3), M + S − 1 ticks."""
+    from ddp_classification_pytorch_tpu_torch.models.vit import Block
+    from ddp_classification_pytorch_tpu_torch.ops import pipeline
+
+    torch.manual_seed(39)
+    blocks = [Block(768, 12, torch.bfloat16).to(cuda) for _ in range(4)]
+    params = [p for b in blocks for p in b.parameters()]
+    g = torch.Generator(device=cuda).manual_seed(39)
+    x = torch.randn(8, 196, 768, device=cuda, generator=g).to(torch.bfloat16)
+    dout = torch.randn(8, 196, 768, device=cuda, generator=g).to(torch.bfloat16)
+
+    def fn(block, h):
+        return block(h)[0]
+
+    h = x.clone().requires_grad_()
+    out = pipeline.stage_apply(fn, blocks, h)
+    out.backward(dout)
+    n = 4 // stages
+    got = pipeline.gpipe_shards(
+        fn, [blocks[i * n:(i + 1) * n] for i in range(stages)], x, micro, dout)
+    assert got.ticks == micro + stages - 1
+
+    def close(a, b, tol):
+        d = (a.float() - b.float())
+        assert d.abs().max() <= tol[0] * b.float().abs().max()
+        assert d.pow(2).mean().sqrt() <= tol[1] * b.float().pow(2).mean().sqrt()
+
+    close(got.out, out.detach(), (3e-2, 5e-3))
+    close(got.dx, h.grad, (6e-2, 1e-2))
+    grads = [gr for stage in got.grads for gr in stage]
+    assert len(grads) == len(params)
+    for a, p in zip(grads, params):
+        close(a, p.grad, (6e-2, 1e-2))

@@ -65,7 +65,7 @@ for name in ("models.resnet", "models.batchnorm", "parallel.ddp",
              "models.torch_oracle", "models.import_torch",
              "cli.verify_import", "obs.trace", "utils.debug_nans",
              "analysis.compile_sentinel", "serve.aot", "parallel.mesh",
-             "train.flax_msgpack"):
+             "train.flax_msgpack", "ops.pipeline", "models.pipeline_vit"):
     assert f"{port}.{name}" in names, name
 # the item route's decoder is the port's own C++ source, built from the
 # repo (it includes the dataplane's source; PIL stays refused)

@@ -13,9 +13,11 @@ against the JAX CLI's.
 - `shard_dim` (JAX's `_spec_for_param` in the port's names) shards
   exactly the class-dim matrices and the MoE banks, on their class /
   expert dim, over whole models of every head;
-- the elastic gate `check_viable` reads the model axis as JAX's does;
-- `--mp`, `--sharded_ce` and `--dcn_slices` parse as JAX's do, and a
-  world of one refuses `--mp 2` with the mesh text.
+- the elastic gate `check_viable` reads the model and pipe axes as JAX's
+  does;
+- `--mp`, `--sharded_ce` and `--dcn_slices` parse as JAX's do (and the
+  pipeline's `--pp_microbatches` and `--pp_stages`), and a world of one
+  refuses `--mp 2` with the mesh text.
 """
 
 import numpy as np
@@ -180,6 +182,12 @@ def test_check_viable_reads_the_model_axis():
         fleet.check_viable([0, 1, 2], data_parallel=0, model_parallel=2)
     with pytest.raises(fleet.PodUnviable, match="not the configured --dp"):
         fleet.check_viable([0, 1, 2], data_parallel=2)
+    # the pipe axis counts too (JAX passes pp to its gate)
+    fleet.check_viable([0, 1, 2, 3], data_parallel=0, model_parallel=1,
+                       pipeline_parallel=2)
+    with pytest.raises(fleet.PodUnviable, match=r"mp=2×pp=2\)"):
+        fleet.check_viable([0, 1, 2, 3, 4, 5], data_parallel=0,
+                           model_parallel=2, pipeline_parallel=2)
 
 
 @pytest.mark.parametrize("argv", [
@@ -198,9 +206,13 @@ def test_model_axis_flags_parse_as_jaxs(argv):
 
 @pytest.mark.parametrize("flag", ["--pp_microbatches", "--pp_stages"])
 def test_pipeline_flags_stay_unknown(capsys, flag):
-    with pytest.raises(SystemExit) as e:
-        port_cli.build_parser().parse_args(["baseline", flag, "2"])
-    assert e.value.code == 2
+    """The pipeline flags, unknown to the port before GPipe was ported,
+    now parse as JAX's parser parses them."""
+    argv = ["baseline", flag, "2"]
+    port_args = port_cli.build_parser().parse_args(argv)
+    jax_args = jax_cli.build_parser().parse_args(argv)
+    for key in ("pp_microbatches", "pp_stages"):
+        assert getattr(port_args, key) == getattr(jax_args, key), key
 
 
 def test_mp2_on_one_rank_exits_2_with_the_mesh_text(tmp_path, capsys):
